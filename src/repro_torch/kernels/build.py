@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface, so ``nvcc`` compiles
+them in seconds into one shared library that ``ctypes`` loads; no PyTorch
+header is involved.  The library is built at first use into
+``build/repro_torch/`` at the root of the checkout, under a name keyed on a
+hash of the sources and flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  Nothing is built at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import List, Tuple
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+
+def sources() -> List[Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libaggregate-{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    if (home / "bin" / "nvcc").exists():
+        return str(home / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA kernels cannot be built")
+
+
+def build() -> Tuple[Path, str]:
+    """Compile the kernels if this source hash has no library yet.
+
+    Returns the library's path and the compiler's report (``-Xptxas=-v``:
+    registers, shared memory and spills per kernel), empty when the
+    library was already built.
+    """
+    so = library_path()
+    if so.exists():
+        return so, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [
+        str(p) for p in sources() if p.suffix == ".cu"
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, so)  # atomic: a concurrent loader sees no half-written file
+    return so, proc.stdout + proc.stderr
+
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_SIGNATURES = {
+    "repro_segment_aggregate_f32": [_P, _P, _P, _P, _P, _I64, _I64, _P],
+    "repro_segment_aggregate_bf16": [_P, _P, _P, _P, _P, _I64, _I64, _P],
+    "repro_aggregate_f32": [_P, _P, _P, _I64, _I64, _P],
+    "repro_aggregate_bf16": [_P, _P, _P, _I64, _I64, _P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built if needed, with every entry's
+    argument types declared (a pointer passed without them is cut to 32
+    bits)."""
+    lib = ctypes.CDLL(str(build()[0]))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
