@@ -6,22 +6,38 @@
 Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch version;
-2. the kernel build (``nvcc`` into ``build/repro_torch/``), with its seconds;
-3. every kernel against its plain PyTorch version on the card, at the
-   main path's shapes plus ragged and empty-segment cases, in fp32 (1e-5)
-   and bf16 (2e-2); at the main path's shapes, the kernel's, the plain
-   version's and one PyTorch library call's device times (CUDA events over
-   back-to-back launches) beside the bound the card's memory rate sets, and
-   the host's wall time per call of the kernel and of its public wrapper;
-4. the port's sync engine on the card against the same engine on the CPU
-   (heartbeat at scale 0.02, two cloud rounds, same seed and inputs);
-5. the main path at full size: ``build_scenario("heartbeat")``,
+2. the kernel build (one ``nvcc`` per source, side by side, linked into
+   ``build/repro_torch/librepro_torch-<hash>.so``), with its seconds and
+   each kernel's registers and spills;
+3. every kernel against its plain PyTorch version on the card, with the
+   kernel's, the plain version's and one PyTorch library call's device
+   times (CUDA events over back-to-back launches) beside the least time the
+   card could take (``bound_ms``): the FedAvg reductions at the heartbeat
+   path's shapes (fp32 1e-5, bf16 2e-2); flash attention at the qwen3-14b
+   serve prefill, at starcoder2-3b's widths with its 4096 window biting,
+   and in fp32 (fp32 2e-5, bf16 2e-2); top-k gating at the granite-moe
+   router shape (1e-5);
+4. card against CPU: the heartbeat sync engine (scale 0.02, two cloud
+   rounds), and the qwen3-14b smoke config served with the same parameters
+   (prefill logits 1e-4, identical greedy tokens);
+5. the heartbeat path at full size: ``build_scenario("heartbeat")``,
    ``assign("eara-sca")``, ``simulate(engine="sync", pipeline="device",
    cloud_rounds=5)``, then one cloud round under ``assign("eara-dca")``;
    launch counts are zeroed just before and read just after;
 6. two more SCA cloud rounds on a fresh engine, the second timed, then
    one under ``torch.profiler``: wall times, the card's busy share and the
-   kernels that take the most device time.
+   kernels that take the most device time;
+7. serve exactness on the card at qwen3-14b widths cut to 2 layers in
+   fp32: a uniform batch gives the same tokens with ``use_flash`` on and
+   off, and a ragged batch the same tokens as its requests served alone;
+8. the serving path at full width: ``ServeEngine`` on qwen3-14b (40
+   layers, bf16, random weights from seed 0) with ``use_flash=True``, a
+   uniform batch of 4 prompts of 2048 tokens with 32 new tokens each
+   (launch counts zeroed just before and read just after: 40 flash
+   launches, one per layer of the prefill, none in decode), then a ragged
+   batch through the pad-mask path (no flash launch), then the same
+   parameters with ``use_flash=False`` (prefill-logit difference, token
+   agreement), then one prefill and 4 decode steps under ``torch.profiler``.
 
 The last lines are a JSON ``kernels`` record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -30,19 +46,32 @@ beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-SOURCE = "src/repro_torch/kernels/csrc/aggregate.cu"
+AGG_SOURCE = "src/repro_torch/kernels/csrc/aggregate.cu"
 SEG_REPLACES = "src/repro/kernels/segment_aggregate.py:82"
 AGG_REPLACES = "src/repro/kernels/hier_aggregate.py:45"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:131"
+TOPK_SOURCE = "src/repro_torch/kernels/csrc/topk_gating.cu"
+TOPK_REPLACES = "src/repro/kernels/topk_gating.py:53"
 
-# device memory rate by card name (NVIDIA data sheets), bytes/s
-_MEM_RATE = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
+# by card name (NVIDIA data sheets, dense rates): memory bytes/s, bf16
+# tensor-core FLOP/s, fp32 (non-tensor) FLOP/s
+_RATES = (
+    ("H200", (4.8e12, 989e12, 67e12)),
+    ("H100 NVL", (3.9e12, 835e12, 60e12)),
+    ("H100 PCIe", (2.0e12, 756e12, 51e12)),
+    ("H100", (3.35e12, 989e12, 67e12)),
+)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+HEARTBEAT_KERNELS = ("hier_segment_aggregate", "hier_aggregate")
 
 
 def _require(ok: bool, message: str) -> None:
@@ -59,11 +88,12 @@ def _smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _mem_rate(name: str) -> float:
-    for key, rate in _MEM_RATE:
+def _rates(name: str):
+    """(memory bytes/s, bf16 FLOP/s, fp32 FLOP/s) of the card."""
+    for key, rates in _RATES:
         if key in name:
-            return rate
-    raise RuntimeError(f"no memory rate known for card {name!r}")
+            return rates
+    raise RuntimeError(f"no rates known for card {name!r}")
 
 
 def _device_ms(fn, iters: int = 200, warmup: int = 20):
@@ -120,6 +150,10 @@ def _close(got, want, tol: float) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
+def _fmt(t: dict) -> str:
+    return " ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in t.items())
+
+
 def _timings(kernel, wrapper, plain, library, nbytes: int, rate: float) -> dict:
     """The timed numbers of one kernel at one shape (fp32)."""
     ms, kernel_host_ms = _device_ms(kernel)
@@ -128,6 +162,7 @@ def _timings(kernel, wrapper, plain, library, nbytes: int, rate: float) -> dict:
         "plain_ms": _device_ms(plain)[0],
         "library_ms": _device_ms(library)[0],
         "bound_ms": nbytes / rate * 1e3,
+        "bound_by": "bytes",
         "kernel_host_ms": kernel_host_ms,
         "wrapper_host_ms": _host_ms(wrapper),
     }
@@ -201,7 +236,7 @@ def _kernel_phase(rate: float, d_model: int) -> dict:
                 )
                 if timed == "main":
                     result["seg"].update(t)
-                line += " " + " ".join(f"{k}={v:.4g}" for k, v in t.items())
+                line += " " + _fmt(t)
             print(line, flush=True)
     for n, d, timed in ((5, d_model, True), (4, 1000, False), (13, d_model, False), (32, 512, False)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -225,7 +260,7 @@ def _kernel_phase(rate: float, d_model: int) -> dict:
                     rate=rate,
                 )
                 result["agg"].update(t)
-                line += " " + " ".join(f"{k}={v:.4g}" for k, v in t.items())
+                line += " " + _fmt(t)
             print(line, flush=True)
     return result
 
@@ -293,8 +328,8 @@ def _main_path():
             _require(bool(torch.isfinite(leaf).all()), "non-finite parameters")
     final = res.final_accuracy()
     _require(final > 0.4, f"final EARA-SCA accuracy {final} is not above 0.4 (twice chance)")
-    for name, n in counts.items():
-        _require(n > 0, f"kernel {name} was not launched on the main path")
+    for name in HEARTBEAT_KERNELS:
+        _require(counts[name] > 0, f"kernel {name} was not launched on the heartbeat path")
     return counts, sc, sca.lam
 
 
@@ -321,21 +356,330 @@ def _profile_round(sc, lam) -> None:
         eng.run(1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    _report_profile(prof, plain_wall, wall, "profile: round")
+
+
+def _report_profile(prof, plain_wall: float, wall: float, label: str) -> None:
+    """The card's busy share (kernel time over wall time; one stream) and
+    the kernels that take the most device time."""
+    import torch
+
     device = [
         e for e in prof.key_averages()
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
     ]
     busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in device)
     launches = sum(e.count for e in device)
-    walls = f"round wall {plain_wall:.4f}s unprofiled, {wall:.4f}s profiled"
+    walls = f"wall {plain_wall:.4f}s unprofiled, {wall:.4f}s profiled"
     if busy_us <= 0:
-        print(f"profile: {walls}; the trace holds no device time (not measured)", flush=True)
+        print(f"{label} {walls}; the trace holds no device time (not measured)", flush=True)
         return
     busy = busy_us / 1e6
-    print(f"profile: {walls}; device busy {busy:.4f}s = {busy / plain_wall:.4f} of the unprofiled "
-          f"round ({busy / wall:.4f} of the profiled one); device ops {launches}", flush=True)
+    print(f"{label} {walls}; device busy {busy:.4f}s = {busy / plain_wall:.4f} of the unprofiled "
+          f"run ({busy / wall:.4f} of the profiled one); device ops {launches}", flush=True)
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"profile: {e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:90]}", flush=True)
+        print(f"{label}: {e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:90]}", flush=True)
+
+
+def _attention_work(b: int, s: int, hq: int, hkv: int, d: int, window, elt: int):
+    """(operations, bytes) causal attention must do and move: 4 * d
+    operations per visible (query, key) pair and head (q.k and p.v), and
+    q, k, v read once and o written once."""
+    w = s if window is None else min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w  # sum over q of min(q + 1, w)
+    return 4 * b * hq * d * pairs, (2 * b * s * hq * d + 2 * b * s * hkv * d) * elt
+
+
+def _bound(ops: float, nbytes: float, peak: float, rate: float):
+    """(bound_ms, bound_by): the larger of the operations and bytes times."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / rate * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _flash_phase(rates) -> dict:
+    """Phase 3, flash attention: the kernel against its plain version on
+    the card, and device times at (a) the qwen3-14b serve prefill, (b)
+    starcoder2-3b's heads at 8192 tokens with its 4096 window."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import _launch, flash_attention, flash_attention_ref
+
+    rate, peak_bf16, peak_f32 = rates
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    cases = [
+        # label, B, S, Hq, Hkv, D, window, dtype, timed
+        ("qwen3-14b prefill", 4, 2048, 40, 8, 128, None, torch.bfloat16, "main"),
+        ("starcoder2-3b window", 1, 8192, 24, 2, 128, 4096, torch.bfloat16, "timed"),
+        ("fp32", 2, 1024, 16, 4, 128, None, torch.float32, None),
+        ("fp32 window < tile", 2, 300, 8, 2, 64, 7, torch.float32, None),
+        ("fp32 ragged tail", 3, 77, 6, 3, 32, 100, torch.float32, None),
+        ("fp32 smoke heads", 2, 130, 8, 2, 16, None, torch.float32, None),
+        ("fp32 phi3-mini heads", 1, 300, 32, 32, 96, None, torch.float32, None),
+        ("bf16 MQA", 2, 515, 8, 1, 128, 64, torch.bfloat16, None),
+    ]
+    result = {"max_abs_err": 0.0}
+    for label, b, s, hq, hkv, d, window, dtype, timed in cases:
+        q = torch.randn((b, s, hq, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+        got = flash_attention(q, k, v, window=window)
+        want = flash_attention_ref(q, k, v, window=window)
+        torch.cuda.synchronize()
+        err = _close(got, want, FLASH_TOL[str(dtype).split(".")[1]])
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        line = f"kernel flash_attention [{label}] B={b} S={s} Hq={hq} Hkv={hkv} D={d} window={window} {dtype}: max_abs_err={err:.3g}"
+        if timed:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            if window is None:
+                library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            else:  # an explicit band mask; kv repeated beforehand, outside the timed call
+                pos = torch.arange(s, device=dev)
+                band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+                kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (kt, vt))
+                library = lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=band)
+            ops, nbytes = _attention_work(b, s, hq, hkv, d, window, q.element_size())
+            bound_ms, bound_by = _bound(ops, nbytes, peak_bf16 if dtype == torch.bfloat16 else peak_f32, rate)
+            t = {
+                "ms": _device_ms(lambda: _launch(q, k, v, True, window), iters=10, warmup=2)[0],
+                "plain_ms": _device_ms(lambda: flash_attention_ref(q, k, v, window=window), iters=3, warmup=1)[0],
+                "library_ms": _device_ms(library, iters=10, warmup=2)[0],
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+            }
+            if timed == "main":
+                result.update(t)
+            line += " " + _fmt(t)
+            line += f" tflops={ops / t['ms'] / 1e9:.4g}"
+        print(line, flush=True)
+    return result
+
+
+def _topk_phase(rate: float) -> dict:
+    """Phase 3, top-k gating: the kernel against its plain version on the
+    card (1e-5), timed at granite-moe-3b-a800m's router shape (E 40, k 8)
+    for 8192 tokens.  No single PyTorch call computes it: no library time."""
+    import torch
+
+    from repro_torch.kernels.topk_gating import _launch, topk_gating, topk_gating_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(1)
+    ties = torch.zeros((4, 40), device=dev)
+    ties[1, ::3] = 1.0
+    ties[2, 5] = 300.0  # every other probability underflows to 0
+    cases = [
+        ("granite-moe router", torch.randn((8192, 40), generator=gen, device=dev) * 2, 8, "main"),
+        ("bf16", (torch.randn((8192, 40), generator=gen, device=dev) * 2).to(torch.bfloat16), 8, None),
+        ("E 1000", torch.randn((300, 1000), generator=gen, device=dev) * 2, 8, None),
+        ("ties and underflow", ties, 8, None),
+        ("k > E", torch.randn((64, 33), generator=gen, device=dev), 40, None),
+    ]
+    result = {"max_abs_err": 0.0}
+    for label, x, k, timed in cases:
+        got = topk_gating(x, k)
+        want = topk_gating_ref(x, k)
+        torch.cuda.synchronize()
+        err = _close(got, want, 1e-5)
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        line = f"kernel topk_gating [{label}] T={x.shape[0]} E={x.shape[1]} k={k} {x.dtype}: max_abs_err={err:.3g}"
+        if timed:
+            t = {
+                "ms": _device_ms(lambda: _launch(x, k))[0],
+                "plain_ms": _device_ms(lambda: topk_gating_ref(x, k))[0],
+                "library_ms": None,
+                "bound_ms": x.numel() * (x.element_size() + 4) / rate * 1e3,
+                "bound_by": "bytes",
+            }
+            result.update(t)
+            line += " " + _fmt(t)
+        print(line, flush=True)
+    return result
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def _serve_card_vs_cpu() -> None:
+    """Phase 4, serving: the qwen3-14b smoke config with the same parameters
+    on the card and on the CPU, with the flash branch off and on."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import prefill
+    from repro_torch.serving import Request, ServeEngine
+
+    params = init_params(torch.Generator().manual_seed(0), get_smoke_config("qwen3-14b"))
+    prompts = np.random.default_rng(0).integers(0, 256, (3, 100))
+    for use_flash in (False, True):
+        cfg = dataclasses.replace(get_smoke_config("qwen3-14b"), use_flash=use_flash)
+        logits, outs = {}, {}
+        for d in ("cuda", "cpu"):
+            p = _tree_to(params, d)
+            with torch.inference_mode():
+                logits[d] = prefill(p, cfg, torch.as_tensor(prompts, device=d), max_seq=128)[0].cpu()
+            eng = ServeEngine(cfg, params=p, max_seq=128, device=d)
+            outs[d] = [r.out for r in eng.run([Request(x.astype(np.int32), max_new_tokens=16) for x in prompts])]
+        diff = float((logits["cuda"] - logits["cpu"]).abs().max())
+        same = all(np.array_equal(a, b) for a, b in zip(outs["cuda"], outs["cpu"]))
+        print(f"card-vs-cpu serve {cfg.name} use_flash={use_flash}: prefill logits max |diff| {diff:.3g}, "
+              f"greedy tokens identical {same}", flush=True)
+        _require(diff <= 1e-4, "card and CPU prefill logits disagree")
+        _require(same, "card and CPU greedy tokens disagree")
+
+
+def _serve_exactness() -> None:
+    """Phase 7: qwen3-14b widths cut to 2 layers, fp32, on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config("qwen3-14b"), n_layers=2, dtype="float32", use_flash=True)
+    params = init_params(torch.Generator("cuda").manual_seed(1), cfg)
+    rng = np.random.default_rng(1)
+
+    def serve(engine, prompts):
+        return [r.out for r in engine.run([Request(p, max_new_tokens=8) for p in prompts])]
+
+    flash = ServeEngine(cfg, params=params, max_seq=1600, device="cuda")
+    plain = ServeEngine(dataclasses.replace(cfg, use_flash=False), params=params, max_seq=1600, device="cuda")
+    uniform = list(rng.integers(0, cfg.vocab_size, (4, 1536)).astype(np.int32))
+    a, b = serve(flash, uniform), serve(plain, uniform)
+    same = all(np.array_equal(x, y) for x, y in zip(a, b))
+    print(f"serve exact: {cfg.name} 2 layers fp32, uniform 4 x 1536: use_flash on/off tokens identical {same}", flush=True)
+    _require(same, "use_flash on and off give different tokens in fp32")
+    ragged = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (1536, 1000, 777, 1200)]
+    batched = serve(flash, ragged)
+    for i, p in enumerate(ragged):
+        solo = serve(flash, [p])[0]
+        _require(np.array_equal(batched[i], solo), f"ragged row {i} (len {len(p)}) differs from solo")
+    print("serve exact: ragged batch (1536, 1000, 777, 1200) token-identical to each request served alone", flush=True)
+    del flash, plain, params
+    torch.cuda.empty_cache()
+
+
+def _serve_path():
+    """Phase 8: qwen3-14b at full width through ServeEngine on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import prefill
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.telemetry import Telemetry
+
+    cfg = dataclasses.replace(get_config("qwen3-14b"), use_flash=True)
+    t0 = time.perf_counter()
+    tel = Telemetry()
+    engine = ServeEngine(cfg, max_seq=2080, seed=0, device="cuda", telemetry=tel)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(engine.params))
+    print(f"serve: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} {cfg.dtype}, {n_params} parameters "
+          f"drawn in {time.perf_counter() - t0:.3f}s; memory allocated {torch.cuda.memory_allocated()} bytes", flush=True)
+    rng = np.random.default_rng(0)
+    engine.run([Request(rng.integers(0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=2)])  # warm-up
+
+    def spans():
+        pre = [s for s in tel.tracer.spans if s.name == "prefill"][-1]
+        dec = [s for s in tel.tracer.spans if s.name == "decode"][-1]
+        return pre, dec
+
+    prompts = rng.integers(0, cfg.vocab_size, (4, 2048)).astype(np.int32)
+    reqs = [Request(p, max_new_tokens=32) for p in prompts]
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    pre, dec = spans()
+    print(f"serve: uniform 4 x 2048, 32 new tokens: prefill {pre.duration:.4f}s, decode {dec.attrs['steps']} steps "
+          f"{dec.duration:.4f}s = {dec.attrs['tokens'] / dec.duration:.2f} tok/s, all tokens "
+          f"{(pre.attrs['tokens'] + dec.attrs['tokens']) / (pre.duration + dec.duration):.2f} tok/s; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes", flush=True)
+    print(f"serve: launches {json.dumps(counts)}", flush=True)
+    _require(counts["flash_attention"] == cfg.n_layers,
+             f"{counts['flash_attention']} flash launches, not one per layer of the prefill ({cfg.n_layers})")
+    for r in reqs:
+        _require(r.out.shape == (32,) and 0 <= r.out.min() and r.out.max() < cfg.vocab_size, "bad tokens")
+
+    lens = np.concatenate([[2048], rng.integers(1500, 2048, 3)])
+    ragged = [Request(rng.integers(0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=32) for n in lens]
+    reset_launch_counts()
+    engine.run(ragged)
+    torch.cuda.synchronize()
+    pre, dec = spans()
+    print(f"serve: ragged {lens.tolist()}, 32 new tokens: prefill {pre.duration:.4f}s, decode "
+          f"{dec.attrs['tokens'] / dec.duration:.2f} tok/s; flash launches {launch_counts()['flash_attention']}", flush=True)
+    _require(launch_counts()["flash_attention"] == 0, "the pad-mask prefill launched the flash kernel")
+
+    plain_cfg = dataclasses.replace(cfg, use_flash=False)
+    toks = torch.as_tensor(prompts, device="cuda")
+    with torch.inference_mode():
+        lf = prefill(engine.params, cfg, toks, max_seq=2048)[0]
+        lp = prefill(engine.params, plain_cfg, toks, max_seq=2048)[0]
+    _require(bool(torch.isfinite(lf).all() and torch.isfinite(lp).all()), "non-finite prefill logits")
+    diff = float((lf - lp).abs().max())
+    argmax_same = int((lf.argmax(-1) == lp.argmax(-1)).sum())
+    del lf, lp
+    plain = ServeEngine(plain_cfg, params=engine.params, max_seq=2080, device="cuda")
+    plain_out = [r.out for r in plain.run([Request(p, max_new_tokens=32) for p in prompts])]
+    agree = [int(np.sum(np.cumprod(a == b))) for a, b in zip((r.out for r in reqs), plain_out)]
+    print(f"serve: bf16 use_flash on vs off, same params: prefill logits max |diff| {diff:.4g}, first tokens "
+          f"equal {argmax_same}/4, leading tokens equal per row {agree} of 32", flush=True)
+
+    short = [Request(p, max_new_tokens=5) for p in prompts]
+    engine.run(short)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run(short)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run(short)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report_profile(prof, plain_wall, wall, "serve profile: prefill + 4 decode steps")
+    return counts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _build_report(log: str) -> None:
+    """Each kernel's registers and spills from ``-Xptxas=-v``."""
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(segment_aggregate_kernel|aggregate_kernel|flash_attention_kernel|topk_gating_kernel)I(.+?)E+v", line)
+        if m:
+            args = m.group(2).replace("13__nv_bfloat16", "bf16,").replace("Li", "").rstrip(",")
+            name = f"{m.group(1)}<{'f32,' + args[1:] if args.startswith('f') else args}>".replace(",>", ">")
+        elif name and ("registers" in line or "spill" in line):
+            print(f"build: {name}: {line.split(':', 1)[-1].strip()}", flush=True)
 
 
 def main() -> int:
@@ -348,35 +692,43 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails when the package is not beside the script)
     from repro_torch.kernels.build import build
 
+    t_start = time.perf_counter()
     smi = _smi()
     name = torch.cuda.get_device_name(0)
+    rates = _rates(name)
     print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     so, log = build()
     print(f"build: {so.name} in {time.perf_counter() - t0:.3f}s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build: {line.strip()}", flush=True)
+    _build_report(log)
     from repro_torch.federated.programs import CNNProgram
     from repro_torch.utils.tree import tree_num_params
 
     d_model = tree_num_params(CNNProgram().init(torch.Generator().manual_seed(0)))
-    kern = _kernel_phase(_mem_rate(name), d_model)
+    kern = _kernel_phase(rates[0], d_model)
+    kern["flash"] = _flash_phase(rates)
+    kern["topk"] = _topk_phase(rates[0])
     _card_vs_cpu()
+    _serve_card_vs_cpu()
     counts, sc, lam = _main_path()
     _profile_round(sc, lam)
+    _serve_exactness()
+    serve_counts = _serve_path()
     record = []
-    for key, fn_name, replaces in (
-        ("seg", "hier_segment_aggregate", SEG_REPLACES),
-        ("agg", "hier_aggregate", AGG_REPLACES),
+    for key, fn_name, source, replaces, launches in (
+        ("seg", "hier_segment_aggregate", AGG_SOURCE, SEG_REPLACES, counts),
+        ("agg", "hier_aggregate", AGG_SOURCE, AGG_REPLACES, counts),
+        ("flash", "flash_attention", FLASH_SOURCE, FLASH_REPLACES, serve_counts),
+        ("topk", "topk_gating", TOPK_SOURCE, TOPK_REPLACES, serve_counts),
     ):
         k = kern[key]
         record.append({
-            "name": fn_name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": counts[fn_name], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": "bytes",
+            "name": fn_name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[fn_name], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(json.dumps({"kernels": record}), flush=True)
     print(_smi(), flush=True)
     device = {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}

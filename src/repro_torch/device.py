@@ -34,8 +34,12 @@ def configure_numerics(device: torch.device) -> None:
 
     cuDNN runs float32 convolutions in TF32 by default, which keeps about
     three decimal digits and would put the card's trajectory outside the
-    tolerances that hold it to the CPU run and to the reference.
+    tolerances that hold it to the CPU run and to the reference.  bf16
+    products may by default reduce partial sums in bf16; the reference
+    accumulates them in fp32 (``preferred_element_type``), so that is off
+    too.
     """
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

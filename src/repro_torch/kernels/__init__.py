@@ -1,24 +1,29 @@
 """Hand-written CUDA kernels of the port, each beside its plain version.
 
-============================  ==============================================
-kernel                        replaces (reference Pallas kernel)
-============================  ==============================================
-``hier_segment_aggregate``    ``src/repro/kernels/segment_aggregate.py``
-``hier_aggregate``            ``src/repro/kernels/hier_aggregate.py``
-============================  ==============================================
+============================  ==============================================  ==================================
+kernel                        replaces (reference Pallas kernel)              CUDA source (``csrc/``)
+============================  ==============================================  ==================================
+``hier_segment_aggregate``    ``src/repro/kernels/segment_aggregate.py``      ``aggregate.cu``
+``hier_aggregate``            ``src/repro/kernels/hier_aggregate.py``         ``aggregate.cu``
+``flash_attention``           ``src/repro/kernels/flash_attention.py``        ``flash_attention.cu``
+``topk_gating``               ``src/repro/kernels/topk_gating.py``            ``topk_gating.cu``
+============================  ==============================================  ==================================
 
-The reference's ``flash_attention`` and ``topk_gating`` serve the sequence
-models, which this port does not carry yet (ROADMAP.md Queue 2).
+All four are built into one library, ``build/repro_torch/librepro_torch-<hash>.so``
+(``build.py``).  ``topk_gating`` has no caller on a model path: the
+reference's MoE router does not call its kernel either.
 """
 from typing import Dict
 
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.hier_aggregate import hier_aggregate, hier_aggregate_ref
 from repro_torch.kernels.segment_aggregate import (
     hier_segment_aggregate,
     hier_segment_aggregate_ref,
 )
+from repro_torch.kernels.topk_gating import topk_gating, topk_gating_ref
 
-KERNELS = (hier_segment_aggregate, hier_aggregate)
+KERNELS = (hier_segment_aggregate, hier_aggregate, flash_attention, topk_gating)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -33,10 +38,14 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS",
+    "flash_attention",
+    "flash_attention_ref",
     "hier_aggregate",
     "hier_aggregate_ref",
     "hier_segment_aggregate",
     "hier_segment_aggregate_ref",
     "launch_counts",
     "reset_launch_counts",
+    "topk_gating",
+    "topk_gating_ref",
 ]

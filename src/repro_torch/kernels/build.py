@@ -2,7 +2,9 @@
 
 The sources under ``csrc/`` have a plain C interface, so ``nvcc`` compiles
 them in seconds into one shared library that ``ctypes`` loads; no PyTorch
-header is involved.  The library is built at first use into
+header is involved.  Each source is compiled by its own ``nvcc`` process,
+all started together, and the objects are linked into
+``librepro_torch-<hash>.so``.  The library is built at first use into
 ``build/repro_torch/`` at the root of the checkout, under a name keyed on a
 hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is.  Nothing is built at import.
@@ -22,7 +24,7 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 
@@ -35,7 +37,7 @@ def library_path() -> Path:
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_DIR / f"libaggregate-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"librepro_torch-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -46,6 +48,17 @@ def _nvcc() -> str:
     if (home / "bin" / "nvcc").exists():
         return str(home / "bin" / "nvcc")
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA kernels cannot be built")
+
+
+def _run(cmds: List[List[str]]) -> str:
+    """Run the commands side by side; raise with the first failure's output.
+    Returns their output, in the order given."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 def build() -> Tuple[Path, str]:
@@ -59,18 +72,18 @@ def build() -> Tuple[Path, str]:
     if so.exists():
         return so, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [
-        str(p) for p in sources() if p.suffix == ".cu"
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{so.stem}.{os.getpid()}"
+    units = {p: BUILD_DIR / f"{tag}.{p.stem}.o" for p in sources() if p.suffix == ".cu"}
+    tmp = so.with_name(f"{tag}.tmp.so")
+    try:
+        log = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in units.items()])
+        log += _run([[_nvcc(), "-shared", "-o", str(tmp), *map(str, units.values())]])
+        os.replace(tmp, so)  # atomic: a concurrent loader sees no half-written file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, so)  # atomic: a concurrent loader sees no half-written file
-    return so, proc.stdout + proc.stderr
+        for o in units.values():
+            o.unlink(missing_ok=True)
+    return so, log
 
 
 _P = ctypes.c_void_p
@@ -80,6 +93,10 @@ _SIGNATURES = {
     "repro_segment_aggregate_bf16": [_P, _P, _P, _P, _P, _I64, _I64, _P],
     "repro_aggregate_f32": [_P, _P, _P, _I64, _I64, _P],
     "repro_aggregate_bf16": [_P, _P, _P, _I64, _I64, _P],
+    "repro_flash_attention_f32": [_P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_int, _I64, _P],
+    "repro_flash_attention_bf16": [_P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_int, _I64, _P],
+    "repro_topk_gating_f32": [_P, _P, _I64, _I64, _I64, _P],
+    "repro_topk_gating_bf16": [_P, _P, _I64, _I64, _I64, _P],
 }
 
 

@@ -72,3 +72,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         BatchedSyncEngine(sc.clients, lam, sc.program, sc.test)
     with pytest.raises(ValueError, match="device"):
         resolve_device("meta")
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_smoke_config("qwen3-14b")
+    with pytest.raises(RuntimeError, match="device="):
+        ServeEngine(cfg, max_seq=16)
+    with pytest.raises(RuntimeError, match="device="):
+        serve_launch.main(["--batch", "1", "--prompt-len", "2", "--tokens", "1"])
+    ServeEngine(cfg, max_seq=16, device="cpu")
