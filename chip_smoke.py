@@ -7,16 +7,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch version;
 2. the kernel build (one ``nvcc`` per source, side by side, linked into
-   ``build/repro_torch/librepro_torch-<hash>.so``), with its seconds and
-   each kernel's registers and spills;
+   ``build/repro_torch/librepro_torch-<hash>.so``), with its seconds,
+   each kernel's registers and spills, and the ``HGMMA`` (tensor-core) and
+   ``UTMALDG`` (TMA load) instructions in the ``wgmma`` flash kernel's SASS;
 3. every kernel against its plain PyTorch version on the card, with the
    kernel's, the plain version's and one PyTorch library call's device
    times (CUDA events over back-to-back launches) beside the least time the
    card could take (``bound_ms``): the FedAvg reductions at the heartbeat
-   path's shapes (fp32 1e-5, bf16 2e-2); flash attention at the qwen3-14b
-   serve prefill, at starcoder2-3b's widths with its 4096 window biting,
-   and in fp32 (fp32 2e-5, bf16 2e-2); top-k gating at the granite-moe
-   router shape (1e-5);
+   path's shapes (fp32 1e-5, bf16 2e-2); flash attention, bf16 on the
+   ``wgmma`` kernel, at the qwen3-14b serve prefill and at starcoder2-3b's
+   widths with its 4096 window biting, fp32 on the SIMT kernel at its own
+   case, plus untimed cases (d 96, windows below the tile, ragged lengths,
+   a fused projection's views; fp32 2e-5, bf16 2e-2), each checked to have
+   launched its dtype's variant; top-k gating at the granite-moe router
+   shape (1e-5);
 4. card against CPU: the heartbeat sync engine (scale 0.02, two cloud
    rounds), and the qwen3-14b smoke config served with the same parameters
    (prefill logits 1e-4, identical greedy tokens);
@@ -34,10 +38,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    layers, bf16, random weights from seed 0) with ``use_flash=True``, a
    uniform batch of 4 prompts of 2048 tokens with 32 new tokens each
    (launch counts zeroed just before and read just after: 40 flash
-   launches, one per layer of the prefill, none in decode), then a ragged
-   batch through the pad-mask path (no flash launch), then the same
-   parameters with ``use_flash=False`` (prefill-logit difference, token
-   agreement), then one prefill and 4 decode steps under ``torch.profiler``.
+   launches, one per layer of the prefill, all of the ``wgmma`` variant,
+   none in decode), then a ragged batch through the pad-mask path (no
+   flash launch), then the same parameters with ``use_flash=False``
+   (prefill-logit difference, token agreement), then one prefill and 4
+   decode steps under ``torch.profiler``.
 
 The last lines are a JSON ``kernels`` record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -55,7 +60,8 @@ from pathlib import Path
 AGG_SOURCE = "src/repro_torch/kernels/csrc/aggregate.cu"
 SEG_REPLACES = "src/repro/kernels/segment_aggregate.py:82"
 AGG_REPLACES = "src/repro/kernels/hier_aggregate.py:45"
-FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
+FLASH_SIMT_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:131"
 TOPK_SOURCE = "src/repro_torch/kernels/csrc/topk_gating.cu"
 TOPK_REPLACES = "src/repro/kernels/topk_gating.py:53"
@@ -397,40 +403,61 @@ def _bound(ops: float, nbytes: float, peak: float, rate: float):
 
 
 def _flash_phase(rates) -> dict:
-    """Phase 3, flash attention: the kernel against its plain version on
-    the card, and device times at (a) the qwen3-14b serve prefill, (b)
-    starcoder2-3b's heads at 8192 tokens with its 4096 window."""
+    """Phase 3, flash attention: each case against the plain version on the
+    card, having launched its dtype's variant (bf16 ``wgmma``, fp32
+    ``simt``); device times of the ``wgmma`` kernel at (a) the qwen3-14b
+    serve prefill and (b) starcoder2-3b's heads at 8192 tokens with its
+    4096 window, and of the SIMT kernel at the "fp32" case."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import _launch, flash_attention, flash_attention_ref
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.flash_attention import VARIANTS, _launch, flash_attention, flash_attention_ref
 
     rate, peak_bf16, peak_f32 = rates
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [
         # label, B, S, Hq, Hkv, D, window, dtype, timed
-        ("qwen3-14b prefill", 4, 2048, 40, 8, 128, None, torch.bfloat16, "main"),
-        ("starcoder2-3b window", 1, 8192, 24, 2, 128, 4096, torch.bfloat16, "timed"),
-        ("fp32", 2, 1024, 16, 4, 128, None, torch.float32, None),
-        ("fp32 window < tile", 2, 300, 8, 2, 64, 7, torch.float32, None),
-        ("fp32 ragged tail", 3, 77, 6, 3, 32, 100, torch.float32, None),
-        ("fp32 smoke heads", 2, 130, 8, 2, 16, None, torch.float32, None),
-        ("fp32 phi3-mini heads", 1, 300, 32, 32, 96, None, torch.float32, None),
-        ("bf16 MQA", 2, 515, 8, 1, 128, 64, torch.bfloat16, None),
+        ("qwen3-14b prefill", 4, 2048, 40, 8, 128, None, bf16, "wgmma"),
+        ("starcoder2-3b window", 1, 8192, 24, 2, 128, 4096, bf16, "window"),
+        ("fp32", 2, 1024, 16, 4, 128, None, f32, "simt"),
+        ("fp32 window < tile", 2, 300, 8, 2, 64, 7, f32, None),
+        ("fp32 ragged tail", 3, 77, 6, 3, 32, 100, f32, None),
+        ("fp32 smoke heads", 2, 130, 8, 2, 16, None, f32, None),
+        ("fp32 phi3-mini heads", 1, 300, 32, 32, 96, None, f32, None),
+        ("bf16 MQA", 2, 515, 8, 1, 128, 64, bf16, None),
+        ("bf16 phi3-mini heads", 1, 300, 32, 32, 96, None, bf16, None),
+        ("bf16 d 96 window", 2, 300, 8, 1, 96, 50, bf16, None),
+        ("bf16 window < tile", 1, 1000, 8, 2, 128, 7, bf16, None),
+        ("bf16 S 1000", 2, 1000, 5, 1, 64, None, bf16, None),
+        ("bf16 S 77", 3, 77, 4, 2, 128, None, bf16, None),
+        ("bf16 fused projection", 2, 300, 8, 2, 128, None, bf16, None),
     ]
-    result = {"max_abs_err": 0.0}
+    result, errs = {}, {"wgmma": 0.0, "simt": 0.0}
     for label, b, s, hq, hkv, d, window, dtype, timed in cases:
-        q = torch.randn((b, s, hq, d), generator=gen, device=dev).to(dtype)
-        k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
-        v = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+        if "fused" in label:  # q, k, v as views of one (B, S, Hq + 2 Hkv, D) projection
+            qkv = torch.randn((b, s, hq + 2 * hkv, d), generator=gen, device=dev).to(dtype)
+            q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+        else:
+            q = torch.randn((b, s, hq, d), generator=gen, device=dev).to(dtype)
+            k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+            v = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+        variant = VARIANTS[dtype]
+        reset_launch_counts()
         got = flash_attention(q, k, v, window=window)
+        _require(flash_attention.launches_by_variant[variant] == 1 and flash_attention.launches == 1,
+                 f"flash case {label}: not one launch of the {variant} kernel ({flash_attention.launches_by_variant})")
         want = flash_attention_ref(q, k, v, window=window)
         torch.cuda.synchronize()
         err = _close(got, want, FLASH_TOL[str(dtype).split(".")[1]])
-        result["max_abs_err"] = max(result["max_abs_err"], err)
-        line = f"kernel flash_attention [{label}] B={b} S={s} Hq={hq} Hkv={hkv} D={d} window={window} {dtype}: max_abs_err={err:.3g}"
+        errs[variant] = max(errs[variant], err)
+        line = (f"kernel flash_attention [{label}] variant={variant} B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
+                f"window={window} {dtype}: max_abs_err={err:.3g}")
         if timed:
+            _require(torch.equal(got, flash_attention(q, k, v, window=window)),
+                     f"flash case {label}: two launches differ")
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             if window is None:
                 library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
@@ -440,19 +467,20 @@ def _flash_phase(rates) -> dict:
                 kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (kt, vt))
                 library = lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=band)
             ops, nbytes = _attention_work(b, s, hq, hkv, d, window, q.element_size())
-            bound_ms, bound_by = _bound(ops, nbytes, peak_bf16 if dtype == torch.bfloat16 else peak_f32, rate)
+            bound_ms, bound_by = _bound(ops, nbytes, peak_bf16 if dtype == bf16 else peak_f32, rate)
             t = {
-                "ms": _device_ms(lambda: _launch(q, k, v, True, window), iters=10, warmup=2)[0],
+                "ms": _device_ms(lambda: _launch(q, k, v, True, window), iters=20, warmup=3)[0],
                 "plain_ms": _device_ms(lambda: flash_attention_ref(q, k, v, window=window), iters=3, warmup=1)[0],
-                "library_ms": _device_ms(library, iters=10, warmup=2)[0],
+                "library_ms": _device_ms(library, iters=20, warmup=3)[0],
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
             }
-            if timed == "main":
-                result.update(t)
+            t["tflops"] = ops / t["ms"] / 1e9
+            result[timed] = t
             line += " " + _fmt(t)
-            line += f" tflops={ops / t['ms'] / 1e9:.4g}"
         print(line, flush=True)
+    for variant, err in errs.items():  # the worst case of each variant
+        result[variant]["max_abs_err"] = err
     return result
 
 
@@ -582,7 +610,7 @@ def _serve_path():
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import flash_attention, launch_counts, reset_launch_counts
     from repro_torch.models.transformer import prefill
     from repro_torch.serving import Request, ServeEngine
     from repro_torch.telemetry import Telemetry
@@ -610,14 +638,16 @@ def _serve_path():
     engine.run(reqs)
     torch.cuda.synchronize()
     counts = launch_counts()
+    variants = dict(flash_attention.launches_by_variant)
     pre, dec = spans()
     print(f"serve: uniform 4 x 2048, 32 new tokens: prefill {pre.duration:.4f}s, decode {dec.attrs['steps']} steps "
           f"{dec.duration:.4f}s = {dec.attrs['tokens'] / dec.duration:.2f} tok/s, all tokens "
           f"{(pre.attrs['tokens'] + dec.attrs['tokens']) / (pre.duration + dec.duration):.2f} tok/s; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes", flush=True)
-    print(f"serve: launches {json.dumps(counts)}", flush=True)
+    print(f"serve: launches {json.dumps(counts)}; flash by variant {json.dumps(variants)}", flush=True)
     _require(counts["flash_attention"] == cfg.n_layers,
              f"{counts['flash_attention']} flash launches, not one per layer of the prefill ({cfg.n_layers})")
+    _require(variants["wgmma"] == cfg.n_layers, f"flash launches by variant {variants}: not all {cfg.n_layers} wgmma")
     for r in reqs:
         _require(r.out.shape == (32,) and 0 <= r.out.min() and r.out.max() < cfg.vocab_size, "bad tokens")
 
@@ -659,7 +689,7 @@ def _serve_path():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _report_profile(prof, plain_wall, wall, "serve profile: prefill + 4 decode steps")
-    return counts
+    return counts, variants
 
 
 def _leaves(tree):
@@ -670,16 +700,29 @@ def _leaves(tree):
     return [tree]
 
 
-def _build_report(log: str) -> None:
-    """Each kernel's registers and spills from ``-Xptxas=-v``."""
+def _build_report(log: str, so) -> None:
+    """Each kernel's registers and spills from ``-Xptxas=-v``, and the
+    tensor-core (``HGMMA``) and TMA (``UTMALDG``, ``UTMASTG``) instructions
+    in the ``wgmma`` flash kernel's SASS: both must be there."""
+    from repro_torch.kernels.build import sass_instruction_counts
+
     name = None
     for line in log.splitlines():
-        m = re.search(r"(segment_aggregate_kernel|aggregate_kernel|flash_attention_kernel|topk_gating_kernel)I(.+?)E+v", line)
+        m = re.search(r"(segment_aggregate_kernel|aggregate_kernel|flash_attention_kernel|"
+                      r"flash_attention_wgmma_kernel|topk_gating_kernel)I(.+?)E+v", line)
         if m:
             args = m.group(2).replace("13__nv_bfloat16", "bf16,").replace("Li", "").rstrip(",")
             name = f"{m.group(1)}<{'f32,' + args[1:] if args.startswith('f') else args}>".replace(",>", ">")
         elif name and ("registers" in line or "spill" in line):
             print(f"build: {name}: {line.split(':', 1)[-1].strip()}", flush=True)
+            if "wgmma" in name and "spill" in line:
+                _require(" 0 bytes spill stores, 0 bytes spill loads" in line, f"{name} spills registers")
+    counts = sass_instruction_counts(so, "flash_attention_wgmma_kernel", ("HGMMA", "UTMALDG", "UTMASTG"))
+    _require(len(counts) == 3, f"expected 3 wgmma flash instantiations in the SASS, found {len(counts)}")
+    for kernel, ops in counts.items():
+        d = re.search(r"wgmma_kernelILi(\d+)E", kernel)
+        print(f"build: flash_attention_wgmma_kernel<{d.group(1) if d else '?'}> SASS {json.dumps(ops)}", flush=True)
+        _require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, f"{kernel}: no HGMMA or no UTMALDG in its SASS")
 
 
 def main() -> int:
@@ -700,7 +743,7 @@ def main() -> int:
     t0 = time.perf_counter()
     so, log = build()
     print(f"build: {so.name} in {time.perf_counter() - t0:.3f}s", flush=True)
-    _build_report(log)
+    _build_report(log, so)
     from repro_torch.federated.programs import CNNProgram
     from repro_torch.utils.tree import tree_num_params
 
@@ -713,21 +756,25 @@ def main() -> int:
     counts, sc, lam = _main_path()
     _profile_round(sc, lam)
     _serve_exactness()
-    serve_counts = _serve_path()
+    serve_counts, serve_variants = _serve_path()
+    flash = kern["flash"]
     record = []
-    for key, fn_name, source, replaces, launches in (
-        ("seg", "hier_segment_aggregate", AGG_SOURCE, SEG_REPLACES, counts),
-        ("agg", "hier_aggregate", AGG_SOURCE, AGG_REPLACES, counts),
-        ("flash", "flash_attention", FLASH_SOURCE, FLASH_REPLACES, serve_counts),
-        ("topk", "topk_gating", TOPK_SOURCE, TOPK_REPLACES, serve_counts),
+    for k, fn_name, source, replaces, launches, variant in (
+        (kern["seg"], "hier_segment_aggregate", AGG_SOURCE, SEG_REPLACES, counts["hier_segment_aggregate"], None),
+        (kern["agg"], "hier_aggregate", AGG_SOURCE, AGG_REPLACES, counts["hier_aggregate"], None),
+        (flash["wgmma"], "flash_attention", FLASH_SOURCE, FLASH_REPLACES, serve_variants["wgmma"], "wgmma"),
+        (flash["simt"], "flash_attention", FLASH_SIMT_SOURCE, FLASH_REPLACES, serve_variants["simt"], "simt"),
+        (kern["topk"], "topk_gating", TOPK_SOURCE, TOPK_REPLACES, serve_counts["topk_gating"], None),
     ):
-        k = kern[key]
-        record.append({
+        entry = {
             "name": fn_name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[fn_name], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "launches": launches, "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
-        })
+        }
+        if variant:
+            entry["variant"] = variant
+        record.append(entry)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(json.dumps({"kernels": record}), flush=True)
     print(_smi(), flush=True)

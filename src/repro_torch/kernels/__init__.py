@@ -1,17 +1,20 @@
 """Hand-written CUDA kernels of the port, each beside its plain version.
 
-============================  ==============================================  ==================================
+============================  ==============================================  ==========================================
 kernel                        replaces (reference Pallas kernel)              CUDA source (``csrc/``)
-============================  ==============================================  ==================================
+============================  ==============================================  ==========================================
 ``hier_segment_aggregate``    ``src/repro/kernels/segment_aggregate.py``      ``aggregate.cu``
 ``hier_aggregate``            ``src/repro/kernels/hier_aggregate.py``         ``aggregate.cu``
-``flash_attention``           ``src/repro/kernels/flash_attention.py``        ``flash_attention.cu``
+``flash_attention``           ``src/repro/kernels/flash_attention.py``        bf16: ``flash_attention_sm90.cu`` (wgmma,
+                                                                              TMA); fp32: ``flash_attention.cu`` (SIMT)
 ``topk_gating``               ``src/repro/kernels/topk_gating.py``            ``topk_gating.cu``
-============================  ==============================================  ==================================
+============================  ==============================================  ==========================================
 
-All four are built into one library, ``build/repro_torch/librepro_torch-<hash>.so``
+All are built into one library, ``build/repro_torch/librepro_torch-<hash>.so``
 (``build.py``).  ``topk_gating`` has no caller on a model path: the
 reference's MoE router does not call its kernel either.
+``flash_attention.launches_by_variant`` counts its launches per kernel
+(``"wgmma"``, ``"simt"``) beside the total in ``launch_counts()``.
 """
 from typing import Dict
 
@@ -34,6 +37,8 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    for variant in flash_attention.launches_by_variant:
+        flash_attention.launches_by_variant[variant] = 0
 
 
 __all__ = [

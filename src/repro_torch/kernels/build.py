@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -86,6 +87,20 @@ def build() -> Tuple[Path, str]:
     return so, log
 
 
+def sass_instruction_counts(so: Path, kernel: str, opcodes: Tuple[str, ...]) -> dict:
+    """{mangled kernel name: {opcode: count}} for every kernel in the
+    library whose name holds ``kernel``, read from ``cuobjdump --dump-sass``
+    (the toolkit's, beside ``nvcc``)."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "--dump-sass", str(so)], capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        name, body = block.split("\n", 1)
+        if kernel in name:
+            counts[name.strip()] = {op: len(re.findall(rf"\b{op}\b", body)) for op in opcodes}
+    return counts
+
+
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SIGNATURES = {
@@ -94,7 +109,7 @@ _SIGNATURES = {
     "repro_aggregate_f32": [_P, _P, _P, _I64, _I64, _P],
     "repro_aggregate_bf16": [_P, _P, _P, _I64, _I64, _P],
     "repro_flash_attention_f32": [_P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_int, _I64, _P],
-    "repro_flash_attention_bf16": [_P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_int, _I64, _P],
+    "repro_flash_attention_wgmma_bf16": [_P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_int, _I64, _P],
     "repro_topk_gating_f32": [_P, _P, _I64, _I64, _I64, _P],
     "repro_topk_gating_bf16": [_P, _P, _I64, _I64, _I64, _P],
 }

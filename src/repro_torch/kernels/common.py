@@ -51,6 +51,9 @@ def stream_of(device: torch.device) -> ctypes.c_void_p:
 
 
 def check_launch(code: int, name: str) -> None:
-    """Raise if a C entry reported a CUDA error for its launch."""
+    """Raise if a C entry reported a CUDA error for its launch, or (a
+    negative code) refused its inputs before launching."""
+    if code < 0:
+        raise RuntimeError(f"{name}: the C entry refused its inputs before any launch (code {code})")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")

@@ -1,5 +1,5 @@
 // Causal (+ sliding window) grouped-query attention with an online softmax,
-// for sm_90a.
+// fp32, for sm_90a.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` of
 // src/repro/kernels/flash_attention.py (`flash_attention`).  It computes
@@ -7,25 +7,23 @@
 // entries set to the finite -1e30 (never -inf: exp(-inf - (-inf)) is NaN);
 // the running max m, sum l and accumulator acc in fp32, rescaled by
 // exp(m_old - m_new) at every key tile; the output acc / max(l, 1e-30) in
-// q's dtype.  Positions count from 0 on both axes, so the wrapper requires
+// fp32.  Positions count from 0 on both axes, so the wrapper requires
 // the query and key lengths to be equal.  Query head h reads kv head
 // h / (Hq / Hkv): no repeated copy of k or v is made.
 //
-// What bounds it on an H100: operations.  At the qwen3-14b serve prefill
-// (B 4, S 2048, Hq 40, Hkv 8, d 128, bf16) causal attention is
-// 4 * B * Hq * d * S(S+1)/2 = 172 GFLOP per layer, 0.17 ms at the card's
-// 989 TFLOP/s in bf16; its bytes (q, k, v read once, o written once) are
-// 201 MB, 0.06 ms at 3.35 TB/s.  This kernel is the simple first version:
-// fp32 FMA on the SIMT cores (67 TFLOP/s at most), no tensor cores, no TMA,
-// so it runs tens of times slower than that bound.  wgmma and TMA are the
-// work of a later version.
+// This is the fp32 kernel.  bf16 inputs take flash_attention_sm90.cu, which
+// runs both products on the tensor cores; wgmma takes fp32 only as TF32,
+// which would miss the 2e-5 fp32 tolerance, so fp32 stays on the SIMT
+// cores here.  What bounds it on an H100: operations, at the SIMT fp32
+// rate (67 TFLOP/s): B 2, S 1024, Hq 16, Hkv 4, d 128 causal is 8.6 GFLOP,
+// 0.13 ms, against 0.013 ms for its bytes at 3.35 TB/s.
 //
 // Design.  One block of 128 threads owns one (batch, query head) pair and
 // one tile of kBQ = 64 query rows; grid.y walks the query tiles from the
 // last one down, so the longest causal rows start first.  The block stages
 // its query tile in shared memory once, then loops over kBK = 32-row key
-// tiles: it loads the k and v tiles (converted to fp32) into shared memory,
-// computes its 64 x 32 scores, updates m, l and acc, and goes on.  Thread
+// tiles: it loads the k and v tiles into shared memory, computes its
+// 64 x 32 scores, updates m, l and acc, and goes on.  Thread
 // t owns rows 4 * (t / 8) .. + 3 and columns t % 8 + 8 j of the score tile
 // and of the accumulator, so the 8 threads that share a row are 8 adjacent
 // lanes of one warp: row maxima and sums are warp shuffles, and the
@@ -39,9 +37,8 @@
 // exactly as the TPU kernel, which visits every tile, does.
 //
 // Plain C interface for ctypes: pointers and the stream come in as void*,
-// shapes and strides (in elements) as host int64 arrays; each entry returns
+// shapes and strides (in elements) as host int64 arrays; the entry returns
 // cudaGetLastError() after its launch.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -54,18 +51,6 @@ constexpr int kThreads = 128;
 constexpr int kRows = 4;      // query rows per thread
 constexpr int kGroup = 8;     // threads sharing a row (adjacent lanes)
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
-}
 
 struct Geometry {
   int64_t s, hq, hkv;
@@ -82,10 +67,10 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, Geometry g) {
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o, Geometry g) {
   static_assert(D % kGroup == 0, "head dim must be a multiple of 8");
   constexpr int kCols = D / kGroup;    // accumulator columns per thread
   constexpr int kKeys = kBK / kGroup;  // score columns per thread
@@ -100,14 +85,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t h = bh % g.hq;
   const int64_t hk = h / (g.hq / g.hkv);
   const int64_t q0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kBQ;
-  const T* qb = q + b * g.q_b + h * g.q_h;
-  const T* kb = k + b * g.k_b + hk * g.k_h;
-  const T* vb = v + b * g.v_b + hk * g.v_h;
+  const float* qb = q + b * g.q_b + h * g.q_h;
+  const float* kb = k + b * g.k_b + hk * g.k_h;
+  const float* vb = v + b * g.v_b + hk * g.v_h;
 
   for (int e = threadIdx.x; e < kBQ * D; e += kThreads) {
     const int r = e / D, c = e % D;
     const int64_t qi = q0 + r;
-    qs[r * (D + 1) + c] = qi < g.s ? to_f32(qb[qi * g.q_s + c]) : 0.0f;
+    qs[r * (D + 1) + c] = qi < g.s ? qb[qi * g.q_s + c] : 0.0f;
   }
 
   const int tr = threadIdx.x / kGroup;  // row group: rows tr * kRows + i
@@ -137,8 +122,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / D, c = e % D;
       const int64_t kj = k0 + r;
       const bool in = kj < g.s;
-      ks[r * (D + 1) + c] = in ? to_f32(kb[kj * g.k_s + c]) : 0.0f;
-      vs[r * D + c] = in ? to_f32(vb[kj * g.v_s + c]) : 0.0f;
+      ks[r * (D + 1) + c] = in ? kb[kj * g.k_s + c] : 0.0f;
+      vs[r * D + c] = in ? vb[kj * g.v_s + c] : 0.0f;
     }
     __syncthreads();
 
@@ -214,30 +199,29 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t qi = q0 + tr * kRows + i;
     if (qi >= g.s) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + b * g.o_b + qi * g.o_s + h * g.o_h;
+    float* orow = o + b * g.o_b + qi * g.o_s + h * g.o_h;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) orow[tc + kGroup * j] = from_f32<T>(acc[i][j] / denom);
+    for (int j = 0; j < kCols; ++j) orow[tc + kGroup * j] = acc[i][j] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, int64_t batch,
              const Geometry& g, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, D>;
+  auto kernel = flash_attention_kernel<D>;
   constexpr size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned int>(batch * g.hq),
                   static_cast<unsigned int>((g.s + kBQ - 1) / kBQ));
-  kernel<<<grid, kThreads, bytes, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                            static_cast<const T*>(v), static_cast<T*>(o), g);
+  kernel<<<grid, kThreads, bytes, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                            static_cast<const float*>(v), static_cast<float*>(o), g);
   return static_cast<int>(cudaGetLastError());
 }
 
 // dims: batch, seq, q heads, kv heads, head dim.
 // strides: (batch, seq, head) element strides of q, k, v, o in that order.
-template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, const int64_t* dims,
            const int64_t* strides, float scale, int causal, int64_t window, void* stream) {
   Geometry g;
@@ -253,11 +237,11 @@ int launch(const void* q, const void* k, const void* v, void* o, const int64_t* 
   g.window = window;
   auto s = static_cast<cudaStream_t>(stream);
   switch (dims[4]) {
-    case 16: return launch_d<T, 16>(q, k, v, o, dims[0], g, s);
-    case 32: return launch_d<T, 32>(q, k, v, o, dims[0], g, s);
-    case 64: return launch_d<T, 64>(q, k, v, o, dims[0], g, s);
-    case 96: return launch_d<T, 96>(q, k, v, o, dims[0], g, s);
-    case 128: return launch_d<T, 128>(q, k, v, o, dims[0], g, s);
+    case 16: return launch_d<16>(q, k, v, o, dims[0], g, s);
+    case 32: return launch_d<32>(q, k, v, o, dims[0], g, s);
+    case 64: return launch_d<64>(q, k, v, o, dims[0], g, s);
+    case 96: return launch_d<96>(q, k, v, o, dims[0], g, s);
+    case 128: return launch_d<128>(q, k, v, o, dims[0], g, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -269,13 +253,7 @@ extern "C" {
 int repro_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                               const int64_t* dims, const int64_t* strides, float scale,
                               int causal, int64_t window, void* stream) {
-  return launch<float>(q, k, v, o, dims, strides, scale, causal, window, stream);
-}
-
-int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                               const int64_t* dims, const int64_t* strides, float scale,
-                               int causal, int64_t window, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, dims, strides, scale, causal, window, stream);
+  return launch(q, k, v, o, dims, strides, scale, causal, window, stream);
 }
 
 }  // extern "C"

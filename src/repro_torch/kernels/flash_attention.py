@@ -13,12 +13,25 @@ Because the TPU kernel counts positions from 0 on both axes while its
 reference right-aligns the queries, the contract is ``sq == sk``, and both
 versions here reject other shapes.
 
-What bounds it on an H100: operations (``csrc/flash_attention.cu`` has the
-numbers at the qwen3-14b serve prefill).  The kernel is a simple fp32 SIMT
-version: one block per (batch, query head, 64-row query tile), a loop over
-32-row key tiles in shared memory, skipping tiles outside the causal band
-or the window.  It takes strides, so it reads q, k and v where they lie
-(the last axis must be contiguous) and writes a contiguous output.
+What bounds it on an H100: operations (``csrc/flash_attention_sm90.cu``
+has the numbers at the qwen3-14b serve prefill).  Two CUDA kernels:
+
+- bf16 (the serve path): ``csrc/flash_attention_sm90.cu``, ``wgmma`` for
+  both products, TMA loads into a ring of shared-memory stages, fp32
+  softmax state in registers; one CTA per (batch, query head, 128 query
+  rows).  It rounds p to bf16 for the p . v product, as the reference's
+  non-flash path does; held to the bf16 tolerance, 2e-2.  Head dims
+  ``WGMMA_HEAD_DIMS``; q, k and v need 16-byte aligned base addresses and
+  strides (TMA's rule), else the wrapper raises ``ValueError``.
+- fp32: ``csrc/flash_attention.cu``, a SIMT kernel (``wgmma`` takes fp32
+  only as TF32, which would miss the 2e-5 fp32 tolerance): one block per
+  (batch, query head, 64 query rows), a loop over 32-row key tiles in
+  shared memory.
+
+Both skip key tiles outside the causal band or the window, read q, k and
+v through their strides (the last axis must be contiguous) and write a
+contiguous output.  Nothing falls back: an input neither kernel takes
+raises.
 """
 from __future__ import annotations
 
@@ -32,11 +45,15 @@ from repro_torch.kernels.build import load_library
 from repro_torch.kernels.common import check_launch, ptr, stream_of
 
 NEG_INF = -1e30
-# head dims the CUDA kernel is instantiated for (csrc/flash_attention.cu):
+# head dims the fp32 SIMT kernel is instantiated for (csrc/flash_attention.cu):
 # every dense config's, full (128; 96 for phi3-mini) and smoke (16, 32)
 KERNEL_HEAD_DIMS = (16, 32, 64, 96, 128)
+# head dims of the bf16 wgmma kernel (csrc/flash_attention_sm90.cu): every
+# full config's; no bf16 config has d 16 or 32 (the smoke configs are fp32)
+WGMMA_HEAD_DIMS = (64, 96, 128)
 _MAX_Q_TILES = 65535  # grid.y
-_Q_TILE = 64
+_Q_TILE = {"simt": 64, "wgmma": 128}
+VARIANTS = {torch.float32: "simt", torch.bfloat16: "wgmma"}
 
 
 def _check(q, k, v, window, name: str):
@@ -92,14 +109,30 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] =
     return out
 
 
+def _check_wgmma(q, k, v, name: str) -> None:
+    """Raise ``ValueError`` for a bf16 input the wgmma kernel cannot take:
+    its head dim, or a base address or (batch, seq, head) stride that is
+    not a multiple of 16 bytes (TMA reads tiles only on that grid)."""
+    d = q.shape[3]
+    if d not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"{name}: the bf16 wgmma kernel takes head dims {WGMMA_HEAD_DIMS}, got {d}")
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} starts at an address that is not 16-byte aligned "
+                             "(TMA needs 16-byte aligned tensors)")
+        if any((st * t.element_size()) % 16 for st in t.stride()[:3]):
+            raise ValueError(f"{name}: {what} has strides {tuple(t.stride())}: the batch, sequence and "
+                             "head strides must be multiples of 16 bytes (TMA's rule)")
+
+
 def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
-    """Launch the CUDA kernel on checked inputs.  Counts nothing."""
+    """Launch the dtype's CUDA kernel on checked inputs.  Counts nothing."""
     b, s, hq, d = q.shape
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     dims = (ctypes.c_int64 * 5)(b, s, hq, k.shape[2], d)
     strides = (ctypes.c_int64 * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
     lib = load_library()
-    entry = lib.repro_flash_attention_f32 if q.dtype == torch.float32 else lib.repro_flash_attention_bf16
+    entry = lib.repro_flash_attention_f32 if q.dtype == torch.float32 else lib.repro_flash_attention_wgmma_bf16
     with torch.cuda.device(q.device):
         code = entry(
             ptr(q), ptr(k), ptr(v), ptr(out), dims, strides, float(1.0 / np.sqrt(d)),
@@ -113,10 +146,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) with Hq % Hkv == 0, float32 or
     bfloat16.  Returns (B, S, Hq, D) in q's dtype.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count one launch in ``flash_attention.launches``) or raise, also for a
-    shape the kernel does not take (a head dim outside
-    ``KERNEL_HEAD_DIMS``, a last axis that is not contiguous).
+    CPU tensors take the plain version; CUDA tensors launch a kernel (and
+    count one launch in ``flash_attention.launches`` and one in
+    ``flash_attention.launches_by_variant[variant]``) or raise: bf16 the
+    ``"wgmma"`` kernel, fp32 the ``"simt"`` one.  A shape the dtype's kernel
+    does not take raises ``ValueError`` (a head dim outside
+    ``WGMMA_HEAD_DIMS`` / ``KERNEL_HEAD_DIMS``, a last axis that is not
+    contiguous, bf16 strides or addresses off TMA's 16-byte grid).
     """
     name = "flash_attention"
     _check(q, k, v, window, name)
@@ -124,20 +160,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"{name}: tensors must lie on the CPU or a CUDA device, got {q.device}")
+    variant = VARIANTS[q.dtype]
     b, s, hq, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: the CUDA kernel takes head dims {KERNEL_HEAD_DIMS}, got {d}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError(f"{name}: the last axis of q, k and v must be contiguous")
-    if -(-s // _Q_TILE) > _MAX_Q_TILES:
-        raise ValueError(f"{name}: sequence length {s} exceeds the kernel's {_MAX_Q_TILES * _Q_TILE}")
+    if variant == "wgmma":
+        _check_wgmma(q, k, v, name)
+    elif d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: the fp32 CUDA kernel takes head dims {KERNEL_HEAD_DIMS}, got {d}")
+    if -(-s // _Q_TILE[variant]) > _MAX_Q_TILES:
+        raise ValueError(f"{name}: sequence length {s} exceeds the kernel's {_MAX_Q_TILES * _Q_TILE[variant]}")
     if b * hq >= 2**31:
         raise ValueError(f"{name}: batch x heads = {b * hq} exceeds the kernel's grid")
     if b * s * hq * d == 0:
         return torch.zeros(q.shape, dtype=q.dtype, device=q.device)
     out = _launch(q, k, v, causal, window)
     flash_attention.launches += 1
+    flash_attention.launches_by_variant[variant] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_variant = {"wgmma": 0, "simt": 0}

@@ -101,6 +101,24 @@ def test_aggregate_kernel_matches_plain_on_card(cuda, n, d, dtype):
     np.testing.assert_allclose(_f32(out), _f32(hier_aggregate_ref(u, wt)), atol=tol, rtol=tol)
 
 
+VARIANT = {"float32": "simt", "bfloat16": "wgmma"}
+
+
+def _flash_inputs(cuda, b, s, hq, hkv, d, dtype, seed=3):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal((b, s, h, d)), dtype=torch.float32, device=cuda).to(dtype)
+            for h in (hq, hkv, hkv)]
+
+
+def _flash_launch_checked(q, k, v, variant, **kw):
+    """One wrapper call that must launch exactly one kernel, of ``variant``."""
+    reset_launch_counts()
+    out = flash_attention(q, k, v, **kw)
+    assert launch_counts()["flash_attention"] == 1
+    assert flash_attention.launches_by_variant == {"wgmma": 0, "simt": 0, variant: 1}
+    return out
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize(
     "b,s,hq,hkv,d,window",
@@ -110,22 +128,51 @@ def test_aggregate_kernel_matches_plain_on_card(cuda, n, d, dtype):
 )
 def test_flash_kernel_matches_plain_on_card(cuda, b, s, hq, hkv, d, window, dtype):
     tdt, tol = DTYPES[dtype], FLASH_TOL[dtype]
-    rng = np.random.default_rng(3)
-    q, k, v = (torch.tensor(rng.standard_normal((b, s, h, d)), dtype=torch.float32, device=cuda).to(tdt)
-               for h in (hq, hkv, hkv))
-    reset_launch_counts()
-    out = flash_attention(q, k, v, window=window)
-    assert launch_counts()["flash_attention"] == 1
+    q, k, v = _flash_inputs(cuda, b, s, hq, hkv, d, tdt)
+    if dtype == "bfloat16" and d < 64:  # no bf16 config has d 16 or 32: the wgmma kernel refuses them
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention(q, k, v, window=window)
+        return
+    out = _flash_launch_checked(q, k, v, VARIANT[dtype], window=window)
     np.testing.assert_allclose(_f32(out), _f32(flash_attention_ref(q, k, v, window=window)), atol=tol, rtol=tol)
 
 
-def test_flash_kernel_takes_strided_heads_on_card(cuda):
+@pytest.mark.parametrize(
+    "b,s,hq,hkv,d,window",
+    [(1, 300, 4, 2, 96, None), (2, 300, 8, 1, 96, 50), (1, 1000, 8, 2, 128, 7), (2, 1000, 5, 1, 64, None),
+     (3, 77, 4, 2, 128, None), (1, 77, 8, 8, 64, 100), (4, 512, 40, 8, 128, None), (1, 2100, 4, 2, 128, 300)],
+)
+def test_flash_wgmma_kernel_matches_plain_on_card(cuda, b, s, hq, hkv, d, window):
+    """The bf16 wgmma kernel: d 96 (64-byte swizzle), a window below the
+    tile, ragged lengths, several stage laps of the ring."""
+    q, k, v = _flash_inputs(cuda, b, s, hq, hkv, d, torch.bfloat16, seed=5)
+    out = _flash_launch_checked(q, k, v, "wgmma", window=window)
+    want = flash_attention_ref(q, k, v, window=window)
+    np.testing.assert_allclose(_f32(out), _f32(want), atol=2e-2, rtol=2e-2)
+    assert torch.equal(out, flash_attention(q, k, v, window=window))  # no atomics: bitwise repeatable
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_kernel_takes_strided_heads_on_card(cuda, dtype):
     """q, k, v as views of one fused projection, the way a model may hand
-    them over: the kernel reads them through their strides."""
-    qkv = torch.randn((2, 96, 8 + 2 + 2, 64), device=cuda)
+    them over: the kernels read them through their strides (TMA maps built
+    from them for bf16)."""
+    qkv = torch.randn((2, 96, 8 + 2 + 2, 64), device=cuda).to(DTYPES[dtype])
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
-    out = flash_attention(q, k, v)
-    np.testing.assert_allclose(_f32(out), _f32(flash_attention_ref(q, k, v)), atol=2e-5, rtol=2e-5)
+    out = _flash_launch_checked(q, k, v, VARIANT[dtype])
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(_f32(out), _f32(flash_attention_ref(q, k, v)), atol=tol, rtol=tol)
+
+
+def test_flash_wgmma_refuses_off_grid_strides_on_card(cuda):
+    """A view whose sequence stride is not a multiple of 16 bytes cannot be
+    read by TMA: the wrapper raises, and nothing falls back."""
+    base = torch.randn((2, 64, 2 * 64 + 4), device=cuda).to(torch.bfloat16)
+    q = base[:, :, :128].unflatten(2, (2, 64))  # seq stride 132 elements = 264 bytes
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention(q, q[:, :, :1], q[:, :, 1:])
+    assert launch_counts()["flash_attention"] == 0
 
 
 def test_flash_kernel_refuses_head_dim_on_card(cuda):
@@ -168,6 +215,7 @@ def test_serving_launches_flash_once_per_layer_on_card(cuda):
     reset_launch_counts()
     out = [r.out for r in card.run([Request(p, max_new_tokens=6) for p in prompts])]
     assert launch_counts()["flash_attention"] == cfg.n_layers
+    assert flash_attention.launches_by_variant == {"wgmma": 0, "simt": cfg.n_layers}  # the smoke config is fp32
     cpu = ServeEngine(cfg, params=params, max_seq=64, device="cpu")
     for a, b in zip(out, (r.out for r in cpu.run([Request(p, max_new_tokens=6) for p in prompts]))):
         np.testing.assert_array_equal(a, b)
@@ -182,3 +230,7 @@ def test_flash_kernel_non_causal_on_card(cuda, window):
     out = flash_attention(q, k, v, causal=False, window=window)
     want = flash_attention_ref(q, k, v, causal=False, window=window)
     np.testing.assert_allclose(_f32(out), _f32(want), atol=2e-5, rtol=2e-5)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    out = _flash_launch_checked(qb, kb, vb, "wgmma", causal=False, window=window)
+    want = flash_attention_ref(qb, kb, vb, causal=False, window=window)
+    np.testing.assert_allclose(_f32(out), _f32(want), atol=2e-2, rtol=2e-2)

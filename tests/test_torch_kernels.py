@@ -166,3 +166,22 @@ def test_cpu_wrappers_launch_nothing():
     assert launch_counts() == {
         "hier_segment_aggregate": 0, "hier_aggregate": 0, "flash_attention": 0, "topk_gating": 0,
     }
+
+
+@pytest.mark.parametrize("code,match", [(0, None), (700, "cudaError 700"), (-2, "refused its inputs")])
+def test_check_launch_codes(code, match):
+    """0 passes; a CUDA error and a refusal before the launch both raise."""
+    from repro_torch.kernels.common import check_launch
+
+    if match is None:
+        check_launch(code, "k")
+    else:
+        with pytest.raises(RuntimeError, match=match):
+            check_launch(code, "k")
+
+
+def test_reset_zeroes_flash_variant_counts():
+    flash_attention.launches_by_variant["wgmma"] = 3
+    flash_attention.launches_by_variant["simt"] = 1
+    reset_launch_counts()
+    assert flash_attention.launches_by_variant == {"wgmma": 0, "simt": 0}
