@@ -2,25 +2,35 @@
 """Drive the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --segment-wrapper ROOT   # one wrapper's timings only
 
 Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch version;
 2. the kernel build (one ``nvcc`` per source, side by side, linked into
    ``build/repro_torch/librepro_torch-<hash>.so``), with its seconds,
-   each kernel's registers and spills, and the ``HGMMA`` (tensor-core) and
-   ``UTMALDG`` (TMA load) instructions in the ``wgmma`` flash kernel's SASS;
+   each kernel's registers and spills (every kernel must show 0 spills),
+   the fp32 flash kernel's tile (must equal ``SIMT_TILE``), and the
+   ``HGMMA`` (tensor-core) and ``UTMALDG`` (TMA load) instructions in the
+   ``wgmma`` flash kernel's SASS;
 3. every kernel against its plain PyTorch version on the card, with the
    kernel's, the plain version's and one PyTorch library call's device
    times (CUDA events over back-to-back launches) beside the least time the
    card could take (``bound_ms``): the FedAvg reductions at the heartbeat
-   path's shapes (fp32 1e-5, bf16 2e-2); flash attention, bf16 on the
-   ``wgmma`` kernel, at the qwen3-14b serve prefill and at starcoder2-3b's
-   widths with its 4096 window biting, fp32 on the SIMT kernel at its own
-   case, plus untimed cases (d 96, windows below the tile, ragged lengths,
-   a fused projection's views; fp32 2e-5, bf16 2e-2), each checked to have
-   launched its dtype's variant; top-k gating at the granite-moe router
-   shape (1e-5);
+   path's shapes (fp32 1e-5, bf16 2e-2), the segment kernel also with ids
+   outside [0, E) (which belong to no segment on the card), its wrapper's
+   whole calls (the card's time per call back to back, the device
+   operations one call queues and their device time, the host time) and
+   a run under ``torch.cuda.set_sync_debug_mode("error")``, beside
+   ``hier_aggregate``'s kernel reading the same 18 rows (one level of
+   loads: a floor for that call);
+   flash attention, bf16 on the ``wgmma`` kernel, at the qwen3-14b serve
+   prefill and at starcoder2-3b's widths with its 4096 window biting, fp32
+   on the SIMT kernel at its own case and at phase 7's shape (with the name
+   of the CUDA kernel the library call ran), plus untimed cases (d 96,
+   windows below the tile, ragged lengths, a fused projection's views; fp32
+   2e-5, bf16 2e-2), each checked to have launched its dtype's variant;
+   top-k gating at the granite-moe router shape (1e-5);
 4. card against CPU: the heartbeat sync engine (scale 0.02, two cloud
    rounds), and the qwen3-14b smoke config served with the same parameters
    (prefill logits 1e-4, identical greedy tokens);
@@ -33,7 +43,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    kernels that take the most device time;
 7. serve exactness on the card at qwen3-14b widths cut to 2 layers in
    fp32: a uniform batch gives the same tokens with ``use_flash`` on and
-   off, and a ragged batch the same tokens as its requests served alone;
+   off, and a ragged batch the same tokens as its requests served alone
+   (launch counts zeroed just before and read just after: one fp32 flash
+   launch per layer of each uniform prefill);
 8. the serving path at full width: ``ServeEngine`` on qwen3-14b (40
    layers, bf16, random weights from seed 0) with ``use_flash=True``, a
    uniform batch of 4 prompts of 2048 tokens with 32 new tokens each
@@ -43,6 +55,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    flash launch), then the same parameters with ``use_flash=False``
    (prefill-logit difference, token agreement), then one prefill and 4
    decode steps under ``torch.profiler``.
+
+With ``--segment-wrapper ROOT`` the script times only the segment
+wrapper's whole calls, for the port under ``ROOT/src``, and prints one JSON
+line: run it on two trees in turns to compare them on one card.
 
 The last lines are a JSON ``kernels`` record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -78,6 +94,9 @@ _RATES = (
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 HEARTBEAT_KERNELS = ("hier_segment_aggregate", "hier_aggregate")
+# measured numbers a kernel record carries where its phase took them
+_EXTRA_KEYS = ("tflops", "library_kernel", "library_fused_ms", "library_fused_err", "library_fused_kernel",
+               "wrapper_host_ms", "wrapper_ms", "wrapper_device_ops", "wrapper_busy_ms")
 
 
 def _require(ok: bool, message: str) -> None:
@@ -143,6 +162,59 @@ def _host_ms(fn, iters: int = 200, warmup: int = 20) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _wrapper_work(fn) -> dict:
+    """Whole calls of a wrapper: the card's time per call when calls run
+    back to back (``_device_ms``; a wrapper that synchronises leaves the
+    card idle while the host catches up, and that time counts), and from
+    ``torch.profiler`` the device operations (kernels, copies, fills) one
+    call queues and their summed device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    iters = 50
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in device)
+    return {
+        "wrapper_ms": _device_ms(fn, iters=100, warmup=10)[0],
+        "wrapper_device_ops": sum(e.count for e in device) / iters,
+        "wrapper_busy_ms": busy_us / iters / 1e3 if busy_us > 0 else "not measured",
+    }
+
+
+def _sca_inputs(d_model: int):
+    """The SCA edge FedAvg's inputs (N 18 over E 5 segments, D d_model,
+    fp32) on the card, from seed 0."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    seg = rng.permutation(np.repeat(np.arange(5), [3, 4, 5, 3, 3]))
+    dev = torch.device("cuda")
+    x = torch.as_tensor(rng.standard_normal((len(seg), d_model)), dtype=torch.float32, device=dev)
+    w = torch.as_tensor(rng.uniform(0.05, 1.0, len(seg)), dtype=torch.float32, device=dev)
+    return x, torch.as_tensor(seg, dtype=torch.int32, device=dev), w, 5
+
+
+def _sync_free(fn) -> bool:
+    """Run ``fn`` once under ``torch.cuda.set_sync_debug_mode("error")``:
+    a call that makes the host wait for the card raises there."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return True
 
 
 def _close(got, want, tol: float) -> float:
@@ -228,23 +300,36 @@ def _kernel_phase(rate: float, d_model: int) -> dict:
             line = f"kernel hier_segment_aggregate [{label}] N={n} D={d} E={e} {dtype}: max_abs_err={err:.3g}"
             if timed and dtype == torch.float32:
                 seg64 = seg.long()
-                wn = seg_mod._normalized_weights(seg64, w, e)
-                rows, offs = seg_mod._segment_runs(seg64, e)
-                wmat = torch.zeros((e, n), device=dev)
-                wmat[seg64, torch.arange(n, device=dev)] = wn
+                wn = hier_segment_aggregate_ref(torch.eye(n, device=dev), seg, w, e)  # (E, N) weights
                 t = _timings(
-                    kernel=lambda: seg_mod._launch(x, rows, offs, wn),
+                    kernel=lambda: seg_mod._launch(x, seg, w, e),
                     wrapper=lambda: hier_segment_aggregate(x, seg, w, e),
                     plain=lambda: hier_segment_aggregate_ref(x, seg, w, e),
-                    library=lambda: wmat @ x,
+                    library=lambda: wn @ x,
                     nbytes=(n + e) * d * 4 + n * 8,
                     rate=rate,
                 )
+                t["sync_free"] = _sync_free(lambda: hier_segment_aggregate(x, seg64, w.double(), e))
                 if timed == "main":
+                    t.update(_wrapper_work(lambda: hier_segment_aggregate(x, seg, w, e)))
                     result["seg"].update(t)
                 line += " " + _fmt(t)
             print(line, flush=True)
-    for n, d, timed in ((5, d_model, True), (4, 1000, False), (13, d_model, False), (32, 512, False)):
+    # ids outside [0, E) belong to no segment on the card: the same result as
+    # the plain version on the rows that remain
+    for e, ids in ((5, [0, 7, 0, -1, 3, 5, 3, 9, 3]), (18, [(i % 19) - 1 for i in range(21)]),
+                   (11, [(i * 7 % 13) - 1 for i in range(70)])):  # N > 32: three ballots of ids
+        ids_t = torch.tensor(ids, device=dev)
+        keep = (ids_t >= 0) & (ids_t < e)
+        x = torch.as_tensor(rng.standard_normal((len(ids), 1000)), dtype=torch.float32, device=dev)
+        w = torch.as_tensor(rng.uniform(0.05, 1.0, len(ids)), dtype=torch.float32, device=dev)
+        got = hier_segment_aggregate(x, ids_t, w, e)
+        err = _close(got, hier_segment_aggregate_ref(x[keep], ids_t[keep], w[keep], e), TOL["float32"])
+        result["seg"]["max_abs_err"] = max(result["seg"]["max_abs_err"], err)
+        print(f"kernel hier_segment_aggregate [ids outside [0, E)] N={len(ids)} D=1000 E={e} torch.float32: "
+              f"max_abs_err={err:.3g}", flush=True)
+    for n, d, timed in ((5, d_model, True), (4, 1000, False), (13, d_model, False), (18, d_model, False),
+                        (32, 512, False)):
         for dtype in (torch.float32, torch.bfloat16):
             tol = TOL[str(dtype).split(".")[1]]
             x = torch.as_tensor(rng.standard_normal((n, d)), dtype=dtype, device=dev)
@@ -255,6 +340,11 @@ def _kernel_phase(rate: float, d_model: int) -> dict:
             err = _close(got, want, tol)
             result["agg"]["max_abs_err"] = max(result["agg"]["max_abs_err"], err)
             line = f"kernel hier_aggregate [{'cloud reduce' if timed else 'sweep'}] N={n} D={d} {dtype}: max_abs_err={err:.3g}"
+            if n == 18 and dtype == torch.float32:
+                # the SCA segment call's 18 rows of x read by one level of
+                # loads with nothing before them: a floor for that call
+                wn = agg_mod._normalized_weights(w)
+                line += f" ms={_device_ms(lambda: agg_mod._launch(x, wn))[0]:.4g} (same rows as the SCA segment call)"
             if timed and dtype == torch.float32:
                 wn = agg_mod._normalized_weights(w)
                 t = _timings(
@@ -407,9 +497,12 @@ def _flash_phase(rates) -> dict:
     card, having launched its dtype's variant (bf16 ``wgmma``, fp32
     ``simt``); device times of the ``wgmma`` kernel at (a) the qwen3-14b
     serve prefill and (b) starcoder2-3b's heads at 8192 tokens with its
-    4096 window, and of the SIMT kernel at the "fp32" case."""
+    4096 window, and of the SIMT kernel at the "fp32" case and at phase 7's
+    shape (qwen3-14b widths in fp32), with the name of the CUDA kernel that
+    ``scaled_dot_product_attention`` ran for each fp32 case."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.kernels.flash_attention import VARIANTS, _launch, flash_attention, flash_attention_ref
@@ -423,6 +516,7 @@ def _flash_phase(rates) -> dict:
         ("qwen3-14b prefill", 4, 2048, 40, 8, 128, None, bf16, "wgmma"),
         ("starcoder2-3b window", 1, 8192, 24, 2, 128, 4096, bf16, "window"),
         ("fp32", 2, 1024, 16, 4, 128, None, f32, "simt"),
+        ("fp32 qwen3-14b widths (phase 7)", 4, 1536, 40, 8, 128, None, f32, "simt_phase7"),
         ("fp32 window < tile", 2, 300, 8, 2, 64, 7, f32, None),
         ("fp32 ragged tail", 3, 77, 6, 3, 32, 100, f32, None),
         ("fp32 smoke heads", 2, 130, 8, 2, 16, None, f32, None),
@@ -476,12 +570,37 @@ def _flash_phase(rates) -> dict:
                 "bound_by": bound_by,
             }
             t["tflops"] = ops / t["ms"] / 1e9
+            if dtype == f32:
+                # the call above falls back to unfused math for fp32 GQA; beside
+                # it, PyTorch's fused fp32 kernel (memory-efficient attention),
+                # which takes no GQA: kv repeated outside the timed call
+                t["library_kernel"] = _cuda_kernel_names(library)
+                kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (kt, vt))
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    fused = lambda: F.scaled_dot_product_attention(qt, kr, vr, is_causal=True)
+                    t["library_fused_ms"] = _device_ms(fused, iters=20, warmup=3)[0]
+                    t["library_fused_err"] = float((fused().transpose(1, 2) - want).abs().max())
+                    t["library_fused_kernel"] = _cuda_kernel_names(fused)
+                del kr, vr
             result[timed] = t
             line += " " + _fmt(t)
         print(line, flush=True)
     for variant, err in errs.items():  # the worst case of each variant
         result[variant]["max_abs_err"] = err
     return result
+
+
+def _cuda_kernel_names(fn) -> str:
+    """The CUDA kernels one call of ``fn`` runs, from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    return "; ".join(n[:120] for n in names) or "not measured (the trace holds no device kernel)"
 
 
 def _topk_phase(rate: float) -> dict:
@@ -566,14 +685,18 @@ def _serve_card_vs_cpu() -> None:
         _require(same, "card and CPU greedy tokens disagree")
 
 
-def _serve_exactness() -> None:
-    """Phase 7: qwen3-14b widths cut to 2 layers, fp32, on the card."""
+def _serve_exactness() -> dict:
+    """Phase 7: qwen3-14b widths cut to 2 layers, fp32, on the card.  Launch
+    counts are zeroed just before and read just after; returns the fp32
+    flash launches by variant (one per layer of every uniform prefill: the
+    batch and the four solo requests)."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, reset_launch_counts
     from repro_torch.models import init_params
     from repro_torch.serving import Request, ServeEngine
 
@@ -587,7 +710,12 @@ def _serve_exactness() -> None:
     flash = ServeEngine(cfg, params=params, max_seq=1600, device="cuda")
     plain = ServeEngine(dataclasses.replace(cfg, use_flash=False), params=params, max_seq=1600, device="cuda")
     uniform = list(rng.integers(0, cfg.vocab_size, (4, 1536)).astype(np.int32))
-    a, b = serve(flash, uniform), serve(plain, uniform)
+    reset_launch_counts()
+    a = serve(flash, uniform)
+    _require(flash_attention.launches_by_variant["simt"] == cfg.n_layers,
+             f"fp32 uniform prefill: flash launches by variant {flash_attention.launches_by_variant}, "
+             f"not {cfg.n_layers} simt")
+    b = serve(plain, uniform)
     same = all(np.array_equal(x, y) for x, y in zip(a, b))
     print(f"serve exact: {cfg.name} 2 layers fp32, uniform 4 x 1536: use_flash on/off tokens identical {same}", flush=True)
     _require(same, "use_flash on and off give different tokens in fp32")
@@ -596,9 +724,12 @@ def _serve_exactness() -> None:
     for i, p in enumerate(ragged):
         solo = serve(flash, [p])[0]
         _require(np.array_equal(batched[i], solo), f"ragged row {i} (len {len(p)}) differs from solo")
-    print("serve exact: ragged batch (1536, 1000, 777, 1200) token-identical to each request served alone", flush=True)
+    variants = dict(flash_attention.launches_by_variant)
+    print("serve exact: ragged batch (1536, 1000, 777, 1200) token-identical to each request served alone; "
+          f"flash launches by variant {json.dumps(variants)}", flush=True)
     del flash, plain, params
     torch.cuda.empty_cache()
+    return variants
 
 
 def _serve_path():
@@ -701,22 +832,33 @@ def _leaves(tree):
 
 
 def _build_report(log: str, so) -> None:
-    """Each kernel's registers and spills from ``-Xptxas=-v``, and the
-    tensor-core (``HGMMA``) and TMA (``UTMALDG``, ``UTMASTG``) instructions
-    in the ``wgmma`` flash kernel's SASS: both must be there."""
+    """Each kernel's registers and spills from ``-Xptxas=-v`` (every kernel
+    must show 0 spills), the fp32 flash kernel's tile (must equal
+    ``SIMT_TILE``), and the tensor-core (``HGMMA``) and TMA (``UTMALDG``,
+    ``UTMASTG``) instructions in the ``wgmma`` flash kernel's SASS: both
+    must be there."""
     from repro_torch.kernels.build import sass_instruction_counts
+    from repro_torch.kernels.flash_attention import SIMT_TILE, simt_kernel_tile
 
-    name = None
+    tile = simt_kernel_tile()
+    print(f"build: flash_attention_kernel tile {tile} (query rows, key rows)", flush=True)
+    _require(tile == SIMT_TILE, f"the fp32 flash kernel's tile {tile} is not SIMT_TILE {SIMT_TILE}")
+
+    arg_names = {"13__nv_bfloat16": "bf16", "f": "f32", "i": "int32", "l": "int64"}
+    name, checked = None, set()
     for line in log.splitlines():
         m = re.search(r"(segment_aggregate_kernel|aggregate_kernel|flash_attention_kernel|"
                       r"flash_attention_wgmma_kernel|topk_gating_kernel)I(.+?)E+v", line)
         if m:
-            args = m.group(2).replace("13__nv_bfloat16", "bf16,").replace("Li", "").rstrip(",")
-            name = f"{m.group(1)}<{'f32,' + args[1:] if args.startswith('f') else args}>".replace(",>", ">")
+            args = re.findall(r"13__nv_bfloat16|Li\d+|[fil]", m.group(2))
+            name = f"{m.group(1)}<{','.join(arg_names.get(a, a[2:]) for a in args)}>"
         elif name and ("registers" in line or "spill" in line):
             print(f"build: {name}: {line.split(':', 1)[-1].strip()}", flush=True)
-            if "wgmma" in name and "spill" in line:
+            if "spill" in line:
                 _require(" 0 bytes spill stores, 0 bytes spill loads" in line, f"{name} spills registers")
+                checked.add(name)
+    simt = sorted(n for n in checked if n.startswith("flash_attention_kernel<"))
+    _require(len(simt) == 5, f"spills checked for {simt}, not the 5 fp32 flash instantiations")
     counts = sass_instruction_counts(so, "flash_attention_wgmma_kernel", ("HGMMA", "UTMALDG", "UTMASTG"))
     _require(len(counts) == 3, f"expected 3 wgmma flash instantiations in the SASS, found {len(counts)}")
     for kernel, ops in counts.items():
@@ -725,12 +867,42 @@ def _build_report(log: str, so) -> None:
         _require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, f"{kernel}: no HGMMA or no UTMALDG in its SASS")
 
 
-def main() -> int:
+def _segment_wrapper_only(root: Path) -> int:
+    """``--segment-wrapper ROOT``: only the segment wrapper's whole calls at
+    the SCA edge FedAvg shape (``_wrapper_work`` and host ms), for the port
+    under ``ROOT/src``, built there; prints one JSON line.  Alternating two
+    trees (a parent commit unpacked under ``build/``, say) in one run
+    compares them on one card."""
+    import torch
+
+    sys.path.insert(0, str(root / "src"))
+    import repro_torch
+    from repro_torch.federated.programs import CNNProgram
+    from repro_torch.kernels import hier_segment_aggregate, hier_segment_aggregate_ref
+    from repro_torch.utils.tree import tree_num_params
+
+    _require(Path(repro_torch.__file__).resolve().is_relative_to(root), f"repro_torch not imported from {root}")
+    d_model = tree_num_params(CNNProgram().init(torch.Generator().manual_seed(0)))
+    x, seg, w, e = _sca_inputs(d_model)
+    call = lambda: hier_segment_aggregate(x, seg, w, e)  # noqa: E731
+    err = _close(call(), hier_segment_aggregate_ref(x, seg, w, e), TOL["float32"])
+    record = {"segment_wrapper": str(root), "card": _smi(), "N": 18, "E": e, "D": d_model, "max_abs_err": err,
+              **_wrapper_work(call), "wrapper_host_ms": _host_ms(call)}
+    print(json.dumps(record), flush=True)
+    return 0
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
         return 1
+    if argv:
+        if len(argv) != 2 or argv[0] != "--segment-wrapper":
+            print("usage: python3 chip_smoke.py [--segment-wrapper ROOT]", file=sys.stderr)
+            return 2
+        return _segment_wrapper_only(Path(argv[1]).resolve())
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (fails when the package is not beside the script)
     from repro_torch.kernels.build import build
@@ -755,7 +927,7 @@ def main() -> int:
     _serve_card_vs_cpu()
     counts, sc, lam = _main_path()
     _profile_round(sc, lam)
-    _serve_exactness()
+    exact_variants = _serve_exactness()
     serve_counts, serve_variants = _serve_path()
     flash = kern["flash"]
     record = []
@@ -763,9 +935,11 @@ def main() -> int:
         (kern["seg"], "hier_segment_aggregate", AGG_SOURCE, SEG_REPLACES, counts["hier_segment_aggregate"], None),
         (kern["agg"], "hier_aggregate", AGG_SOURCE, AGG_REPLACES, counts["hier_aggregate"], None),
         (flash["wgmma"], "flash_attention", FLASH_SOURCE, FLASH_REPLACES, serve_variants["wgmma"], "wgmma"),
-        (flash["simt"], "flash_attention", FLASH_SIMT_SOURCE, FLASH_REPLACES, serve_variants["simt"], "simt"),
+        (flash["simt"], "flash_attention", FLASH_SIMT_SOURCE, FLASH_REPLACES, exact_variants["simt"], "simt"),
         (kern["topk"], "topk_gating", TOPK_SOURCE, TOPK_REPLACES, serve_counts["topk_gating"], None),
     ):
+        if variant == "simt":  # timed at phase 7's shape, where its launches are counted
+            k = {**flash["simt_phase7"], "max_abs_err": k["max_abs_err"]}
         entry = {
             "name": fn_name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": k["max_abs_err"],
@@ -774,6 +948,14 @@ def main() -> int:
         }
         if variant:
             entry["variant"] = variant
+        entry.update({key: k[key] for key in _EXTRA_KEYS if key in k})
+        if variant == "simt":
+            entry["shape"] = "B 4, S 1536, Hq 40, Hkv 8, d 128, fp32 (phase 7)"
+            entry["fp32_case"] = {
+                "shape": "B 2, S 1024, Hq 16, Hkv 4, d 128, fp32",
+                **{key: flash["simt"][key] for key in
+                   ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", *_EXTRA_KEYS) if key in flash["simt"]},
+            }
         record.append(entry)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(json.dumps({"kernels": record}), flush=True)
@@ -784,4 +966,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -66,12 +66,13 @@ def build() -> Tuple[Path, str]:
     """Compile the kernels if this source hash has no library yet.
 
     Returns the library's path and the compiler's report (``-Xptxas=-v``:
-    registers, shared memory and spills per kernel), empty when the
-    library was already built.
+    registers, shared memory and spills per kernel), which is kept beside
+    the library, so a library built earlier returns it too.
     """
     so = library_path()
+    report = so.with_suffix(".log")
     if so.exists():
-        return so, ""
+        return so, report.read_text() if report.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{so.stem}.{os.getpid()}"
     units = {p: BUILD_DIR / f"{tag}.{p.stem}.o" for p in sources() if p.suffix == ".cu"}
@@ -79,6 +80,7 @@ def build() -> Tuple[Path, str]:
     try:
         log = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in units.items()])
         log += _run([[_nvcc(), "-shared", "-o", str(tmp), *map(str, units.values())]])
+        report.write_text(log)
         os.replace(tmp, so)  # atomic: a concurrent loader sees no half-written file
     finally:
         tmp.unlink(missing_ok=True)
@@ -104,11 +106,12 @@ def sass_instruction_counts(so: Path, kernel: str, opcodes: Tuple[str, ...]) -> 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SIGNATURES = {
-    "repro_segment_aggregate_f32": [_P, _P, _P, _P, _P, _I64, _I64, _P],
-    "repro_segment_aggregate_bf16": [_P, _P, _P, _P, _P, _I64, _I64, _P],
+    "repro_segment_aggregate_f32": [_P, _P, ctypes.c_int, _P, _P, _I64, _I64, _I64, _P],
+    "repro_segment_aggregate_bf16": [_P, _P, ctypes.c_int, _P, _P, _I64, _I64, _I64, _P],
     "repro_aggregate_f32": [_P, _P, _P, _I64, _I64, _P],
     "repro_aggregate_bf16": [_P, _P, _P, _I64, _I64, _P],
     "repro_flash_attention_f32": [_P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_int, _I64, _P],
+    "repro_flash_attention_f32_tile": [ctypes.c_int],
     "repro_flash_attention_wgmma_bf16": [_P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_int, _I64, _P],
     "repro_topk_gating_f32": [_P, _P, _I64, _I64, _I64, _P],
     "repro_topk_gating_bf16": [_P, _P, _I64, _I64, _I64, _P],

@@ -23,10 +23,13 @@ has the numbers at the qwen3-14b serve prefill).  Two CUDA kernels:
   non-flash path does; held to the bf16 tolerance, 2e-2.  Head dims
   ``WGMMA_HEAD_DIMS``; q, k and v need 16-byte aligned base addresses and
   strides (TMA's rule), else the wrapper raises ``ValueError``.
-- fp32: ``csrc/flash_attention.cu``, a SIMT kernel (``wgmma`` takes fp32
-  only as TF32, which would miss the 2e-5 fp32 tolerance): one block per
-  (batch, query head, 64 query rows), a loop over 32-row key tiles in
-  shared memory.
+- fp32: ``csrc/flash_attention.cu``, a SIMT kernel in full fp32 (``wgmma``
+  takes fp32 only as TF32, which would miss the 2e-5 fp32 tolerance): one
+  block of 256 threads per (batch, query head, 128 query rows), a loop over
+  64-row key tiles (``SIMT_TILE``) copied by ``cp.async`` into two shared-
+  memory buffers, scores and output register-blocked per thread, logits in
+  the base-2 domain, one reciprocal per row.  Head dims
+  ``KERNEL_HEAD_DIMS``.
 
 Both skip key tiles outside the causal band or the window, read q, k and
 v through their strides (the last axis must be contiguous) and write a
@@ -48,11 +51,14 @@ NEG_INF = -1e30
 # head dims the fp32 SIMT kernel is instantiated for (csrc/flash_attention.cu):
 # every dense config's, full (128; 96 for phi3-mini) and smoke (16, 32)
 KERNEL_HEAD_DIMS = (16, 32, 64, 96, 128)
+# the fp32 SIMT kernel's tile: query rows per block, key rows per tile
+# (kBQ, kBK in csrc/flash_attention.cu; ``simt_kernel_tile`` reads them back)
+SIMT_TILE = (128, 64)
 # head dims of the bf16 wgmma kernel (csrc/flash_attention_sm90.cu): every
 # full config's; no bf16 config has d 16 or 32 (the smoke configs are fp32)
 WGMMA_HEAD_DIMS = (64, 96, 128)
 _MAX_Q_TILES = 65535  # grid.y
-_Q_TILE = {"simt": 64, "wgmma": 128}
+_Q_TILE = {"simt": SIMT_TILE[0], "wgmma": 128}
 VARIANTS = {torch.float32: "simt", torch.bfloat16: "wgmma"}
 
 
@@ -107,6 +113,13 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] =
         o = torch.einsum("bhgqk,bkhd->bqhgd", probs, vf)
         out[:, i0:i1] = o.reshape(b, i1 - i0, hq, d).to(q.dtype)
     return out
+
+
+def simt_kernel_tile() -> tuple:
+    """(query rows, key rows) of the built fp32 kernel's tile, read from the
+    library (builds it if needed): must equal ``SIMT_TILE``."""
+    lib = load_library()
+    return (lib.repro_flash_attention_f32_tile(0), lib.repro_flash_attention_f32_tile(1))
 
 
 def _check_wgmma(q, k, v, name: str) -> None:

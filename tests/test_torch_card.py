@@ -27,6 +27,7 @@ from repro_torch.kernels import (  # noqa: E402
     topk_gating,
     topk_gating_ref,
 )
+from torch_segment_replay import segment_kernel_replay  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -90,6 +91,47 @@ def test_segment_kernel_matches_plain_on_card(cuda, seg, e, dtype):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize(
+    "ids,e,d",
+    [(np.array([0, 7, 0, -1, 3, 5, 3, 9, 3]), 5, 25141),  # ids below 0 and at or past E
+     (np.arange(21) % 19 - 1, 18, 1000),                  # many segments, int64 ids
+     (np.array([2, 2, 0, 1, 2, 40, 2, 2]), 3, 1 << 17),  # large D; 5 members, two batches of loads
+     (np.arange(70) * 7 % 13 - 1, 11, 4097)],             # N > 32: ids in three ballots of 32
+)
+def test_segment_kernel_out_of_range_ids_on_card(cuda, ids, e, d, dtype):
+    """On the card an id outside [0, E) belongs to no segment (the TPU
+    kernel's one-hot matches none): the kernel agrees with the numpy replay
+    of its loop, and the wrapper checks nothing on the card."""
+    tdt, tol = DTYPES[dtype], AGG_TOL[dtype]
+    x, w = _inputs(len(ids), d, seed=7)
+    u = torch.tensor(x, device=cuda).to(tdt)
+    s = torch.tensor(ids, device=cuda, dtype=torch.int64 if e > 5 else torch.int32)
+    reset_launch_counts()
+    out = hier_segment_aggregate(u, s, torch.tensor(w, device=cuda), e)
+    assert launch_counts()["hier_segment_aggregate"] == 1
+    want = segment_kernel_replay(u.float().cpu().numpy(), ids, w, e)
+    np.testing.assert_allclose(_f32(out), want, atol=tol, rtol=tol)
+
+
+def test_segment_wrapper_never_synchronises_on_card(cuda):
+    """The wrapper queues one launch and nothing that waits for the card,
+    under sync-debug mode "error" (a synchronising call raises), for int32
+    and int64 ids and for weights that need a cast."""
+    x, w = _inputs(18, 25141)
+    u, wt = torch.tensor(x, device=cuda), torch.tensor(w, device=cuda)
+    ids = torch.tensor(np.repeat(np.arange(5), [3, 4, 5, 3, 3]), device=cuda)
+    hier_segment_aggregate(u, ids, wt, 5)  # builds and loads the library first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for s, weights in ((ids, wt), (ids.int(), wt), (ids, wt.double())):
+            hier_segment_aggregate(u, s, weights, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("n,d", [(5, 25141), (13, 14789), (32, 512)])
 def test_aggregate_kernel_matches_plain_on_card(cuda, n, d, dtype):
     tdt, tol = DTYPES[dtype], AGG_TOL[dtype]
@@ -135,6 +177,31 @@ def test_flash_kernel_matches_plain_on_card(cuda, b, s, hq, hkv, d, window, dtyp
         return
     out = _flash_launch_checked(q, k, v, VARIANT[dtype], window=window)
     np.testing.assert_allclose(_f32(out), _f32(flash_attention_ref(q, k, v, window=window)), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("window", [None, 50])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
+def test_flash_simt_kernel_every_head_dim_on_card(cuda, d, window):
+    """The fp32 kernel at every head dim it is built for, with and without
+    a window, a ragged tail past its 128-row query tile, GQA; bitwise
+    repeatable; its tile equals ``SIMT_TILE``."""
+    from repro_torch.kernels.flash_attention import KERNEL_HEAD_DIMS, SIMT_TILE, simt_kernel_tile
+
+    assert d in KERNEL_HEAD_DIMS and simt_kernel_tile() == SIMT_TILE
+    q, k, v = _flash_inputs(cuda, 2, 333, 8, 2, d, torch.float32, seed=d)
+    out = _flash_launch_checked(q, k, v, "simt", window=window)
+    np.testing.assert_allclose(_f32(out), _f32(flash_attention_ref(q, k, v, window=window)), atol=2e-5, rtol=2e-5)
+    assert torch.equal(out, flash_attention(q, k, v, window=window))
+
+
+def test_flash_simt_kernel_off_grid_view_on_card(cuda):
+    """fp32 views whose base or strides are off the 16-byte grid take the
+    kernel's 4-byte copies, and agree all the same."""
+    base = torch.randn((2, 150, 3 * 64 * 4 + 1), device=cuda)
+    qkv = base[:, :, 1:].unflatten(2, (12, 64))  # base 4 bytes past the grid, seq stride odd
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    out = _flash_launch_checked(q, k, v, "simt", window=40)
+    np.testing.assert_allclose(_f32(out), _f32(flash_attention_ref(q, k, v, window=40)), atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.parametrize(

@@ -89,41 +89,43 @@ def test_cpu_wrapper_launches_nothing():
     assert launch_counts()["flash_attention"] == 0
 
 
-# -- the bf16 wgmma kernel's numerics (csrc/flash_attention_sm90.cu) ----------
+# -- the CUDA kernels' numerics, emulated on the CPU --------------------------
 
-_KERNEL_TILE = 128  # query rows per CTA and key rows per tile
 NEG_INF = -1e30
+_WGMMA_TILE = (128, 128)  # query rows per CTA, key rows per tile (csrc/flash_attention_sm90.cu)
 
 
-def _wgmma_numerics(q, k, v, *, causal=True, window=None):
-    """Attention computed the way the bf16 wgmma kernel computes it: per
-    128-row query tile, the 128-row key tiles it visits (tiles outside the
-    causal band or the window skipped, the ragged tail zero-filled and
-    masked), logits in the base-2 domain with the finite -1e30 mask, fp32
-    running max / sum / accumulator, and p rounded to bf16 for p . v (the
-    sum adds the fp32 p).  q, k, v: (B, S, H, D) torch tensors in bf16."""
+def _tiled_numerics(q, k, v, *, tile, round_p, causal=True, window=None):
+    """Attention computed the way the CUDA kernels compute it: per query
+    tile of ``tile[0]`` rows, the ``tile[1]``-row key tiles it visits (tiles
+    outside the causal band or the window skipped, the ragged tail
+    zero-filled and masked), logits scaled by scale * log2(e) in fp32 with
+    the finite -1e30 mask, fp32 running max / sum / accumulator in base 2,
+    one reciprocal per row at the end.  With ``round_p`` p is rounded to
+    bf16 for p . v (the sum adds the fp32 p).  q, k, v: (B, S, H, D) torch
+    tensors; returns q's dtype."""
     b, s, hq, d = q.shape
     g = hq // k.shape[2]
-    t = _KERNEL_TILE
-    c = np.float32(1.0 / np.sqrt(d) * np.log2(np.e))
-    pad = -(-s // t) * t - s
+    bq, bk = tile
+    c = np.float32(np.float32(1.0 / np.sqrt(d)) * np.float32(np.log2(np.e)))
+    pad = -(-s // bk) * bk - s
     qf = q.float().permute(0, 2, 1, 3)                                        # (B, Hq, S, D)
     kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))           # zero-filled tail
     vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
     kf = kf.repeat_interleave(g, dim=2).permute(0, 2, 1, 3)                   # (B, Hq, S + pad, D)
     vf = vf.repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
     out = torch.empty((b, hq, s, d), dtype=torch.float32)
-    for q0 in range(0, s, t):
-        rows = torch.arange(q0, min(q0 + t, s))
-        k_end = min(q0 + t, s) if causal else s
+    for q0 in range(0, s, bq):
+        rows = torch.arange(q0, min(q0 + bq, s))
+        k_end = min(q0 + bq, s) if causal else s
         k_begin = max(0, q0 - window + 1) if window else 0
         m = torch.full((b, hq, len(rows)), NEG_INF)
         l = torch.zeros((b, hq, len(rows)))
         acc = torch.zeros((b, hq, len(rows), d))
-        for k0 in range(k_begin // t * t, k_end, t):
-            keys = torch.arange(k0, k0 + t)
-            x = (qf[:, :, rows] @ kf[:, :, k0:k0 + t].transpose(-1, -2)) * c
-            ok = (keys[None, :] < s).expand(len(rows), t)
+        for k0 in range(k_begin // bk * bk, k_end, bk):
+            keys = torch.arange(k0, k0 + bk)
+            x = (qf[:, :, rows] @ kf[:, :, k0:k0 + bk].transpose(-1, -2)) * c
+            ok = (keys[None, :] < s).expand(len(rows), bk)
             if causal:
                 ok = ok & (keys[None, :] <= rows[:, None])
             if window:
@@ -133,10 +135,25 @@ def _wgmma_numerics(q, k, v, *, causal=True, window=None):
             p = torch.exp2(x - m_new[..., None])
             alpha = torch.exp2(m - m_new)
             l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + t]
+            pv = p.to(torch.bfloat16).float() if round_p else p
+            acc = acc * alpha[..., None] + pv @ vf[:, :, k0:k0 + bk]
             m = m_new
-        out[:, :, rows] = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+        out[:, :, rows] = acc * (1.0 / torch.clamp(l, min=1e-30))[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _wgmma_numerics(q, k, v, *, causal=True, window=None):
+    """The bf16 wgmma kernel (csrc/flash_attention_sm90.cu): 128 x 128 tiles,
+    p rounded to bf16 for p . v."""
+    return _tiled_numerics(q, k, v, tile=_WGMMA_TILE, round_p=True, causal=causal, window=window)
+
+
+def _simt_numerics(q, k, v, *, causal=True, window=None):
+    """The fp32 SIMT kernel (csrc/flash_attention.cu): its ``SIMT_TILE``
+    (128 query rows x 64 keys), p kept in fp32."""
+    from repro_torch.kernels.flash_attention import SIMT_TILE
+
+    return _tiled_numerics(q, k, v, tile=SIMT_TILE, round_p=False, causal=causal, window=window)
 
 
 WGMMA_CASES = {
@@ -180,6 +197,56 @@ def test_wgmma_numerics_first_empty_tile():
     want = flash_attention_ref(q, k, v, window=3)
     assert bool(torch.isfinite(got.float()).all())
     np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-2, rtol=2e-2)
+
+
+SIMT_CASES = {
+    # id: B, S, Hq, Hkv, D, window
+    "d16": (2, 130, 4, 2, 16, None),
+    "d32-gqa": (1, 256, 8, 2, 32, None),
+    "d96": (1, 200, 2, 2, 96, None),
+    "d128-mqa": (2, 150, 4, 1, 128, None),
+    "d64-s77": (2, 77, 4, 2, 64, None),
+    "window7": (1, 300, 2, 1, 64, 7),
+    "window50-d128": (1, 260, 4, 2, 128, 50),
+    "window100-d32": (2, 200, 2, 2, 32, 100),
+}
+
+
+@pytest.mark.parametrize("against", ["pallas", "oracle"])
+@pytest.mark.parametrize("case", list(SIMT_CASES))
+def test_simt_numerics_match_reference(case, against):
+    """The fp32 kernel's tiling, tile skipping, base-2 softmax and one
+    reciprocal per row stay within the reference's fp32 tolerance."""
+    b, s, hq, hkv, d, window = SIMT_CASES[case]
+    q, k, v = _qkv(b, s, hq, hkv, d, seed=8)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    if against == "pallas":
+        block = 64 if s % 64 == 0 else s
+        want = ref_flash(jq, jk, jv, causal=True, window=window, block_q=block, block_k=block, interpret=True)
+    else:
+        want = ref_oracle(jq, jk, jv, causal=True, window=window)
+    got = _simt_numerics(*(torch.tensor(a) for a in (q, k, v)), window=window)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, s, hq, d)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=2e-5)
+
+
+def test_simt_numerics_first_empty_tile():
+    """A window below the key tile leaves rows whose first visited tile
+    holds none of their keys; the -1e30 mask keeps them finite and within
+    the fp32 tolerance of the plain version."""
+    q, k, v = (torch.tensor(a) for a in _qkv(1, 300, 2, 1, 64, seed=6))
+    got = _simt_numerics(q, k, v, window=3)
+    want = flash_attention_ref(q, k, v, window=3)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=2e-5)
+
+
+def test_simt_numerics_non_causal():
+    q, k, v = (torch.tensor(a) for a in _qkv(1, 200, 4, 2, 32, seed=9))
+    for window in (None, 40):
+        got = _simt_numerics(q, k, v, causal=False, window=window)
+        want = flash_attention_ref(q, k, v, causal=False, window=window)
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=2e-5)
 
 
 def _bf16_view(shape, strides, offset=0):

@@ -23,6 +23,7 @@ from repro_torch.kernels import (  # noqa: E402
     reset_launch_counts,
     topk_gating,
 )
+from torch_segment_replay import segment_kernel_replay  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5), "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 RAGGED_CASES = [
@@ -131,28 +132,29 @@ def test_wrappers_reject_bad_inputs(call, err):
 
 @pytest.mark.parametrize(
     "seg,e",
-    RAGGED_CASES + [(np.array([3, 0, 4, 0, 3, 1, 0, 3, 4]), 6), (np.array([2, 2, 0, 1, 2]), 3)],
+    RAGGED_CASES
+    + [
+        (np.array([3, 0, 4, 0, 3, 1, 0, 3, 4]), 6),
+        (np.array([2, 2, 0, 1, 2]), 3),
+        (np.array([0, 7, 0, -1, 3, 5, 3, 9, 3]), 5),  # ids outside [0, E) belong to no segment
+        (np.arange(21) % 19, 19),  # many segments, one block each, one member or two
+        (np.arange(40) % 7, 7),  # N > 32: the ids in two ballots of 32
+    ],
 )
-def test_segment_runs_feed_the_kernel_loop(seg, e):
-    """The grouping the CUDA kernel walks (rows sorted stably by segment,
-    per-segment offsets), replayed in numpy as the kernel's loop runs it:
-    one fp32 accumulator per (segment, column), rows in their order."""
-    from repro_torch.kernels.segment_aggregate import _normalized_weights, _segment_runs
-
+def test_segment_kernel_loop_matches_reference_kernel(seg, e):
+    """The CUDA segment kernel's loop, replayed in numpy (member rows listed
+    in row order, in-kernel denominators in row order, out-of-range ids
+    dropped), against the reference's Pallas kernel in interpret mode,
+    whose one-hot matches no out-of-range id either."""
     x, w = _inputs(len(seg), 33, seed=4)
-    seg64 = torch.tensor(seg, dtype=torch.int64)
-    rows, offs = _segment_runs(seg64, e)
-    assert rows.dtype == offs.dtype == torch.int32 and tuple(offs.shape) == (e + 1,)
-    rows, offs = rows.numpy(), offs.numpy()
-    wn = _normalized_weights(seg64, torch.tensor(w), e).numpy()
-    out = np.zeros((e, x.shape[1]), np.float32)
-    for s in range(e):
-        members = rows[offs[s] : offs[s + 1]]
-        np.testing.assert_array_equal(members, np.nonzero(seg == s)[0])  # stable
-        for i in members:
-            out[s] += wn[i] * x[i]
-    want = hier_segment_aggregate_ref(torch.tensor(x), seg64, torch.tensor(w), e).numpy()
-    np.testing.assert_allclose(out, want, rtol=1e-6, atol=1e-6)
+    got = segment_kernel_replay(x, seg, w, e)
+    want = ref_seg(jnp.asarray(x), jnp.asarray(seg), jnp.asarray(w), e, block=16, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6, atol=1e-6)
+    counts = np.bincount(seg[(seg >= 0) & (seg < e)], minlength=e)
+    for s in np.nonzero(counts == 0)[0]:
+        assert np.all(got[s] == 0)
+    for s in np.nonzero(counts == 1)[0]:
+        np.testing.assert_array_equal(got[s], x[np.nonzero(seg == s)[0][0]])
 
 
 def test_cpu_wrappers_launch_nothing():
