@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --segment-wrapper ROOT   # one wrapper's timings only
+    python3 chip_smoke.py --wrappers ROOT   # the small kernels and their whole wrapper calls only
 
 Phases, each of which raises (and the script exits non-zero) on failure:
 
@@ -10,27 +10,32 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 2. the kernel build (one ``nvcc`` per source, side by side, linked into
    ``build/repro_torch/librepro_torch-<hash>.so``), with its seconds,
    each kernel's registers and spills (every kernel must show 0 spills),
-   the fp32 flash kernel's tile (must equal ``SIMT_TILE``), and the
-   ``HGMMA`` (tensor-core) and ``UTMALDG`` (TMA load) instructions in the
-   ``wgmma`` flash kernel's SASS;
-3. every kernel against its plain PyTorch version on the card, with the
-   kernel's, the plain version's and one PyTorch library call's device
-   times (CUDA events over back-to-back launches) beside the least time the
-   card could take (``bound_ms``): the FedAvg reductions at the heartbeat
-   path's shapes (fp32 1e-5, bf16 2e-2), the segment kernel also with ids
-   outside [0, E) (which belong to no segment on the card), its wrapper's
-   whole calls (the card's time per call back to back, the device
-   operations one call queues and their device time, the host time) and
-   a run under ``torch.cuda.set_sync_debug_mode("error")``, beside
-   ``hier_aggregate``'s kernel reading the same 18 rows (one level of
-   loads: a floor for that call);
+   the fp32 flash kernel's tile (must equal ``SIMT_TILE``),
+   ``hier_aggregate``'s layout at phase 3's cloud-reduce shape (threads
+   and blocks, columns per thread, rows whose loads are in flight
+   together), and the ``HGMMA`` (tensor-core)
+   and ``UTMALDG`` (TMA load) instructions in the ``wgmma`` flash kernel's
+   SASS;
+3. the launch floor (an empty launch, ``torch.cuda._sleep(0)``, timed as
+   the kernels are), then every kernel against its plain PyTorch version
+   on the card, with the kernel's, the plain version's and one PyTorch
+   library call's device times (CUDA events over back-to-back launches)
+   beside the least time the card could take (``bound_ms``): the FedAvg
+   reductions at the heartbeat path's shapes (fp32 1e-5, bf16 2e-2; zero
+   total weight writes zeros), the segment kernel also with ids outside
+   [0, E) (which belong to no segment on the card), both wrappers' whole
+   calls (the card's time per call back to back, the device operations
+   one call queues and their device time, the host time) and a run under
+   ``torch.cuda.set_sync_debug_mode("error")``;
    flash attention, bf16 on the ``wgmma`` kernel, at the qwen3-14b serve
    prefill and at starcoder2-3b's widths with its 4096 window biting, fp32
    on the SIMT kernel at its own case and at phase 7's shape (with the name
    of the CUDA kernel the library call ran), plus untimed cases (d 96,
    windows below the tile, ragged lengths, a fused projection's views; fp32
    2e-5, bf16 2e-2), each checked to have launched its dtype's variant;
-   top-k gating at the granite-moe router shape (1e-5);
+   top-k gating (1e-5; bit for bit on ties and underflow) timed for 8192
+   tokens, k 8, at the granite-moe router width (E 40) and at E 128 and
+   1000, beside softmax -> topk -> scatter -> divide as a yardstick;
 4. card against CPU: the heartbeat sync engine (scale 0.02, two cloud
    rounds), and the qwen3-14b smoke config served with the same parameters
    (prefill logits 1e-4, identical greedy tokens);
@@ -56,9 +61,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (prefill-logit difference, token agreement), then one prefill and 4
    decode steps under ``torch.profiler``.
 
-With ``--segment-wrapper ROOT`` the script times only the segment
-wrapper's whole calls, for the port under ``ROOT/src``, and prints one JSON
-line: run it on two trees in turns to compare them on one card.
+With ``--wrappers ROOT`` the script times only the launch floor and the
+segment, aggregate and top-k kernels and their wrappers' whole calls, for
+the port under ``ROOT/src``, and prints one JSON line: run it on two trees
+in turns to compare them on one card.
 
 The last lines are a JSON ``kernels`` record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -96,7 +102,8 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 HEARTBEAT_KERNELS = ("hier_segment_aggregate", "hier_aggregate")
 # measured numbers a kernel record carries where its phase took them
 _EXTRA_KEYS = ("tflops", "library_kernel", "library_fused_ms", "library_fused_err", "library_fused_kernel",
-               "wrapper_host_ms", "wrapper_ms", "wrapper_device_ops", "wrapper_busy_ms")
+               "wrapper_host_ms", "wrapper_ms", "wrapper_device_ops", "wrapper_busy_ms", "floor_ms", "floor_kind",
+               "yardstick_ms", "other_shapes", "layout")
 
 
 def _require(ok: bool, message: str) -> None:
@@ -186,6 +193,15 @@ def _wrapper_work(fn) -> dict:
         "wrapper_device_ops": sum(e.count for e in device) / iters,
         "wrapper_busy_ms": busy_us / iters / 1e3 if busy_us > 0 else "not measured",
     }
+
+
+def _launch_floor() -> dict:
+    """The device time of an empty launch back to back (``_device_ms``):
+    PyTorch's one-thread spin kernel for 0 cycles, ``torch.cuda._sleep(0)``.
+    No kernel can take less in this timing."""
+    import torch
+
+    return {"floor_ms": _device_ms(lambda: torch.cuda._sleep(0))[0], "floor_kind": "torch.cuda._sleep(0)"}
 
 
 def _sca_inputs(d_model: int):
@@ -278,7 +294,9 @@ def _kernel_phase(rate: float, d_model: int) -> dict:
         ("one segment", np.zeros(9, int), 1, 1000, None),
         ("own segment + empty", np.arange(9), 10, 1000, None),
     ]
-    result = {"seg": {"max_abs_err": 0.0}, "agg": {"max_abs_err": 0.0}}
+    floor = _launch_floor()
+    print(f"kernel launch floor: {_fmt(floor)}", flush=True)
+    result = {"seg": {"max_abs_err": 0.0}, "agg": {"max_abs_err": 0.0}, "floor": floor}
     for label, seg_np, e, d, timed in seg_cases:
         n = len(seg_np)
         for dtype in (torch.float32, torch.bfloat16):
@@ -311,6 +329,7 @@ def _kernel_phase(rate: float, d_model: int) -> dict:
                 )
                 t["sync_free"] = _sync_free(lambda: hier_segment_aggregate(x, seg64, w.double(), e))
                 if timed == "main":
+                    t.update(floor)
                     t.update(_wrapper_work(lambda: hier_segment_aggregate(x, seg, w, e)))
                     result["seg"].update(t)
                 line += " " + _fmt(t)
@@ -328,8 +347,9 @@ def _kernel_phase(rate: float, d_model: int) -> dict:
         result["seg"]["max_abs_err"] = max(result["seg"]["max_abs_err"], err)
         print(f"kernel hier_segment_aggregate [ids outside [0, E)] N={len(ids)} D=1000 E={e} torch.float32: "
               f"max_abs_err={err:.3g}", flush=True)
-    for n, d, timed in ((5, d_model, True), (4, 1000, False), (13, d_model, False), (18, d_model, False),
-                        (32, 512, False)):
+    for n, d, timed in ((5, d_model, True), (1, d_model, False), (4, 1000, False), (8, d_model, False),
+                        (9, d_model, False), (13, d_model, False), (18, d_model, False), (32, 512, False),
+                        (40, 1000, False)):
         for dtype in (torch.float32, torch.bfloat16):
             tol = TOL[str(dtype).split(".")[1]]
             x = torch.as_tensor(rng.standard_normal((n, d)), dtype=dtype, device=dev)
@@ -339,22 +359,22 @@ def _kernel_phase(rate: float, d_model: int) -> dict:
             torch.cuda.synchronize()
             err = _close(got, want, tol)
             result["agg"]["max_abs_err"] = max(result["agg"]["max_abs_err"], err)
+            zero = hier_aggregate(x, torch.zeros_like(w))
+            _require(bool((zero == 0).all()), f"hier_aggregate N={n}: zero total weight does not write zeros")
             line = f"kernel hier_aggregate [{'cloud reduce' if timed else 'sweep'}] N={n} D={d} {dtype}: max_abs_err={err:.3g}"
-            if n == 18 and dtype == torch.float32:
-                # the SCA segment call's 18 rows of x read by one level of
-                # loads with nothing before them: a floor for that call
-                wn = agg_mod._normalized_weights(w)
-                line += f" ms={_device_ms(lambda: agg_mod._launch(x, wn))[0]:.4g} (same rows as the SCA segment call)"
             if timed and dtype == torch.float32:
-                wn = agg_mod._normalized_weights(w)
+                wn = w / w.sum().clamp_min(1e-30)
                 t = _timings(
-                    kernel=lambda: agg_mod._launch(x, wn),
+                    kernel=lambda: agg_mod._launch(x, w),
                     wrapper=lambda: hier_aggregate(x, w),
                     plain=lambda: hier_aggregate_ref(x, w),
                     library=lambda: wn @ x,
                     nbytes=(n + 1) * d * 4 + n * 4,
                     rate=rate,
                 )
+                t.update(floor)
+                t["sync_free"] = _sync_free(lambda: hier_aggregate(x, w.double()))
+                t.update(_wrapper_work(lambda: hier_aggregate(x, w)))
                 result["agg"].update(t)
                 line += " " + _fmt(t)
             print(line, flush=True)
@@ -603,43 +623,71 @@ def _cuda_kernel_names(fn) -> str:
     return "; ".join(n[:120] for n in names) or "not measured (the trace holds no device kernel)"
 
 
-def _topk_phase(rate: float) -> dict:
+def _topk_phase(rate: float, floor: dict) -> dict:
     """Phase 3, top-k gating: the kernel against its plain version on the
-    card (1e-5), timed at granite-moe-3b-a800m's router shape (E 40, k 8)
-    for 8192 tokens.  No single PyTorch call computes it: no library time."""
+    card (1e-5; bit for bit on ties and underflow), timed for 8192 tokens
+    with k 8 at granite-moe-3b-a800m's router width (E 40) and at E 128 and
+    1000.  No single PyTorch call computes it, so there is no library time;
+    beside it, as a yardstick only, softmax -> topk -> scatter -> divide."""
     import torch
 
     from repro_torch.kernels.topk_gating import _launch, topk_gating, topk_gating_ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(1)
-    ties = torch.zeros((4, 40), device=dev)
-    ties[1, ::3] = 1.0
-    ties[2, 5] = 300.0  # every other probability underflows to 0
+
+    def logits(t, e, dtype=torch.float32):
+        return (torch.randn((t, e), generator=gen, device=dev) * 2).to(dtype)
+
+    ties = torch.full((6, 65), -200.0, device=dev)  # every -200 underflows to probability 0
+    ties[0, [64, 32, 1]] = 0.0   # a three-way tie over three register slots
+    ties[1, [32, 31]] = 0.0      # the lowest index sits on the highest lane
+    ties[2, 64] = 0.0            # one expert holds all the mass
+    ties[3] = 0.0                # all equal
+    ties[4] = 0.0
+    ties[4, ::3] = 1.0           # a sum whose bits depend on its order: torch.softmax's
+    ties[5, 5] = 300.0
     cases = [
-        ("granite-moe router", torch.randn((8192, 40), generator=gen, device=dev) * 2, 8, "main"),
-        ("bf16", (torch.randn((8192, 40), generator=gen, device=dev) * 2).to(torch.bfloat16), 8, None),
-        ("E 1000", torch.randn((300, 1000), generator=gen, device=dev) * 2, 8, None),
-        ("ties and underflow", ties, 8, None),
-        ("k > E", torch.randn((64, 33), generator=gen, device=dev), 40, None),
+        ("granite-moe router", logits(8192, 40), 8, "main"),
+        ("E 128", logits(8192, 128), 8, "timed"),
+        ("E 1000", logits(8192, 1000), 8, "timed"),
+        ("bf16", logits(8192, 40, torch.bfloat16), 8, None),
+        *((f"E {e}", logits(300, e, dtype), 8, None)
+          for e in (32, 33, 56, 57, 64, 65, 1024) for dtype in (torch.float32, torch.bfloat16)),
+        ("ties and underflow", ties, 8, "exact"),
+        ("ties and underflow, k 1", ties, 1, "exact"),
+        ("k > E", logits(64, 33), 40, None),
+        ("k 0", logits(64, 40), 0, None),
     ]
-    result = {"max_abs_err": 0.0}
+    result = {"max_abs_err": 0.0, "other_shapes": []}
     for label, x, k, timed in cases:
         got = topk_gating(x, k)
         want = topk_gating_ref(x, k)
         torch.cuda.synchronize()
+        if timed == "exact":
+            _require(torch.equal(got, want), f"topk_gating [{label}]: not bit for bit the plain version")
         err = _close(got, want, 1e-5)
         result["max_abs_err"] = max(result["max_abs_err"], err)
         line = f"kernel topk_gating [{label}] T={x.shape[0]} E={x.shape[1]} k={k} {x.dtype}: max_abs_err={err:.3g}"
-        if timed:
+        if timed in ("main", "timed"):
+            def yardstick(x=x, k=k):
+                probs = torch.softmax(x.float(), dim=-1)
+                top, idx = torch.topk(probs, k, dim=-1)
+                return torch.zeros_like(probs).scatter_(-1, idx, top) / top.sum(-1, keepdim=True).clamp_min(1e-9)
+
             t = {
                 "ms": _device_ms(lambda: _launch(x, k))[0],
                 "plain_ms": _device_ms(lambda: topk_gating_ref(x, k))[0],
                 "library_ms": None,
                 "bound_ms": x.numel() * (x.element_size() + 4) / rate * 1e3,
                 "bound_by": "bytes",
+                "yardstick_ms": _device_ms(yardstick)[0],
+                **floor,
             }
-            result.update(t)
+            if timed == "main":
+                result.update(t)
+            else:
+                result["other_shapes"].append({"T": x.shape[0], "E": x.shape[1], "k": k, **t})
             line += " " + _fmt(t)
         print(line, flush=True)
     return result
@@ -831,24 +879,30 @@ def _leaves(tree):
     return [tree]
 
 
-def _build_report(log: str, so) -> None:
+def _build_report(log: str, so, agg_n: int, agg_d: int) -> dict:
     """Each kernel's registers and spills from ``-Xptxas=-v`` (every kernel
     must show 0 spills), the fp32 flash kernel's tile (must equal
-    ``SIMT_TILE``), and the tensor-core (``HGMMA``) and TMA (``UTMALDG``,
-    ``UTMASTG``) instructions in the ``wgmma`` flash kernel's SASS: both
-    must be there."""
-    from repro_torch.kernels.build import sass_instruction_counts
+    ``SIMT_TILE``), ``hier_aggregate``'s layout for (``agg_n``,
+    ``agg_d``), as its library launches it (returned), and the
+    tensor-core (``HGMMA``) and TMA (``UTMALDG``, ``UTMASTG``) instructions
+    in the ``wgmma`` flash kernel's SASS: both must be there."""
+    from repro_torch.kernels.build import load_library, sass_instruction_counts
     from repro_torch.kernels.flash_attention import SIMT_TILE, simt_kernel_tile
 
     tile = simt_kernel_tile()
     print(f"build: flash_attention_kernel tile {tile} (query rows, key rows)", flush=True)
     _require(tile == SIMT_TILE, f"the fp32 flash kernel's tile {tile} is not SIMT_TILE {SIMT_TILE}")
+    lib = load_library()
+    threads, blocks, rows = (lib.repro_aggregate_layout(i, agg_n, agg_d) for i in range(3))
+    layout = {"N": agg_n, "D": agg_d, "threads": threads, "blocks": blocks,
+              "cols_per_thread": -(-agg_d // (threads * blocks)), "rows_in_flight": rows}
+    print(f"build: aggregate_kernel layout {json.dumps(layout)}", flush=True)
 
     arg_names = {"13__nv_bfloat16": "bf16", "f": "f32", "i": "int32", "l": "int64"}
     name, checked = None, set()
     for line in log.splitlines():
         m = re.search(r"(segment_aggregate_kernel|aggregate_kernel|flash_attention_kernel|"
-                      r"flash_attention_wgmma_kernel|topk_gating_kernel)I(.+?)E+v", line)
+                      r"flash_attention_wgmma_kernel|topk_gating_group_kernel|topk_gating_kernel)I(.+?)E+v", line)
         if m:
             args = re.findall(r"13__nv_bfloat16|Li\d+|[fil]", m.group(2))
             name = f"{m.group(1)}<{','.join(arg_names.get(a, a[2:]) for a in args)}>"
@@ -865,29 +919,68 @@ def _build_report(log: str, so) -> None:
         d = re.search(r"wgmma_kernelILi(\d+)E", kernel)
         print(f"build: flash_attention_wgmma_kernel<{d.group(1) if d else '?'}> SASS {json.dumps(ops)}", flush=True)
         _require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, f"{kernel}: no HGMMA or no UTMALDG in its SASS")
+    return layout
 
 
-def _segment_wrapper_only(root: Path) -> int:
-    """``--segment-wrapper ROOT``: only the segment wrapper's whole calls at
-    the SCA edge FedAvg shape (``_wrapper_work`` and host ms), for the port
-    under ``ROOT/src``, built there; prints one JSON line.  Alternating two
-    trees (a parent commit unpacked under ``build/``, say) in one run
-    compares them on one card."""
+def _wrappers_only(root: Path) -> int:
+    """``--wrappers ROOT``: the launch floor, then the small kernels alone
+    (``kernel_ms``: the module's ``_launch`` back to back, as phase 3 times
+    it) and their wrappers' whole calls (``_wrapper_work`` and host ms):
+    ``hier_segment_aggregate`` at the SCA edge FedAvg shape,
+    ``hier_aggregate`` at the cloud reduce's (N 5) and ``topk_gating`` for
+    8192 tokens, k 8, at E 40, 128 and 1000, for the port under
+    ``ROOT/src``, built there; prints one JSON line.  Alternating two trees
+    (a parent commit unpacked under ``build/``, say) in one run compares
+    them on one card.  A tree whose aggregate kernel takes normalized
+    weights (its module has ``_normalized_weights``) gets them, made once
+    outside the timing."""
+    import importlib
+
+    import numpy as np
     import torch
 
     sys.path.insert(0, str(root / "src"))
     import repro_torch
     from repro_torch.federated.programs import CNNProgram
-    from repro_torch.kernels import hier_segment_aggregate, hier_segment_aggregate_ref
+    from repro_torch.kernels import (
+        hier_aggregate,
+        hier_aggregate_ref,
+        hier_segment_aggregate,
+        hier_segment_aggregate_ref,
+        topk_gating,
+        topk_gating_ref,
+    )
     from repro_torch.utils.tree import tree_num_params
 
     _require(Path(repro_torch.__file__).resolve().is_relative_to(root), f"repro_torch not imported from {root}")
+    seg_mod, agg_mod, topk_mod = (importlib.import_module(f"repro_torch.kernels.{m}")
+                                  for m in ("segment_aggregate", "hier_aggregate", "topk_gating"))
     d_model = tree_num_params(CNNProgram().init(torch.Generator().manual_seed(0)))
     x, seg, w, e = _sca_inputs(d_model)
     call = lambda: hier_segment_aggregate(x, seg, w, e)  # noqa: E731
     err = _close(call(), hier_segment_aggregate_ref(x, seg, w, e), TOL["float32"])
-    record = {"segment_wrapper": str(root), "card": _smi(), "N": 18, "E": e, "D": d_model, "max_abs_err": err,
+    record = {"tree": str(root), "card": _smi(), **_launch_floor(), "N": 18, "E": e, "D": d_model,
+              "max_abs_err": err, "kernel_ms": _device_ms(lambda: seg_mod._launch(x, seg, w, e))[0],
               **_wrapper_work(call), "wrapper_host_ms": _host_ms(call)}
+    rng = np.random.default_rng(0)
+    xa = torch.as_tensor(rng.standard_normal((5, d_model)), dtype=torch.float32, device="cuda")
+    wa = torch.as_tensor(rng.uniform(0.05, 1.0, 5), dtype=torch.float32, device="cuda")
+    call = lambda: hier_aggregate(xa, wa)  # noqa: E731
+    err = _close(call(), hier_aggregate_ref(xa, wa), TOL["float32"])
+    normalized = hasattr(agg_mod, "_normalized_weights")
+    wk = agg_mod._normalized_weights(wa) if normalized else wa
+    _close(agg_mod._launch(xa, wk), hier_aggregate_ref(xa, wa), TOL["float32"])
+    record["aggregate"] = {"N": 5, "D": d_model, "max_abs_err": err, "kernel_weights": "normalized" if normalized else "raw",
+                           "kernel_ms": _device_ms(lambda: agg_mod._launch(xa, wk))[0],
+                           **_wrapper_work(call), "wrapper_host_ms": _host_ms(call)}
+    record["topk"] = []
+    for experts in (40, 128, 1000):  # the granite-moe router width, then wider
+        xt = torch.as_tensor(rng.standard_normal((8192, experts)) * 2, dtype=torch.float32, device="cuda")
+        call = lambda: topk_gating(xt, 8)  # noqa: E731
+        err = _close(call(), topk_gating_ref(xt, 8), 1e-5)
+        record["topk"].append({"T": 8192, "E": experts, "k": 8, "max_abs_err": err,
+                               "kernel_ms": _device_ms(lambda: topk_mod._launch(xt, 8))[0],
+                               **_wrapper_work(call), "wrapper_host_ms": _host_ms(call)})
     print(json.dumps(record), flush=True)
     return 0
 
@@ -899,10 +992,10 @@ def main(argv) -> int:
         print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
         return 1
     if argv:
-        if len(argv) != 2 or argv[0] != "--segment-wrapper":
-            print("usage: python3 chip_smoke.py [--segment-wrapper ROOT]", file=sys.stderr)
+        if len(argv) != 2 or argv[0] != "--wrappers":
+            print("usage: python3 chip_smoke.py [--wrappers ROOT]", file=sys.stderr)
             return 2
-        return _segment_wrapper_only(Path(argv[1]).resolve())
+        return _wrappers_only(Path(argv[1]).resolve())
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (fails when the package is not beside the script)
     from repro_torch.kernels.build import build
@@ -915,14 +1008,15 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     so, log = build()
     print(f"build: {so.name} in {time.perf_counter() - t0:.3f}s", flush=True)
-    _build_report(log, so)
     from repro_torch.federated.programs import CNNProgram
     from repro_torch.utils.tree import tree_num_params
 
     d_model = tree_num_params(CNNProgram().init(torch.Generator().manual_seed(0)))
+    layout = _build_report(log, so, 5, d_model)  # the cloud reduce phase 3 times
     kern = _kernel_phase(rates[0], d_model)
+    kern["agg"]["layout"] = layout
     kern["flash"] = _flash_phase(rates)
-    kern["topk"] = _topk_phase(rates[0])
+    kern["topk"] = _topk_phase(rates[0], kern["floor"])
     _card_vs_cpu()
     _serve_card_vs_cpu()
     counts, sc, lam = _main_path()

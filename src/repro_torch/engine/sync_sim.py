@@ -216,7 +216,11 @@ class BatchedSyncEngine:
         n = self.assignment.shape[1]
         history: List[RoundMetrics] = []
         global_row = self.pack.ravel(self.params)
-        edge_sizes = group_edge_sizes(self.clients, self.assignment, self.group_of)[0]
+        # the cloud weights go to the device once per run, so that no cloud
+        # round's reduce waits on a host-to-device copy
+        edge_sizes = torch.as_tensor(
+            group_edge_sizes(self.clients, self.assignment, self.group_of)[0], device=self.device
+        )
         wall_accum = sim_accum = 0.0
         for b in range(1, cloud_rounds + 1):
             t_round = time.perf_counter()

@@ -7,7 +7,8 @@ kernel                        replaces (reference Pallas kernel)              CU
 ``hier_aggregate``            ``src/repro/kernels/hier_aggregate.py``         ``aggregate.cu``
 ``flash_attention``           ``src/repro/kernels/flash_attention.py``        bf16: ``flash_attention_sm90.cu`` (wgmma,
                                                                               TMA); fp32: ``flash_attention.cu`` (SIMT)
-``topk_gating``               ``src/repro/kernels/topk_gating.py``            ``topk_gating.cu``
+``topk_gating``               ``src/repro/kernels/topk_gating.py``            ``topk_gating.cu`` (8-lane groups for E <= 56,
+                                                                              one row per warp with REDUX above)
 ============================  ==============================================  ==========================================
 
 All are built into one library, ``build/repro_torch/librepro_torch-<hash>.so``

@@ -110,6 +110,7 @@ _SIGNATURES = {
     "repro_segment_aggregate_bf16": [_P, _P, ctypes.c_int, _P, _P, _I64, _I64, _I64, _P],
     "repro_aggregate_f32": [_P, _P, _P, _I64, _I64, _P],
     "repro_aggregate_bf16": [_P, _P, _P, _I64, _I64, _P],
+    "repro_aggregate_layout": [ctypes.c_int, _I64, _I64],
     "repro_flash_attention_f32": [_P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_int, _I64, _P],
     "repro_flash_attention_f32_tile": [ctypes.c_int],
     "repro_flash_attention_wgmma_bf16": [_P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_int, _I64, _P],

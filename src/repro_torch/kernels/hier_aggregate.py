@@ -9,10 +9,16 @@ writing the (D,) result once at the memory rate.  The heartbeat cloud
 reduce (N = 5, D = 25,141, fp32) moves 0.6 MB, about 0.2 us at 3.35 TB/s,
 far below a launch's own latency: the kernel is launch-bound.
 
-Design (``csrc/aggregate.cu``): one thread owns one column and sums
-``wn[i] * x[i, col]`` over the rows in an fp32 register, then writes the
-column once in the input dtype.  The weights, normalized by their sum
-(clamped at 1e-30), are O(N) scalars built beside the launch in plain torch.
+Design (``csrc/aggregate.cu``): one launch per call, from the raw weights;
+the wrapper prepares nothing on the device and never synchronises.  Each
+thread owns a column and sends out at once the loads of 8 rows of x (N <=
+8; a larger N goes in chunks of 32) and of the weight of row ``lane``.  The kernel then adds the weights
+in row order (handed round the warp by shuffles), clamps the sum at 1e-30,
+has each lane divide its own row's weight by it (one IEEE division per
+lane), and adds the rounded products in row order, as the segment kernel
+and the plain version do.  At the cloud reduce's N = 5 that is one round
+trip of loads; the chain of adds and the division after it are what
+in-kernel normalization costs.
 """
 from __future__ import annotations
 
@@ -28,21 +34,18 @@ from repro_torch.kernels.common import (
 )
 
 
-def _normalized_weights(weights: torch.Tensor) -> torch.Tensor:
-    w = weights.to(torch.float32)
-    return w / w.sum().clamp_min(1e-30)
-
-
 def hier_aggregate_ref(updates, weights) -> torch.Tensor:
-    """Plain PyTorch version: normalized weights contracted with the rows
-    in fp32, cast back to the input dtype."""
-    wn = _normalized_weights(weights)
+    """Plain PyTorch version: the weights normalized by their sum (clamped
+    at 1e-30), contracted with the rows in fp32, cast back to the input
+    dtype."""
+    w = weights.to(torch.float32)
+    wn = w / w.sum().clamp_min(1e-30)
     return torch.einsum("n,nd->d", wn, updates.to(torch.float32)).to(updates.dtype)
 
 
-def _launch(updates: torch.Tensor, wn: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on checked inputs (``wn`` fp32, normalized).
-    Counts nothing."""
+def _launch(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on checked inputs (N, D > 0): ``weights``
+    fp32, contiguous, raw.  Counts nothing."""
     n, d = updates.shape
     lib = load_library()
     with torch.cuda.device(updates.device):
@@ -50,7 +53,7 @@ def _launch(updates: torch.Tensor, wn: torch.Tensor) -> torch.Tensor:
         entry = (
             lib.repro_aggregate_f32 if updates.dtype == torch.float32 else lib.repro_aggregate_bf16
         )
-        code = entry(ptr(updates), ptr(wn), ptr(out), n, d, stream_of(updates.device))
+        code = entry(ptr(updates), ptr(weights), ptr(out), n, d, stream_of(updates.device))
     check_launch(code, "hier_aggregate")
     return out
 
@@ -59,8 +62,9 @@ def hier_aggregate(updates, weights) -> torch.Tensor:
     """updates: (N, D) fp32/bf16; weights: (N,).  Returns the (D,) weighted
     average in the input dtype.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count one launch in ``hier_aggregate.launches``) or raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel (one
+    launch, counted in ``hier_aggregate.launches``, and nothing that waits
+    for the card) or raise.
     """
     name = "hier_aggregate"
     check_updates(updates, name)
@@ -70,7 +74,7 @@ def hier_aggregate(updates, weights) -> torch.Tensor:
         return hier_aggregate_ref(updates, weights)
     if n == 0 or d == 0:
         return torch.zeros((d,), dtype=updates.dtype, device=updates.device)
-    out = _launch(updates, _normalized_weights(weights))
+    out = _launch(updates, weights.to(torch.float32).contiguous())
     hier_aggregate.launches += 1
     return out
 

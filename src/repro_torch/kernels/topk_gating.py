@@ -13,8 +13,16 @@ choosing the first expert (lowest index) at that maximum among those still
 experts and 0 elsewhere.  Fewer than k experts are chosen where
 probabilities underflow to 0.
 
-What bounds it on an H100: bytes; the kernel (``csrc/topk_gating.cu``) is
-one warp per row with the row in registers, launch-bound at router sizes.
+What bounds it on an H100: bytes.  What the kernel (``csrc/topk_gating.cu``)
+spends at router sizes is instruction slots and latency for its reductions, one
+per sweep.  Up to E = 56 a warp holds four rows, each on 8 lanes (at the
+granite-moe router's E 40 every register slot is used), and a sweep is a
+3-step shuffle butterfly that serves the four rows at once; above, a warp
+holds one row and a sweep is two ``REDUX`` instructions (the maximum of the
+remaining probabilities' bits, then the lowest index holding it).  The
+softmax sum is taken in the order of PyTorch's warp softmax (so ties come
+out as the plain version's, bit for bit), and the sweeps stop once no row
+of the warp has anything > 0 left.
 """
 from __future__ import annotations
 

@@ -27,7 +27,7 @@ from repro_torch.kernels import (  # noqa: E402
     topk_gating,
     topk_gating_ref,
 )
-from torch_segment_replay import segment_kernel_replay  # noqa: E402
+from torch_kernel_replay import aggregate_kernel_replay, segment_kernel_replay  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -132,8 +132,12 @@ def test_segment_wrapper_never_synchronises_on_card(cuda):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("n,d", [(5, 25141), (13, 14789), (32, 512)])
+@pytest.mark.parametrize("n,d", [(1, 25141), (5, 25141), (8, 25141), (9, 4097), (13, 14789), (18, 25141),
+                                 (32, 25141), (32, 512), (40, 1000)])
 def test_aggregate_kernel_matches_plain_on_card(cuda, n, d, dtype):
+    """The kernel against its plain version, and in fp32 bit for bit
+    against the numpy replay of its arithmetic: one batch of loads (N <= 8),
+    several (9, 13, 18, 32) and two ballots of weights (40)."""
     tdt, tol = DTYPES[dtype], AGG_TOL[dtype]
     x, w = _inputs(n, d)
     u, wt = torch.tensor(x, device=cuda).to(tdt), torch.tensor(w, device=cuda)
@@ -141,6 +145,71 @@ def test_aggregate_kernel_matches_plain_on_card(cuda, n, d, dtype):
     out = hier_aggregate(u, wt)
     assert launch_counts()["hier_aggregate"] == 1
     np.testing.assert_allclose(_f32(out), _f32(hier_aggregate_ref(u, wt)), atol=tol, rtol=tol)
+    if dtype == "float32":
+        np.testing.assert_array_equal(_f32(out), aggregate_kernel_replay(x, w))
+    if n == 1:
+        assert torch.equal(out, u[0])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", [1, 5, 9, 40])
+def test_aggregate_kernel_zero_total_weight_on_card(cuda, n, dtype):
+    """Zero total weight writes zeros, through the 1e-30 clamp."""
+    x, _ = _inputs(n, 4097)
+    u = torch.tensor(x, device=cuda).to(DTYPES[dtype])
+    out = hier_aggregate(u, torch.zeros(n, device=cuda))
+    assert torch.equal(out, torch.zeros(4097, dtype=u.dtype, device=cuda))
+    assert torch.equal(out, hier_aggregate_ref(u, torch.zeros(n, device=cuda)))
+
+
+def test_aggregate_wrapper_never_synchronises_on_card(cuda):
+    """One call queues one launch and nothing that waits for the card,
+    under sync-debug mode "error", for fp32 and bf16 updates and for
+    weights that need a cast."""
+    x, w = _inputs(5, 25141)
+    u, wt = torch.tensor(x, device=cuda), torch.tensor(w, device=cuda)
+    hier_aggregate(u, wt)  # builds and loads the library first
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for updates, weights in ((u, wt), (u.to(torch.bfloat16), wt), (u, wt.double())):
+            hier_aggregate(updates, weights)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert launch_counts()["hier_aggregate"] == 3
+
+
+def test_cloud_reduce_never_synchronises_on_card(cuda, monkeypatch):
+    """The heartbeat sync engine's cloud reduce, as ``run`` calls it
+    (``flat_mean`` on the weights it uploaded once per run), under
+    sync-debug mode "error"; the run's accuracy is the CPU run's."""
+    from repro_torch.engine import BatchedSyncEngine
+    from repro_torch.federated import build_scenario
+
+    sc = build_scenario("heartbeat", scale=0.02, seed=0, n_test_per_class=20, device="cpu")
+    lam = sc.assign("eara-sca", device="cpu").lam
+    real = BatchedSyncEngine._cloud_mean
+    calls = []
+
+    def reduce_without_sync(self, edge_mat, weights):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(self, edge_mat, weights)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        calls.append(weights.device)
+        return out
+
+    hier_aggregate(torch.ones((2, 8), device=cuda), torch.ones(2, device=cuda))  # builds the library first
+    monkeypatch.setattr(BatchedSyncEngine, "_cloud_mean", reduce_without_sync)
+    card = sc.simulate(lam, cloud_rounds=2, seed=0, device="cuda")
+    assert len(calls) == 2 and all(d.type == "cuda" for d in calls)
+    cpu = sc.simulate(lam, cloud_rounds=2, seed=0, device="cpu")
+    for a, b in zip(card.history, cpu.history):
+        assert abs(a.test_acc - b.test_acc) <= 1.0 / len(sc.test) + 1e-6
 
 
 VARIANT = {"float32": "simt", "bfloat16": "wgmma"}
@@ -249,7 +318,10 @@ def test_flash_kernel_refuses_head_dim_on_card(cuda):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("t,e,k", [(8192, 40, 8), (300, 1000, 8), (33, 33, 3), (7, 1, 1), (64, 64, 70)])
+@pytest.mark.parametrize("t,e,k", [(8192, 40, 8), (300, 1000, 8), (33, 33, 3), (7, 1, 1), (64, 64, 70),
+                                   (100, 32, 8), (100, 33, 8), (100, 56, 8), (100, 57, 8), (100, 64, 8),
+                                   (100, 65, 8), (100, 128, 8),
+                                   (50, 1024, 8), (40, 40, 0), (40, 33, 40)])
 def test_topk_kernel_matches_plain_on_card(cuda, t, e, k, dtype):
     x = torch.tensor(np.random.default_rng(4).standard_normal((t, e)) * 2, dtype=torch.float32, device=cuda)
     x = x.to(DTYPES[dtype])
@@ -264,6 +336,29 @@ def test_topk_kernel_ties_and_underflow_on_card(cuda):
     x[1, ::3] = 1.0
     x[2, 5] = 300.0
     np.testing.assert_array_equal(topk_gating(x, 8).cpu().numpy(), topk_gating_ref(x, 8).cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("e", [5, 8, 9, 16, 17, 32, 33, 40, 56, 57, 64, 65, 128, 1000])
+@pytest.mark.parametrize("k", [1, 2, 8, 40])
+def test_topk_kernel_ties_across_slots_on_card(cuda, e, k, dtype):
+    """Ties across lanes and register slots (expert l + 32 i sits on lane
+    l, slot i, or l + 8 i on a group of 8 lanes for E <= 56), underflow,
+    and equal rows: bit for bit the plain version, with the kernel stopping
+    at the first sweep whose top is 0.  The last row's sum depends on its
+    order, which must be torch.softmax's."""
+    x = torch.full((7, e), -200.0, device=cuda)
+    x[0, [e - 1, e // 2, 1]] = 0.0
+    x[1, [e - 1, min(31, e // 2)]] = 0.0
+    x[2, e - 1] = 0.0
+    x[3] = 0.0
+    x[4, [e - 1, 2]] = 0.0
+    x[5, ::3] = 1.0
+    x[6] = 0.0
+    x[6, ::3] = 1.0
+    x = x.to(DTYPES[dtype])
+    got = topk_gating(x, k)
+    np.testing.assert_array_equal(got.cpu().numpy(), topk_gating_ref(x, k).cpu().numpy())
 
 
 def test_serving_launches_flash_once_per_layer_on_card(cuda):

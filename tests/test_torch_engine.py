@@ -27,6 +27,7 @@ from repro_torch.core import (  # noqa: E402
     solve_lp_eg,
     solve_lp_scipy,
 )
+from repro_torch.engine import sync_sim  # noqa: E402
 from repro_torch.engine.flatten import FlatPack  # noqa: E402
 from repro_torch.federated import build_scenario  # noqa: E402
 from repro_torch.federated.programs import CNNProgram  # noqa: E402
@@ -136,6 +137,33 @@ def test_partial_participation_and_wall_clock(pair, lam):
     res = sc.simulate(lam, cloud_rounds=2, seed=3, upp=0.6, wall_clock=True, device="cpu")
     _check_trajectory(ref_res, res, len(sc.test), acc_tol=1e-6, param_tol=5e-3)
     assert res.wall_seconds == pytest.approx(ref_res.wall_seconds, rel=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["kernel", "reference"])
+def test_cloud_weights_go_to_the_device_once_per_run(pair, lam, backend, monkeypatch):
+    """Every cloud round's ``flat_mean`` receives the same fp32 tensor on
+    the engine's device (uploaded once per run, so no round copies from the
+    host), and the history and final parameters equal those of a run whose
+    reduce gets the weights as a numpy array, as it did before."""
+    _, sc = pair
+    real = sync_sim.flat_mean
+    seen = []
+
+    def spy(updates, weights, **kw):
+        seen.append(weights)
+        return real(updates, weights, **kw)
+
+    monkeypatch.setattr(sync_sim, "flat_mean", spy)
+    res = sc.simulate(lam, cloud_rounds=2, seed=0, backend=backend, device="cpu")
+    assert len(seen) == 2 and seen[0] is seen[1]
+    assert isinstance(seen[0], torch.Tensor) and seen[0].dtype == torch.float32
+    assert seen[0].device == torch.device("cpu")
+    monkeypatch.setattr(sync_sim, "flat_mean", lambda u, w, **kw: real(u, w.numpy(), **kw))
+    host = sc.simulate(lam, cloud_rounds=2, seed=0, backend=backend, device="cpu")
+    assert [(h.test_acc, h.mean_local_loss) for h in res.history] == [
+        (h.test_acc, h.mean_local_loss) for h in host.history
+    ]
+    np.testing.assert_array_equal(_flat(res.final_params), _flat(host.final_params))
 
 
 @pytest.mark.parametrize(

@@ -23,7 +23,7 @@ from repro_torch.kernels import (  # noqa: E402
     reset_launch_counts,
     topk_gating,
 )
-from torch_segment_replay import segment_kernel_replay  # noqa: E402
+from torch_kernel_replay import aggregate_kernel_replay, segment_kernel_replay  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5), "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 RAGGED_CASES = [
@@ -155,6 +155,27 @@ def test_segment_kernel_loop_matches_reference_kernel(seg, e):
         assert np.all(got[s] == 0)
     for s in np.nonzero(counts == 1)[0]:
         np.testing.assert_array_equal(got[s], x[np.nonzero(seg == s)[0][0]])
+
+
+@pytest.mark.parametrize("zero", [False, True], ids=["weights", "zero total weight"])
+@pytest.mark.parametrize("n", [1, 5, 8, 9, 32, 40])  # one batch of loads, a full one, two, one ballot, two
+def test_aggregate_kernel_arithmetic_matches_reference_kernel(n, zero):
+    """The CUDA aggregate kernel's arithmetic, replayed in numpy (raw
+    weights summed in row order, clamped at 1e-30, divided; rounded
+    products added in row order), against the reference's Pallas kernel in
+    interpret mode, which normalizes beside its launch.  Zero total weight
+    writes exact zeros and a single row comes back exactly."""
+    x, w = _inputs(n, 33, seed=n)
+    if zero:
+        w = np.zeros_like(w)
+    got = aggregate_kernel_replay(x, w)
+    want = np.asarray(ref_agg(jnp.asarray(x), jnp.asarray(w), block=16, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    if zero:
+        np.testing.assert_array_equal(got, np.zeros(33, np.float32))
+        np.testing.assert_array_equal(want, np.zeros(33, np.float32))
+    elif n == 1:
+        np.testing.assert_array_equal(got, x[0])
 
 
 def test_cpu_wrappers_launch_nothing():

@@ -13,6 +13,7 @@ torch.set_num_threads(1)
 from repro.kernels.ref import topk_gating_ref as ref_oracle  # noqa: E402
 from repro.kernels.topk_gating import topk_gating as ref_gate  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts, topk_gating, topk_gating_ref  # noqa: E402
+from torch_kernel_replay import topk_kernel_replay  # noqa: E402
 
 FNS = pytest.mark.parametrize("fn", [topk_gating_ref, topk_gating], ids=["plain", "wrapper"])
 
@@ -79,6 +80,47 @@ def test_topk_bf16_logits(fn):
     kernel = ref_gate(jx, 8, interpret=True)
     out = fn(torch.tensor(x).to(torch.bfloat16), 8)
     np.testing.assert_allclose(out.numpy(), np.asarray(kernel), atol=1e-5, rtol=1e-5)
+
+
+def _tie_rows(e):
+    """Rows whose outputs are exact in any summation order (every logit 0
+    or -200, which underflows): ties across lanes and register slots of the
+    CUDA kernel (expert l + 32 i sits on lane l, slot i), and peaked rows."""
+    x = np.full((5, e), -200.0, np.float32)
+    x[0, [e - 1, e // 2, 1]] = 0.0  # a three-way tie over two or three slots
+    x[1, [32, 31]] = 0.0         # lowest index 31 sits on the highest lane
+    x[2, e - 1] = 0.0            # one expert in the last slot holds all the mass
+    x[3] = 0.0                   # all equal
+    x[4, [e - 1, 2]] = 0.0       # lowest index on a lower slot, higher lane
+    return x
+
+
+@pytest.mark.parametrize("t,e,k", [(64, 32, 8), (64, 33, 8), (64, 64, 8), (64, 65, 8), (16, 1000, 8),
+                                   (100, 40, 8), (50, 40, 0), (30, 33, 40)])
+def test_topk_kernel_replay_matches_reference_kernel(t, e, k):
+    """The CUDA kernel's arithmetic, replayed in numpy (softmax in the
+    warp's order; sweeps on the probabilities' bits, lowest index at the
+    top, stop at a top of 0), against the Pallas kernel in interpret mode,
+    at E on each side of the kernel's register-slot counts, k = 0 and
+    k > E: the same experts, and values within 1e-5."""
+    x = _logits(t, e, seed=e)
+    got = topk_kernel_replay(x, k)
+    want = np.asarray(ref_gate(jnp.asarray(x), k, interpret=True))
+    np.testing.assert_array_equal(got != 0, want != 0)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 8, 40])
+@pytest.mark.parametrize("e", [33, 65, 1000])
+def test_topk_kernel_replay_ties_and_underflow_exact(e, k):
+    """Ties and underflow: the replay's choices and values equal the Pallas
+    kernel's bit for bit, though the replay stops at the first sweep whose
+    top is 0 and the Pallas kernel runs all k."""
+    x = _tie_rows(e)
+    got = topk_kernel_replay(x, k)
+    np.testing.assert_array_equal(got, np.asarray(ref_gate(jnp.asarray(x), k, interpret=True)))
+    if k == 1:
+        np.testing.assert_array_equal([np.flatnonzero(r)[0] for r in got], [1, 31, e - 1, 0, 2])
 
 
 def test_topk_rejects_bad_input():
