@@ -21,7 +21,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    on the card, with the kernel's, the plain version's and one PyTorch
    library call's device times (CUDA events over back-to-back launches)
    beside the least time the card could take (``bound_ms``): the FedAvg
-   reductions at the heartbeat path's shapes (fp32 1e-5, bf16 2e-2; zero
+   reductions at the heartbeat path's shapes, ``hier_aggregate`` both at
+   the cloud reduce (N 5) and at the host pipeline's largest edge FedAvg
+   (N = the most EUs on one edge under EARA-SCA) (fp32 1e-5, bf16 2e-2; zero
    total weight writes zeros), the segment kernel also with ids outside
    [0, E) (which belong to no segment on the card), both wrappers' whole
    calls (the card's time per call back to back, the device operations
@@ -39,13 +41,25 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 4. card against CPU: the heartbeat sync engine (scale 0.02, two cloud
    rounds), and the qwen3-14b smoke config served with the same parameters
    (prefill logits 1e-4, identical greedy tokens);
-5. the heartbeat path at full size: ``build_scenario("heartbeat")``,
-   ``assign("eara-sca")``, ``simulate(engine="sync", pipeline="device",
-   cloud_rounds=5)``, then one cloud round under ``assign("eara-dca")``;
-   launch counts are zeroed just before and read just after;
+5. the heartbeat path at full size: ``build_scenario("heartbeat")`` and
+   ``assign("eara-sca")`` (built before phase 3), ``simulate(engine="sync",
+   pipeline="device", cloud_rounds=5)``, then one cloud round under
+   ``assign("eara-dca")``; launch counts are zeroed just before and read
+   just after;
 6. two more SCA cloud rounds on a fresh engine, the second timed, then
    one under ``torch.profiler``: wall times, the card's busy share and the
    kernels that take the most device time;
+6b. the same scenario on every engine: ``engine="reference"`` (the
+   readable simulator), ``engine="sync", pipeline="host"`` and
+   ``pipeline="device"``, 2 cloud rounds each, each run's launch counts
+   zeroed just before and read just after (none under the simulator;
+   ``hier_aggregate`` once per edge FedAvg, DCA start and cloud reduce on
+   the host pipeline; the segment kernel only on the device pipeline),
+   per-round accuracy within 2 test samples, parameters within 5e-3 and
+   equal accountant totals; one host-pipeline round under EARA-DCA; one
+   round with ``track_divergence``; ``centralized(2)``; the MLP and
+   16-bit FedSGD programs for one round on both pipelines (FedSGD's uplink
+   half the CNN's);
 7. serve exactness on the card at qwen3-14b widths cut to 2 layers in
    fp32: a uniform batch gives the same tokens with ``use_flash`` on and
    off, and a ragged batch the same tokens as its requests served alone
@@ -103,7 +117,7 @@ HEARTBEAT_KERNELS = ("hier_segment_aggregate", "hier_aggregate")
 # measured numbers a kernel record carries where its phase took them
 _EXTRA_KEYS = ("tflops", "library_kernel", "library_fused_ms", "library_fused_err", "library_fused_kernel",
                "wrapper_host_ms", "wrapper_ms", "wrapper_device_ops", "wrapper_busy_ms", "floor_ms", "floor_kind",
-               "yardstick_ms", "other_shapes", "layout")
+               "yardstick_ms", "other_shapes", "layout", "host_edge")
 
 
 def _require(ok: bool, message: str) -> None:
@@ -262,9 +276,10 @@ def _timings(kernel, wrapper, plain, library, nbytes: int, rate: float) -> dict:
     }
 
 
-def _kernel_phase(rate: float, d_model: int) -> dict:
+def _kernel_phase(rate: float, d_model: int, host_n: int) -> dict:
     """Phase 3: each kernel against its plain version on the card, and the
-    timings at the main path's shapes."""
+    timings at the main path's shapes (``hier_aggregate`` also at
+    ``host_n`` rows, the host pipeline's largest edge FedAvg)."""
     import importlib
 
     import numpy as np
@@ -347,9 +362,9 @@ def _kernel_phase(rate: float, d_model: int) -> dict:
         result["seg"]["max_abs_err"] = max(result["seg"]["max_abs_err"], err)
         print(f"kernel hier_segment_aggregate [ids outside [0, E)] N={len(ids)} D=1000 E={e} torch.float32: "
               f"max_abs_err={err:.3g}", flush=True)
-    for n, d, timed in ((5, d_model, True), (1, d_model, False), (4, 1000, False), (8, d_model, False),
-                        (9, d_model, False), (13, d_model, False), (18, d_model, False), (32, 512, False),
-                        (40, 1000, False)):
+    for n, d, timed in ((5, d_model, "cloud reduce"), (host_n, d_model, "host edge FedAvg"), (1, d_model, None),
+                        (4, 1000, None), (8, d_model, None), (9, d_model, None), (13, d_model, None),
+                        (18, d_model, None), (32, 512, None), (40, 1000, None)):
         for dtype in (torch.float32, torch.bfloat16):
             tol = TOL[str(dtype).split(".")[1]]
             x = torch.as_tensor(rng.standard_normal((n, d)), dtype=dtype, device=dev)
@@ -361,7 +376,7 @@ def _kernel_phase(rate: float, d_model: int) -> dict:
             result["agg"]["max_abs_err"] = max(result["agg"]["max_abs_err"], err)
             zero = hier_aggregate(x, torch.zeros_like(w))
             _require(bool((zero == 0).all()), f"hier_aggregate N={n}: zero total weight does not write zeros")
-            line = f"kernel hier_aggregate [{'cloud reduce' if timed else 'sweep'}] N={n} D={d} {dtype}: max_abs_err={err:.3g}"
+            line = f"kernel hier_aggregate [{timed or 'sweep'}] N={n} D={d} {dtype}: max_abs_err={err:.3g}"
             if timed and dtype == torch.float32:
                 wn = w / w.sum().clamp_min(1e-30)
                 t = _timings(
@@ -374,8 +389,11 @@ def _kernel_phase(rate: float, d_model: int) -> dict:
                 )
                 t.update(floor)
                 t["sync_free"] = _sync_free(lambda: hier_aggregate(x, w.double()))
-                t.update(_wrapper_work(lambda: hier_aggregate(x, w)))
-                result["agg"].update(t)
+                if timed == "cloud reduce":
+                    t.update(_wrapper_work(lambda: hier_aggregate(x, w)))
+                    result["agg"].update(t)
+                else:
+                    result["agg"]["host_edge"] = {"N": n, "D": d, **t}
                 line += " " + _fmt(t)
             print(line, flush=True)
     return result
@@ -390,7 +408,7 @@ def _card_vs_cpu() -> None:
 
     sc = build_scenario("heartbeat", scale=0.02, seed=0, n_test_per_class=20, device="cpu")
     lam = sc.assign("eara-sca", device="cpu").lam
-    runs = {d: sc.simulate(lam, cloud_rounds=2, seed=0, device=d) for d in ("cuda", "cpu")}
+    runs = {d: sc.simulate(lam, cloud_rounds=2, seed=0, engine="sync", device=d) for d in ("cuda", "cpu")}
     gpu, cpu = runs["cuda"], runs["cpu"]
     one_sample = 1.0 / len(sc.test)
     for a, b in zip(gpu.history, cpu.history):
@@ -407,24 +425,33 @@ def _card_vs_cpu() -> None:
     _require(gpu.accountant.totals() == cpu.accountant.totals(), "card and CPU accounting disagree")
 
 
-def _main_path():
-    """Phase 5: the paper's heartbeat experiment at full size on the card."""
-    import torch
-
+def _heartbeat_scenario():
+    """The full-size heartbeat scenario and its EARA-SCA assignment, built
+    before phase 3 (which times ``hier_aggregate`` at the assignment's
+    largest edge)."""
     from repro_torch.federated import build_scenario
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.utils.tree import tree_leaves
 
     t0 = time.perf_counter()
     sc = build_scenario("heartbeat")
     print(f"main: build_scenario heartbeat scale=1.0: {len(sc.clients)} EUs, {sc.n_edges} edges, "
           f"{sum(c.data_size for c in sc.clients)} samples, {time.perf_counter() - t0:.3f}s", flush=True)
-    reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sca = sc.assign("eara-sca")
     print(f"main: assign eara-sca {time.perf_counter() - t0:.3f}s per-edge EUs {sca.lam.sum(axis=0).tolist()}", flush=True)
-    res = sc.simulate(sca.lam, cloud_rounds=5, engine="sync", pipeline="device")
+    return sc, sca.lam
+
+
+def _main_path(sc, sca_lam):
+    """Phase 5: the paper's heartbeat experiment at full size on the card."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.utils.tree import tree_leaves
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = sc.simulate(sca_lam, cloud_rounds=5, engine="sync", pipeline="device")
     for h in res.history:
         print(f"main: sca round {h.cloud_round} acc {h.test_acc:.6f} loss {h.mean_local_loss:.6f} "
               f"seconds {h.wall_seconds:.4f}", flush=True)
@@ -446,7 +473,7 @@ def _main_path():
     _require(final > 0.4, f"final EARA-SCA accuracy {final} is not above 0.4 (twice chance)")
     for name in HEARTBEAT_KERNELS:
         _require(counts[name] > 0, f"kernel {name} was not launched on the heartbeat path")
-    return counts, sc, sca.lam
+    return counts
 
 
 def _profile_round(sc, lam) -> None:
@@ -495,6 +522,122 @@ def _report_profile(prof, plain_wall: float, wall: float, label: str) -> None:
           f"run ({busy / wall:.4f} of the profiled one); device ops {launches}", flush=True)
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"{label}: {e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:90]}", flush=True)
+
+
+def _flat_row(params):
+    import torch
+
+    from repro_torch.utils.tree import tree_leaves
+
+    return torch.cat([leaf.reshape(-1) for leaf in tree_leaves(params)])
+
+
+def _expected_aggregates(lam, edge_rounds: int, cloud_rounds: int) -> int:
+    """``hier_aggregate`` launches of the host pipeline at full
+    participation: per edge round one per edge with members and one per
+    dual-connected client (its start average); one per cloud reduce."""
+    per_edge_round = int((lam.sum(axis=0) > 0).sum()) + int((lam.sum(axis=1) > 1).sum())
+    return edge_rounds * per_edge_round + cloud_rounds
+
+
+def _run_counted(sc, lam, label: str, **kw):
+    """One ``simulate`` call with the launch counts zeroed just before and
+    read just after; prints each round and the counts."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.utils.tree import tree_leaves
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res = sc.simulate(lam, **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for h in res.history:
+        print(f"engines: {label} round {h.cloud_round} acc {h.test_acc:.6f} loss {h.mean_local_loss:.6f} "
+              f"seconds {h.wall_seconds:.4f} divergence {h.divergence:.6g}", flush=True)
+    print(f"engines: {label} launches {json.dumps(counts)} accountant {json.dumps(res.accountant.totals())}",
+          flush=True)
+    for leaf in tree_leaves(res.final_params):
+        _require(bool(torch.isfinite(leaf).all()), f"{label}: non-finite parameters")
+    return res, counts
+
+
+def _agree(label: str, a, b, acc_tol: float) -> None:
+    """Per-round accuracy within ``acc_tol``, final parameters within 5e-3
+    (the reference's own engine tolerance) and equal accountant totals."""
+    for ha, hb in zip(a.history, b.history):
+        _require(abs(ha.test_acc - hb.test_acc) <= acc_tol + 1e-6,
+                 f"{label}: round {ha.cloud_round} accuracy {ha.test_acc} vs {hb.test_acc}")
+    diff = float((_flat_row(a.final_params) - _flat_row(b.final_params)).abs().max())
+    print(f"engines: {label} max |param diff| {diff:.3g}", flush=True)
+    _require(diff <= 5e-3, f"{label}: parameters differ by {diff}")
+    _require(a.accountant.totals() == b.accountant.totals(), f"{label}: accountant totals differ")
+
+
+def _engines_phase(sc, sca_lam) -> dict:
+    """Phase 6b: the heartbeat path at full size on every engine.  The
+    readable simulator, the host pipeline and the device pipeline for 2
+    cloud rounds each (launch counts zeroed before each run, read after:
+    none under the simulator, ``hier_aggregate`` once per edge FedAvg, DCA
+    start and cloud reduce on the host pipeline, the segment kernel only on
+    the device pipeline), held to one another; one host-pipeline round
+    under EARA-DCA; divergence tracking and the centralized baseline; the
+    MLP and FedSGD (16-bit) programs on both pipelines.  Returns the host
+    pipeline's ``hier_aggregate`` launches."""
+    import numpy as np
+
+    from repro_torch.federated import build_scenario
+
+    acc_tol = 2.0 / len(sc.test)
+    runs = {}
+    for label, kw in (("reference", {"engine": "reference"}),
+                      ("sync-host", {"engine": "sync", "pipeline": "host"}),
+                      ("sync-device", {"engine": "sync", "pipeline": "device"})):
+        runs[label] = _run_counted(sc, sca_lam, label, cloud_rounds=2, **kw)
+    (ref, ref_counts), (host, host_counts), (dev, dev_counts) = runs.values()
+    _agree("sync-host vs reference", host, ref, acc_tol)
+    _agree("sync-device vs reference", dev, ref, acc_tol)
+    _require(not any(ref_counts.values()), f"a kernel launched under the readable simulator: {ref_counts}")
+    want = _expected_aggregates(sca_lam, 2, 2)
+    _require(host_counts["hier_aggregate"] == want,
+             f"host pipeline: {host_counts['hier_aggregate']} hier_aggregate launches, expected {want}")
+    _require(host_counts["hier_segment_aggregate"] == 0, "the segment kernel launched on the host pipeline")
+    _require(dev_counts["hier_segment_aggregate"] == 2 and dev_counts["hier_aggregate"] == 2,
+             f"device pipeline launches {dev_counts}")
+    launches = {"sca_2_rounds": host_counts["hier_aggregate"]}
+
+    dca = sc.assign("eara-dca").lam
+    dual = int((dca.sum(axis=1) > 1).sum())
+    _, dca_counts = _run_counted(sc, dca, "sync-host dca", cloud_rounds=1, engine="sync", pipeline="host")
+    want = _expected_aggregates(dca, 1, 1)
+    _require(dca_counts["hier_aggregate"] == want,
+             f"host pipeline under DCA ({dual} dual-connected EUs): {dca_counts['hier_aggregate']} "
+             f"hier_aggregate launches, expected {want}")
+    launches["dca_1_round"] = dca_counts["hier_aggregate"]
+
+    div, _ = _run_counted(sc, sca_lam, "reference divergence", cloud_rounds=1, engine="reference",
+                          track_divergence=True)
+    d = div.history[-1].divergence
+    _require(bool(np.isfinite(d)) and d > 0, f"divergence {d} is not finite and positive")
+    t0 = time.perf_counter()
+    central = sc.centralized(2)
+    print("engines: centralized " + ", ".join(
+        f"round {h.cloud_round} acc {h.test_acc:.6f} loss {h.mean_local_loss:.6f}" for h in central)
+        + f" in {time.perf_counter() - t0:.3f}s", flush=True)
+    _require(all(np.isfinite(h.test_acc) for h in central), "centralized accuracy is not finite")
+
+    cnn_up_per_round = host.accountant.totals()["eu_up_bits"] / 2
+    for name, kw in (("mlp", {"model": "mlp"}), ("fedsgd-16", {"fedsgd": True, "grad_bits": 16})):
+        other = build_scenario("heartbeat", **kw)
+        pair = [_run_counted(other, sca_lam, f"{name} {p}", cloud_rounds=1, engine="sync", pipeline=p)[0]
+                for p in ("host", "device")]
+        _agree(f"{name} device vs host", pair[1], pair[0], acc_tol)
+        if name == "fedsgd-16":
+            up = pair[0].accountant.totals()["eu_up_bits"]
+            _require(up == cnn_up_per_round / 2, f"FedSGD 16-bit eu_up_bits {up} is not half the CNN's "
+                                                 f"{cnn_up_per_round}")
+    return launches
 
 
 def _attention_work(b: int, s: int, hq: int, hkv: int, d: int, window, elt: int):
@@ -1013,14 +1156,16 @@ def main(argv) -> int:
 
     d_model = tree_num_params(CNNProgram().init(torch.Generator().manual_seed(0)))
     layout = _build_report(log, so, 5, d_model)  # the cloud reduce phase 3 times
-    kern = _kernel_phase(rates[0], d_model)
+    sc, sca_lam = _heartbeat_scenario()
+    kern = _kernel_phase(rates[0], d_model, int(sca_lam.sum(axis=0).max()))
     kern["agg"]["layout"] = layout
     kern["flash"] = _flash_phase(rates)
     kern["topk"] = _topk_phase(rates[0], kern["floor"])
     _card_vs_cpu()
     _serve_card_vs_cpu()
-    counts, sc, lam = _main_path()
-    _profile_round(sc, lam)
+    counts = _main_path(sc, sca_lam)
+    _profile_round(sc, sca_lam)
+    host_launches = _engines_phase(sc, sca_lam)
     exact_variants = _serve_exactness()
     serve_counts, serve_variants = _serve_path()
     flash = kern["flash"]
@@ -1042,6 +1187,8 @@ def main(argv) -> int:
         }
         if variant:
             entry["variant"] = variant
+        if fn_name == "hier_aggregate":  # phase 6b's host pipeline, beside phase 5's count
+            entry["launches_host_pipeline"] = host_launches
         entry.update({key: k[key] for key in _EXTRA_KEYS if key in k})
         if variant == "simt":
             entry["shape"] = "B 4, S 1536, Hq 40, Hkv 8, d 128, fp32 (phase 7)"

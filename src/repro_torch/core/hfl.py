@@ -1,16 +1,23 @@
 """Hierarchical FL aggregation schedule and accounting (paper Sec. 4.1).
 
+* edge aggregation (eq. 6-7):  w_j^a   = sum_i sigma_ij w_i^{a T'}
+* cloud aggregation (eq. 8-9): w_f^b   = sum_j sigma_j  w_j^{b T}
+* divergence tracking (eq. 17 empirical counterpart): ||w_f - w_c||
+
 ``HFLSchedule`` says when an edge / cloud sync fires; ``CommAccountant``
 converts sync events into per-EU and edge<->cloud traffic (the quantities
 of paper Figs. 5/6); ``WallClock`` models a synchronous round's latency.
-Plain numpy, as in the reference.
+The schedule, accountant and clock are plain numpy, as in the reference;
+the aggregations are plain PyTorch contractions over parameter trees.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
+
+from repro_torch.utils.tree import tree_l2_norm, tree_sub, tree_weighted_mean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +37,22 @@ class HFLSchedule:
 
     def cloud_sync_at(self, step: int) -> bool:
         return step % self.cloud_period == 0
+
+
+def edge_aggregate(models: Sequence, data_sizes: Sequence[float]):
+    """eq. 6: weighted average by local dataset size sigma_ij (eq. 7); the
+    sizes pass through float64 to float32, as in the reference."""
+    return tree_weighted_mean(models, np.asarray(data_sizes, dtype=np.float64))
+
+
+def cloud_aggregate(edge_models: Sequence, edge_data_sizes: Sequence[float]):
+    """eq. 8: weighted average across edges by sigma_j (eq. 9)."""
+    return tree_weighted_mean(edge_models, np.asarray(edge_data_sizes, dtype=np.float64))
+
+
+def weight_divergence(w_f, w_c) -> float:
+    """Empirical ||w_f - w_c|| of eq. 17's left-hand side."""
+    return float(tree_l2_norm(tree_sub(w_f, w_c)))
 
 
 @dataclasses.dataclass

@@ -11,12 +11,15 @@ module                role
                       one (M, n_max, L, Ch) device tensor; cohort batches
                       gathered on the device from sample indices
 ``cohort``            same-shape client cohorts trained in one batched
-                      step; ``CohortPlan`` draws their batches
+                      step; ``CohortPlan`` draws their batches (device
+                      pipeline), ``LocalJob`` / ``make_job`` /
+                      ``run_cohorts`` train per-round jobs (host pipeline)
 ``sync_sim``          ``BatchedSyncEngine`` — the reference's synchronous
-                      semantics, device pipeline
+                      semantics; ``pipeline="device"`` (default) or
+                      ``"host"`` (per-edge ``flat_mean`` loop)
 ====================  =====================================================
 """
-from repro_torch.engine.cohort import CohortPlan, draw_batch_indices
+from repro_torch.engine.cohort import CohortPlan, LocalJob, draw_batch_indices, make_job, run_cohorts
 from repro_torch.engine.flatten import BACKENDS, FlatPack, flat_mean, flat_segment_mean
 from repro_torch.engine.store import DeviceShardStore
 from repro_torch.engine.sync_sim import PIPELINES, BatchedSyncEngine
@@ -27,8 +30,11 @@ __all__ = [
     "CohortPlan",
     "DeviceShardStore",
     "FlatPack",
+    "LocalJob",
     "PIPELINES",
     "draw_batch_indices",
     "flat_mean",
     "flat_segment_mean",
+    "make_job",
+    "run_cohorts",
 ]

@@ -5,12 +5,17 @@ count, batch size and learning rate — are stacked on a leading *cohort*
 axis C and trained together: each step is one forward of C models, one
 backward of the SUM of the C per-client losses (the clients share no
 parameter, so this gives every client exactly its own gradient), and one
-elementwise Adam update of the (C, D) flat parameter matrix (Adam is
-elementwise, so updating the flat matrix is the per-client update).
+elementwise optimizer update of the (C, D) flat parameter matrix (Adam and
+SGD are elementwise, so updating the flat matrix is the per-client update).
 
 Batch indices replicate the reference's draws exactly (permutation, then
 resample-padding, in global client order), so the engine consumes the numpy
 RNG stream as the reference does and both train on identical batches.
+
+Two ways in: the device pipeline's ``CohortPlan`` (grouping fixed at
+construction, batches gathered from a ``DeviceShardStore``) and the host
+pipeline's ``LocalJob`` list through ``run_cohorts`` (grouping per round,
+batches stacked from the numpy shards).
 """
 from __future__ import annotations
 
@@ -52,6 +57,23 @@ def build_group_state(clients, program: ClientProgram, params, pack: FlatPack) -
     return GroupState([program], group_of, [params], [pack], [bits], [program.uplink_bits(bits)])
 
 
+@dataclasses.dataclass
+class LocalJob:
+    """One client's local training for a round, its start as a flat (D,)
+    row."""
+
+    client: FLClient
+    start_flat: torch.Tensor  # (D,)
+    idx: List[np.ndarray]  # per-epoch (steps, batch) sample indices
+    steps: int
+
+    @property
+    def key(self) -> Tuple:
+        """Cohort key: jobs stack into one cohort only when their program,
+        padded step count, epoch count, batch size and learning rate agree."""
+        return (self.client.program, self.steps, len(self.idx), self.client.batch_size, self.client.lr)
+
+
 def draw_batch_indices(
     rng: np.random.Generator, n: int, steps: int, batch: int, epochs: int
 ) -> List[np.ndarray]:
@@ -66,14 +88,35 @@ def draw_batch_indices(
     return out
 
 
+def make_job(client: FLClient, start_flat, rng: np.random.Generator, epochs: int) -> LocalJob:
+    """One client's round job, its batch indices drawn from ``rng``.
+    ``epochs`` is the schedule's; the client's ``local_epochs`` and a
+    ``single_step`` program override it, as in ``FLClient.local_update``."""
+    n = len(client.shard)
+    if n == 0:
+        return LocalJob(client, start_flat, [], 0)
+    steps = client.plan_steps()
+    epochs = client.epochs_for(epochs)
+    return LocalJob(client, start_flat, draw_batch_indices(rng, n, steps, client.batch_size, epochs), steps)
+
+
 def _cohort_epoch_flat(
-    flat: torch.Tensor, xb, yb, spec: TreeSpec, program: ClientProgram, n_steps: int, lr: float
+    flat: torch.Tensor,
+    xb,
+    yb,
+    spec: TreeSpec,
+    program: ClientProgram,
+    n_steps: int,
+    lr: float,
+    impl: str = "gemm",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One local epoch of C clients: (C, D) in, (C, D) out.
 
     xb: (C, n_steps, B, *feat); yb: (C, n_steps, B).  Returns the trained
     rows and each client's mean loss over its steps (C,).  The input is
-    not modified.
+    not modified.  ``impl`` is the forward's form (``cohort_loss``): "gemm"
+    for the device pipeline, "xla" (the library convolution, mapped over
+    the clients) for the host pipeline.
     """
     opt = program.make_optimizer(lr)
     p = flat.detach().clone()
@@ -81,7 +124,7 @@ def _cohort_epoch_flat(
     losses = []
     for s in range(n_steps):
         p.requires_grad_(True)
-        loss = program.cohort_loss(unravel_batched(spec, p), xb[:, s], yb[:, s])
+        loss = program.cohort_loss(unravel_batched(spec, p), xb[:, s], yb[:, s], impl=impl)
         (grad,) = torch.autograd.grad(loss.sum(), p)
         with torch.no_grad():
             p, state = opt.update(p.detach(), grad, state, s)
@@ -95,6 +138,82 @@ def _cohort_epoch_body(params, xb, yb, program: ClientProgram, n_steps: int, lr:
     spec = FlatPack(tree_map(lambda v: v[0], params)).spec
     flat, loss = _cohort_epoch_flat(ravel_batched(params), xb, yb, spec, program, n_steps, lr)
     return unravel_batched(spec, flat), loss
+
+
+@dataclasses.dataclass
+class CohortResult:
+    """The trained rows of one ``run_cohorts`` call: one (P, D) matrix (the
+    port trains one program per population), each client's row in it and
+    its loss (the mean over its last epoch's steps)."""
+
+    matrix: torch.Tensor
+    index: Dict[int, int]  # client id -> row
+    loss: Dict[int, float]
+
+    def row(self, cid: int) -> torch.Tensor:
+        return self.matrix[self.index[cid]]
+
+    def gather(self, cids: Sequence[int]) -> torch.Tensor:
+        """(len(cids), D) rows, stacked from views: no index goes to the
+        device."""
+        return torch.stack([self.row(c) for c in cids])
+
+
+def _stack_starts(jobs: Sequence[LocalJob]) -> torch.Tensor:
+    """The jobs' start rows as one (C, D) matrix.  The reference stacks
+    each distinct row once and gathers, to keep its dispatches O(edges);
+    here a stack of C views is one launch either way."""
+    return torch.stack([j.start_flat for j in jobs])
+
+
+def run_cohorts(
+    jobs: Sequence[LocalJob], program: ClientProgram, pack: FlatPack, impl: str = "gemm"
+) -> CohortResult:
+    """Train every job, same-shape jobs together as one cohort.
+
+    Batches are stacked from the clients' numpy shards on the host and
+    uploaded per epoch; the cohort's rows carry across epochs.  Every job
+    must train ``program``: a mixed-program list raises
+    ``NotImplementedError`` (heterogeneous models are queued).
+    """
+    for job in jobs:
+        if job.client.program != program:
+            raise NotImplementedError(
+                "jobs of more than one client program (model_mix) are not ported "
+                "yet; see ROADMAP.md Queue 1 item 8, heterogeneous models"
+            )
+    device = jobs[0].start_flat.device if jobs else torch.device("cpu")
+    groups: Dict[Tuple, List[LocalJob]] = {}
+    passthrough: List[LocalJob] = []
+    for job in jobs:
+        if job.steps == 0:  # empty shard: the start row passes through
+            passthrough.append(job)
+        else:
+            groups.setdefault(job.key, []).append(job)
+    mats: List[torch.Tensor] = []
+    index: Dict[int, int] = {}
+    loss_of: Dict[int, float] = {}
+    offset = 0
+    for (_, steps, epochs, _, lr), members in groups.items():
+        flat = _stack_starts(members)
+        for e in range(epochs):
+            xb = torch.as_tensor(np.stack([j.client.shard.x[j.idx[e]] for j in members]), device=device)
+            yb = torch.as_tensor(np.stack([j.client.shard.y[j.idx[e]] for j in members]), device=device)
+            flat, loss = _cohort_epoch_flat(flat, xb, yb, pack.spec, program, steps, lr, impl=impl)
+        mats.append(flat)
+        loss = loss.cpu().numpy()
+        for c, job in enumerate(members):
+            index[job.client.cid] = offset + c
+            loss_of[job.client.cid] = float(loss[c])
+        offset += len(members)
+    if passthrough:
+        mats.append(_stack_starts(passthrough))
+        for c, job in enumerate(passthrough):
+            index[job.client.cid] = offset + c
+            loss_of[job.client.cid] = 0.0
+    if not mats:
+        return CohortResult(torch.zeros((0, pack.dim), dtype=torch.float32, device=device), {}, {})
+    return CohortResult(mats[0] if len(mats) == 1 else torch.cat(mats, dim=0), index, loss_of)
 
 
 @dataclasses.dataclass

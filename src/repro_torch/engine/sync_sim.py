@@ -1,46 +1,69 @@
-"""Batched synchronous HFL engine, device pipeline.
+"""Batched synchronous HFL engine.
 
-The reference's ``BatchedSyncEngine(pipeline="device")`` on PyTorch: the
-same RNG stream, participation draws, DCA starts, schedule and accounting,
-with the round run as a few fixed-shape device steps:
+The reference's ``BatchedSyncEngine`` on PyTorch: the same RNG stream,
+participation draws, DCA starts, schedule, accounting and divergence
+tracking as the readable simulator (``federated.simulation``), over any
+ported ``ClientProgram`` (the CNN, the MLP, FedSGD over either), with the
+round run one of two ways (``pipeline=``):
+
+``"device"`` (default) — a few fixed-shape device steps per round:
 
   * client shards live in a ``DeviceShardStore``; each cohort's batches are
     gathered on the device from int32 sample indices;
   * each same-shape cohort trains in one batched local epoch
-    (``engine.cohort``), flat-major: (C, D) rows in and out;
+    (``engine.cohort``, the GEMM-form forward), flat-major: (C, D) rows in
+    and out;
   * every edge's FedAvg (paper eq. 6/8) is ONE ``flat_segment_mean`` call
     over the (P, D) membership-pair matrix (segments = edges; per-round
     participation travels in the weights), and edges with no participant
     keep their previous model;
   * a DCA client starts from the unweighted mean of its edges' models, one
     segment call with segments = clients; under single connectivity the
-    starts are a gather of edge rows;
-  * the cloud FedAvg (eq. 8/9) reduces the (E, D) edge matrix with
-    ``flat_mean``.
+    starts are a gather of edge rows.
 
-With ``backend="kernel"`` (default) both FedAvg reductions run on the
-port's CUDA kernels on the card, and on their plain versions on the CPU.
+``"host"`` — the host-major loop the reference keeps as its baseline:
+per-client ``LocalJob``s drawn in client order, batches stacked from the
+numpy shards, cohorts trained through ``run_cohorts`` with the library
+convolution (``impl="xla"``), then one ``flat_mean`` per edge that got
+uploads; a DCA start is one ``flat_mean`` over the client's edge rows.
+
+Both pipelines end the cloud round with ``flat_mean`` over the (E, D) edge
+matrix (eq. 8/9).  With ``backend="kernel"`` (default) the FedAvg
+reductions run on the port's CUDA kernels on the card, and on their plain
+versions on the CPU.
 """
 from __future__ import annotations
 
 import time
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.hfl import CommAccountant, HFLSchedule, WallClock
+from repro_torch.core.hfl import CommAccountant, HFLSchedule, WallClock, weight_divergence
 from repro_torch.data.synthetic_health import Dataset
 from repro_torch.device import configure_numerics, resolve_device
-from repro_torch.engine.cohort import CohortPlan, _cohort_epoch_flat, build_group_state
+from repro_torch.engine.cohort import (
+    CohortPlan,
+    _cohort_epoch_flat,
+    build_group_state,
+    make_job,
+    run_cohorts,
+)
 from repro_torch.engine.flatten import BACKENDS, FlatPack, flat_mean, flat_segment_mean
 from repro_torch.engine.store import DeviceShardStore
 from repro_torch.federated.client import FLClient
 from repro_torch.federated.programs import as_program, group_edge_sizes
-from repro_torch.federated.simulation import RoundMetrics, SimResult, evaluate
-from repro_torch.utils.tree import tree_map
+from repro_torch.federated.simulation import (
+    RoundMetrics,
+    SimResult,
+    central_reference_step,
+    evaluate,
+    initial_params,
+    pooled_dataset,
+)
 
-PIPELINES = ("device",)
+PIPELINES = ("device", "host")
 
 
 def _segment_agg_keep(upd, seg_ids, weights, has, prev, n_segments: int, backend: str):
@@ -53,15 +76,17 @@ def _segment_agg_keep(upd, seg_ids, weights, has, prev, n_segments: int, backend
 class BatchedSyncEngine:
     """Batched synchronous engine over one client program.
 
-    Knobs: ``pipeline`` ("device"; the reference's "host" and "mesh"
-    pipelines are not ported yet), ``backend`` ("kernel" | "reference"),
-    ``upp`` (per-round participation probability in (0, 1]),
+    Knobs: ``pipeline`` ("device" | "host"; the reference's "mesh" is not
+    ported yet), ``backend`` ("kernel" | "reference"), ``upp`` (per-round
+    participation probability in (0, 1]), ``track_divergence`` (the
+    distance to a virtual centralized model, eq. 17, stepped from the
+    engine RNG after each cloud reduce as in the reference),
     ``cost_latency`` (an (M, N) latency matrix for the ``WallClock``), and
     ``device`` (default "cuda"; raises without CUDA unless "cpu").
 
     Initial parameters come from ``program.init`` with a
-    ``torch.Generator`` seeded from ``seed``, drawn on the CPU so that the
-    card and the CPU start from the same model.
+    ``torch.Generator`` seeded from ``seed``, drawn on the CPU, as the
+    readable simulator draws them.
     """
 
     def __init__(
@@ -73,6 +98,8 @@ class BatchedSyncEngine:
         schedule: HFLSchedule = HFLSchedule(1, 1),
         seed: int = 0,
         upp: float = 1.0,
+        track_divergence: bool = False,
+        central_batch: int = 50,
         cost_latency=None,
         backend: str = "kernel",
         pipeline: str = "device",
@@ -81,7 +108,7 @@ class BatchedSyncEngine:
         if pipeline not in PIPELINES:
             raise NotImplementedError(
                 f"pipeline={pipeline!r} is not ported yet (ported: {PIPELINES}); "
-                "see ROADMAP.md Queue 1"
+                "see ROADMAP.md Queue 1 item 12, mesh"
             )
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
@@ -95,18 +122,29 @@ class BatchedSyncEngine:
         self.upp = upp
         self.backend = backend
         self.pipeline = pipeline
-        params = self.program.init(torch.Generator().manual_seed(seed))
-        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.params = initial_params(self.program, seed, self.device)
         self.pack = FlatPack(self.params)
         gs = build_group_state(clients, self.program, self.params, self.pack)
         self.group_of = gs.group_of
         self._uplink_bits = gs.uplink_bits[0]
         self.accountant = CommAccountant(model_bits=gs.bits[0])
         self.clock = WallClock(cost_latency) if cost_latency is not None else None
+        self.track_divergence = track_divergence
+        if track_divergence:
+            self.central_params = self.params
+            self.central_data = pooled_dataset(clients, self.program.n_classes)
+            self.central_batch = central_batch
         self._data_sizes = np.array([c.data_size for c in clients], np.float32)
         self._build_pair_structure(assignment)
-        self.store = DeviceShardStore(clients, self.device)
-        self._plan = CohortPlan(clients, self.program)
+        if pipeline == "device":
+            self.store = DeviceShardStore(clients, self.device)
+            self._plan = CohortPlan(clients, self.program)
+        else:
+            # the host pipeline's FedAvg weights, on the device once per run:
+            # an edge's weights are stacked from views of these rows, so no
+            # call uploads from the host or waits for the card
+            self._sizes_dev = torch.as_tensor(self._data_sizes, device=self.device)
+            self._ones_dev = torch.ones(max(1, int(self.assignment.sum(axis=1).max())), device=self.device)
 
     def _build_pair_structure(self, assignment) -> None:
         """The (client, edge) membership pairs in client-major order and
@@ -195,6 +233,13 @@ class BatchedSyncEngine:
             offset += len(passthrough)
         if active.any():
             upd_matrix = torch.cat(mats, dim=0) if len(mats) > 1 else mats[0]
+            if self.program.quantizes_upload:
+                # the program's upload transform (FedSGD's fp16 gradients):
+                # one batched op over the participants' (C, D) rows
+                job_cids = np.nonzero(active)[0]
+                trained = upd_matrix[torch.as_tensor(row_of[job_cids], device=self.device)]
+                upd_matrix = self.program.quantize_upload(starts_for(job_cids), trained)
+                row_of[job_cids] = np.arange(len(job_cids))
             pc, pe = self._pair_clients, self._pair_edges
             part_pairs = participating[pc]
             take = row_of[pc]
@@ -212,6 +257,50 @@ class BatchedSyncEngine:
         self._edge_account(participating)
         return edge_mat, loss_chunks
 
+    def _edge_round_host(self, edge_rows: List[torch.Tensor]) -> List[float]:
+        """One edge round, host pipeline; updates ``edge_rows`` (one (D,)
+        row per edge) in place and returns the participants' losses."""
+        m, n = self.assignment.shape
+        participating = self._draw_participation(m)
+        # job prep consumes the RNG in client order, like the reference
+        jobs, job_edges = [], []
+        for i, cl in enumerate(self.clients):
+            edges = np.nonzero(self.assignment[i])[0]
+            if len(edges) == 0 or not participating[i]:
+                continue
+            # a DCA client starts from the average of its edges' models
+            start = edge_rows[edges[0]] if len(edges) == 1 else flat_mean(
+                torch.stack([edge_rows[j] for j in edges]), self._ones_dev[: len(edges)], backend=self.backend
+            )
+            jobs.append(make_job(cl, start, self.rng, epochs=self.schedule.local_steps))
+            job_edges.append(edges)
+        trained = run_cohorts(jobs, self.program, self.pack, impl="xla")
+        quantizing = self.program.quantizes_upload
+        losses: List[float] = []
+        uploads: Dict[int, List[int]] = {}
+        rows: Dict[int, List[torch.Tensor]] = {}
+        for job, edges in zip(jobs, job_edges):
+            cid = job.client.cid
+            losses.append(trained.loss[cid])
+            if quantizing:
+                row = self.program.quantize_upload(job.start_flat, trained.row(cid))
+            for j in edges:
+                uploads.setdefault(j, []).append(cid)
+                if quantizing:
+                    rows.setdefault(j, []).append(row)
+        for j, cids in uploads.items():
+            mat = torch.stack(rows[j]) if quantizing else trained.gather(cids)
+            weights = torch.stack([self._sizes_dev[c] for c in cids])
+            edge_rows[j] = flat_mean(mat, weights, backend=self.backend)
+        self._edge_account(participating)
+        return losses
+
+    def _central_step(self) -> None:
+        self.central_params = central_reference_step(
+            self.central_params, self.central_data, self.rng, self.central_batch, self.program,
+            device=self.device,
+        )
+
     def run(self, cloud_rounds: int, eval_every: int = 1) -> SimResult:
         n = self.assignment.shape[1]
         history: List[RoundMetrics] = []
@@ -225,24 +314,39 @@ class BatchedSyncEngine:
         for b in range(1, cloud_rounds + 1):
             t_round = time.perf_counter()
             sim0 = self.clock.seconds if self.clock is not None else 0.0
-            losses: List[torch.Tensor] = []
-            edge_mat = global_row[None, :].expand(n, -1)
-            for _ in range(self.schedule.edge_per_cloud):
-                edge_mat, chunks = self._edge_round_device(edge_mat)
-                losses += chunks
-            global_row = self._cloud_mean(edge_mat, edge_sizes)
+            if self.pipeline == "device":
+                chunks: List[torch.Tensor] = []
+                edge_mat = global_row[None, :].expand(n, -1)
+                for _ in range(self.schedule.edge_per_cloud):
+                    edge_mat, round_chunks = self._edge_round_device(edge_mat)
+                    chunks += round_chunks
+                global_row = self._cloud_mean(edge_mat, edge_sizes)
+                loss_host = _mean_loss(chunks)
+            else:
+                losses: List[float] = []
+                edge_rows = [global_row] * n
+                for _ in range(self.schedule.edge_per_cloud):
+                    losses += self._edge_round_host(edge_rows)
+                global_row = self._cloud_mean(torch.stack(edge_rows), edge_sizes)
+                loss_host = float(np.mean(losses)) if losses else 0.0
             self.accountant.on_cloud_sync(n)
             if self.clock is not None:
                 self.clock.on_cloud_sync()
+            div = 0.0
+            if self.track_divergence:
+                # drawn from the engine RNG after the cloud reduce, as the
+                # reference does
+                for _ in range(self.schedule.cloud_period):
+                    self._central_step()
+                div = weight_divergence(self.pack.unravel(global_row), self.central_params)
             acc = None
             if b % eval_every == 0 or b == cloud_rounds:
                 acc = evaluate(self.pack.unravel(global_row), self.program, self.test)
-            loss_host = _mean_loss(losses)
             wall_accum += time.perf_counter() - t_round
             sim_accum += (self.clock.seconds - sim0) if self.clock is not None else 0.0
             if acc is not None:
                 history.append(
-                    RoundMetrics(b, acc, 0.0, loss_host, wall_seconds=wall_accum, sim_seconds=sim_accum)
+                    RoundMetrics(b, acc, div, loss_host, wall_seconds=wall_accum, sim_seconds=sim_accum)
                 )
                 wall_accum = sim_accum = 0.0
         self.params = self.pack.unravel(global_row)

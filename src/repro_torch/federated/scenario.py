@@ -1,6 +1,7 @@
 """End-to-end experiment scenario builder: dataset -> EUs -> assignment -> sim.
 
-The paper's two setups, with the paper's 1-D CNN:
+The paper's two setups, with the paper's 1-D CNN (or the MLP, or FedSGD
+over either):
   * Heartbeat: 5 classes, 5 edges, 18 EUs (Table 3 edge distribution)
   * Seizure:   3 classes, 3 edges, 13 EUs (Table 2 edge distribution)
 
@@ -30,40 +31,18 @@ from repro_torch.data.partition import (
 from repro_torch.data.synthetic_health import Dataset, heartbeat_like, seizure_like
 from repro_torch.device import resolve_device
 from repro_torch.federated.client import FLClient
-from repro_torch.federated.programs import ClientProgram, CNNProgram
-from repro_torch.federated.simulation import SimResult
+from repro_torch.federated.programs import ClientProgram, CNNProgram, FedSGDProgram, MLPProgram
+from repro_torch.federated.simulation import (
+    HFLSimulation,
+    RoundMetrics,
+    SimResult,
+    centralized_baseline,
+    not_ported,
+    refuse_unported,
+)
 from repro_torch.models.cnn1d import HEARTBEAT_CNN, SEIZURE_CNN
 from repro_torch.utils.tree import tree_size_bytes
 from repro_torch.wireless.channel import WirelessParams, build_cost_matrices, sample_topology
-
-# where each reference option not carried by this port is queued (ROADMAP.md)
-_QUEUED = {
-    "engine='reference'": "Queue 1, readable simulator",
-    "engine='async'": "Queue 1, async engine",
-    "pipeline='host'": "Queue 1, host pipeline",
-    "pipeline='mesh'": "Queue 1, mesh",
-    "mesh": "Queue 1, mesh",
-    "compression": "Queue 1, compression",
-    "faults": "Queue 1, faults",
-    "telemetry": "Queue 1, telemetry",
-    "cohort": "Queue 1, streaming populations",
-    "server_momentum": "Queue 1, streaming populations",
-    "lazy": "Queue 1, streaming populations",
-    "serve": "Queue 1, serving",
-    "distill": "Queue 1, heterogeneous models",
-    "model_mix": "Queue 1, heterogeneous models",
-    "track_divergence": "Queue 1, readable simulator",
-    "fedsgd": "Queue 1, programs",
-    "model": "Queue 1, programs (mlp) and sequence models",
-}
-
-
-def _not_ported(option: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported to repro_torch yet; it is queued in ROADMAP.md "
-        f"({_QUEUED[option]})"
-    )
-
 
 @dataclasses.dataclass
 class Scenario:
@@ -114,7 +93,7 @@ class Scenario:
         track_divergence: bool = False,
         eval_every: int = 1,
         wall_clock: bool = False,
-        engine: str = "sync",
+        engine: str = "reference",
         backend: str = "kernel",
         compression=None,
         pipeline: str = "device",
@@ -127,41 +106,52 @@ class Scenario:
         serve=None,
         device="cuda",
     ) -> SimResult:
-        """Run the scenario through the batched synchronous engine.
+        """Run the scenario through one of the simulation engines.
 
-        engine:   "sync" (the only engine ported so far, hence the default;
-                  the reference's "reference" and "async" raise).
-        pipeline: "device" (the reference's "host" and "mesh" raise).
-        backend:  aggregation path, "kernel" (the CUDA kernels on the card,
-                  their plain versions on the CPU) | "reference".
+        engine:   "reference" — the readable simulator (``HFLSimulation``);
+                  "sync"      — the batched engine, same semantics
+                  (the reference's "async" raises).
+        pipeline: the sync engine's round: "device" (fixed-shape segment
+                  kernel programs, shard store) | "host" (per-client jobs,
+                  one ``flat_mean`` per edge); the reference's "mesh" raises.
+        backend:  the sync engine's aggregation path, "kernel" (the CUDA
+                  kernels on the card, their plain versions on the CPU) |
+                  "reference"; the readable simulator ignores it.
+        track_divergence: the distance to a virtual centralized model
+                  (eq. 17) in each round's ``divergence``.
         device:   where the engine runs; "cuda" by default, raising without
                   CUDA unless "cpu" is asked for.
 
         Every other option of the reference's ``simulate`` raises
-        ``NotImplementedError`` when set, naming the queued slice.
+        ``NotImplementedError`` when set, naming the queued item.
         """
         if engine not in ("reference", "sync", "async"):
             raise ValueError(f"unknown engine {engine!r} (reference | sync | async)")
         if pipeline not in ("device", "host", "mesh"):
             raise ValueError(f"unknown pipeline {pipeline!r} (device | host | mesh)")
-        if engine != "sync":
-            raise _not_ported(f"engine={engine!r}")
-        if pipeline != "device":
-            raise _not_ported(f"pipeline={pipeline!r}")
-        if mesh is not None:
-            raise _not_ported("mesh")
-        for option, value in (
-            ("compression", compression),
-            ("distill", distill),
-            ("faults", faults),
-            ("telemetry", telemetry),
-            ("cohort", cohort),
-            ("serve", serve),
-            ("track_divergence", track_divergence),
-            ("server_momentum", server_momentum),
-        ):
-            if value is not None and value is not False and value != 0.0:
-                raise _not_ported(option)
+        if engine == "async":
+            raise not_ported("engine='async'")
+        if pipeline == "mesh":
+            raise not_ported("pipeline='mesh'")
+        refuse_unported(
+            mesh=mesh, compression=compression, distill=distill, faults=faults,
+            telemetry=telemetry, cohort=cohort, serve=serve, server_momentum=server_momentum,
+        )
+        cost_latency = self.cost.latency if wall_clock else None
+        if engine == "reference":
+            sim = HFLSimulation(
+                self.clients,
+                assignment,
+                self.program,
+                self.test,
+                schedule=schedule,
+                seed=seed,
+                upp=upp,
+                track_divergence=track_divergence,
+                cost_latency=cost_latency,
+                device=device,
+            )
+            return sim.run(cloud_rounds, eval_every=eval_every)
         from repro_torch.engine.sync_sim import BatchedSyncEngine
 
         sim = BatchedSyncEngine(
@@ -172,12 +162,21 @@ class Scenario:
             schedule=schedule,
             seed=seed,
             upp=upp,
-            cost_latency=self.cost.latency if wall_clock else None,
+            track_divergence=track_divergence,
+            cost_latency=cost_latency,
             backend=backend,
             pipeline=pipeline,
             device=device,
         )
         return sim.run(cloud_rounds, eval_every=eval_every)
+
+    def centralized(self, rounds: int, seed: int = 0, eval_every: int = 1, device="cuda") -> List[RoundMetrics]:
+        """The centralized baseline at the paper's batch: the local batch
+        times the edge count (50 for heartbeat, 30 for seizure)."""
+        return centralized_baseline(
+            self.clients, self.program, self.test, rounds, batch=10 * self.n_edges, seed=seed,
+            eval_every=eval_every, device=device,
+        )
 
 
 def _eus_per_edge(n_edges: int, n_eus: int) -> List[int]:
@@ -209,6 +208,7 @@ def build_scenario(
     model: str = "cnn",
     model_mix: Optional[Mapping[str, int]] = None,
     fedsgd: bool = False,
+    grad_bits: int = 32,
     hparams: Optional[Sequence[Optional[Mapping]]] = None,
     faults=None,
     seed: int = 0,
@@ -219,33 +219,30 @@ def build_scenario(
     lazy: bool = False,
     device="cuda",
 ) -> Scenario:
-    """The paper's heartbeat or seizure setup with the 1-D CNN.
+    """The paper's heartbeat or seizure setup.
 
-    ``hparams`` (optional) is one mapping per EU of ``FLClient`` overrides
-    (``lr`` | ``batch_size`` | ``local_epochs`` | ``max_steps``).  The cost
-    matrices are evaluated on ``device`` ("cuda" by default; raises without
-    CUDA unless "cpu").  The reference's other workloads (``model`` other
-    than "cnn", ``fedsgd``, ``model_mix``, ``lazy``, ``faults``, the "lm"
-    dataset) raise ``NotImplementedError``.
+    ``model`` picks the client program, "cnn" (the paper's) or "mlp" (a
+    flattened-feature classifier on the same shards); ``fedsgd=True`` wraps
+    it in ``FedSGDProgram`` (one plain-SGD step per round, a gradient
+    uplink of ``grad_bits`` = 32 or 16 bits per parameter).  ``hparams``
+    (optional) is one mapping per EU of ``FLClient`` overrides (``lr`` |
+    ``batch_size`` | ``local_epochs`` | ``max_steps``).  The cost matrices
+    are evaluated on ``device`` ("cuda" by default; raises without CUDA
+    unless "cpu").  The reference's other workloads (the sequence models
+    and the "lm" dataset, ``model_mix``, ``lazy``, ``faults``) raise
+    ``NotImplementedError``.
     """
     resolve_device(device)
-    if lazy:
-        raise _not_ported("lazy")
-    if model_mix is not None:
-        raise _not_ported("model_mix")
-    if fedsgd:
-        raise _not_ported("fedsgd")
-    if faults is not None:
-        raise _not_ported("faults")
-    if model != "cnn":
-        raise _not_ported("model")
+    refuse_unported(lazy=lazy, model_mix=model_mix, faults=faults)
+    if model in ("lm", "moe", "mamba", "rwkv") or dataset == "lm":
+        raise not_ported("model")
+    if model not in ("cnn", "mlp"):
+        raise ValueError(f"unknown model {model!r} (cnn | mlp)")
     rng = np.random.default_rng(seed)
     if dataset == "heartbeat":
         table, n_eus, cnn, maker = TABLE3_HEARTBEAT, 18, HEARTBEAT_CNN, heartbeat_like
     elif dataset == "seizure":
         table, n_eus, cnn, maker = TABLE2_SEIZURE, 13, SEIZURE_CNN, seizure_like
-    elif dataset == "lm":
-        raise _not_ported("model")
     else:
         raise ValueError(dataset)
     n_edges, k = table.shape
@@ -255,7 +252,12 @@ def build_scenario(
     train = maker(rng, counts.sum(axis=0))
     shards = split_dataset_by_counts(rng, train, counts)
     test = maker(rng, np.full(k, n_test_per_class))
-    program = CNNProgram(cnn)
+    if model == "cnn":
+        program: ClientProgram = CNNProgram(cnn)
+    else:
+        program = MLPProgram(feat=(cnn.seq_len, cnn.in_channels), classes=k)
+    if fedsgd:
+        program = FedSGDProgram(base=program, grad_bits=grad_bits)
     kw = _hparam_kwargs(hparams, n_eus)
     clients = [FLClient(i, shards[i], program, **kw[i]) for i in range(n_eus)]
     wp = wp or WirelessParams()
@@ -266,7 +268,7 @@ def build_scenario(
     model_bits = tree_size_bytes(program.init(gen)) * 8
     cost = build_cost_matrices(topo, model_bits, wp, device=device)
     return Scenario(
-        name=dataset,
+        name=dataset if program.name == "cnn" else f"{dataset}-{program.name}",
         program=program,
         clients=clients,
         test=test,

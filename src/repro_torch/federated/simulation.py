@@ -1,16 +1,76 @@
-"""Round metrics, run results and evaluation, shared by the engines."""
+"""Synchronous hierarchical FL, the readable simulator (the paper's Sec. 6).
+
+``HFLSimulation`` drives M clients, N edges and the cloud through the
+two-level schedule one client at a time: each client trains its own
+parameter tree (``FLClient.local_update``), each edge averages its uploads
+(``core.hfl.edge_aggregate``, eq. 6) and the cloud averages the edges
+(``cloud_aggregate``, eq. 8-9).  It tracks accuracy per cloud round, the
+weight divergence to a virtual centralized model (eq. 17) and the traffic
+(``CommAccountant``): the raw material of paper Figs. 3-6.  It is the
+port's own oracle: the batched engine is held to it.
+
+Its FedAvg is plain PyTorch on whatever device the parameters live on
+(the reference's is a ``jnp`` contraction, not a Pallas kernel), so no
+CUDA kernel launches under it.  ``centralized_baseline`` is the paper's
+benchmark with every shard pooled at one server.
+
+Also here: the round metrics and run results every engine returns, and
+``evaluate``.
+"""
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.hfl import CommAccountant
+from repro_torch.core.hfl import (
+    CommAccountant,
+    HFLSchedule,
+    WallClock,
+    cloud_aggregate,
+    edge_aggregate,
+    weight_divergence,
+)
 from repro_torch.data.synthetic_health import Dataset
+from repro_torch.device import configure_numerics, resolve_device
+from repro_torch.federated.client import FLClient, _local_epoch
 from repro_torch.federated.programs import as_program
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_size_bytes
+
+# where each reference option not carried by this port is queued (ROADMAP.md)
+QUEUED = {
+    "engine='async'": "Queue 1 item 5, async engine",
+    "pipeline='mesh'": "Queue 1 item 12, mesh",
+    "mesh": "Queue 1 item 12, mesh",
+    "compression": "Queue 1 item 4, compression",
+    "faults": "Queue 1 item 6, faults",
+    "cohort": "Queue 1 item 7, streaming populations",
+    "server_momentum": "Queue 1 item 7, streaming populations",
+    "lazy": "Queue 1 item 7, streaming populations",
+    "distill": "Queue 1 item 8, heterogeneous models",
+    "model_mix": "Queue 1 item 8, heterogeneous models",
+    "telemetry": "Queue 1 item 9, telemetry",
+    "model": "Queue 1 item 10, sequence models",
+    "serve": "Queue 1 item 11, serving",
+}
+
+
+def not_ported(option: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{option} is not ported to repro_torch yet; it is queued in ROADMAP.md "
+        f"({QUEUED[option]})"
+    )
+
+
+def refuse_unported(**options) -> None:
+    """Raise ``not_ported`` for the first option set to anything but its
+    off value (None, False or 0.0)."""
+    for option, value in options.items():
+        if value is not None and value is not False and value != 0.0:
+            raise not_ported(option)
 
 
 @dataclasses.dataclass
@@ -42,6 +102,39 @@ class SimResult:
         return self.history[-1].test_acc if self.history else 0.0
 
 
+def pooled_dataset(clients: List[FLClient], n_classes: int) -> Dataset:
+    """Every client's shard in one dataset, in client order."""
+    return Dataset(
+        np.concatenate([c.shard.x for c in clients], 0),
+        np.concatenate([c.shard.y for c in clients], 0),
+        n_classes,
+    )
+
+
+def central_reference_step(
+    params, data: Dataset, rng: np.random.Generator, batch: int, program, device="cuda"
+):
+    """One mini-epoch of the virtual centralized model (divergence
+    reference, eq. 17) on ``device`` ("cuda" by default, raising without
+    CUDA unless "cpu"); returns its parameters there.
+
+    ``steps = max(1, min(128, n // batch))``: a floor with no padding,
+    unlike the clients' epochs.  Shared by the readable simulator and the
+    batched engine, so the two baselines cannot drift apart.
+    """
+    device = resolve_device(device)
+    configure_numerics(device)
+    program = as_program(program)
+    params = tree_map(lambda t: t.to(device), params)
+    n = len(data)
+    steps = max(1, min(128, n // batch))
+    idx = rng.permutation(n)[: steps * batch].reshape(steps, batch)
+    xb = torch.as_tensor(data.x[idx], device=device)
+    yb = torch.as_tensor(data.y[idx], device=device)
+    params, _ = _local_epoch(params, xb, yb, program, steps, 1e-3)
+    return params
+
+
 @torch.no_grad()
 def evaluate(params, program, test: Dataset, batch: int = 512) -> float:
     """Weighted mean of ``program.metric`` over the test set, in batches on
@@ -56,3 +149,192 @@ def evaluate(params, program, test: Dataset, batch: int = 512) -> float:
         ns.append(len(y))
     return float(np.sum(accs) / np.sum(ns))
 
+
+def initial_params(program, seed: int, device: torch.device) -> dict:
+    """``program.init`` from a ``torch.Generator`` seeded with ``seed``,
+    drawn on the CPU (so the card and the CPU start from one model) and
+    moved to ``device``.  Every engine of the port starts here."""
+    params = program.init(torch.Generator().manual_seed(seed))
+    return tree_map(lambda t: t.to(device), params)
+
+
+class HFLSimulation:
+    """The readable synchronous simulator over one client program.
+
+    ``assignment`` is the (M, N) binary matrix (dual-connectivity rows
+    allowed).  Fault-free and uncompressed: UPP participation (``upp``),
+    DCA starts, per-edge and cloud FedAvg, ``CommAccountant``, a
+    ``WallClock`` when ``cost_latency`` is given, and ``track_divergence``.
+    The reference's ``compression``, ``faults``, ``telemetry``, ``cohort``,
+    ``server_momentum`` and ``serve`` raise ``NotImplementedError`` naming
+    their queued item.  ``device``: "cuda" by default, raising without
+    CUDA unless "cpu".
+    """
+
+    def __init__(
+        self,
+        clients: List[FLClient],
+        assignment: np.ndarray,
+        program,
+        test: Dataset,
+        schedule: HFLSchedule = HFLSchedule(1, 1),
+        seed: int = 0,
+        upp: float = 1.0,
+        track_divergence: bool = False,
+        central_batch: int = 50,
+        cost_latency=None,
+        compression=None,
+        faults=None,
+        telemetry=None,
+        cohort=None,
+        server_momentum: float = 0.0,
+        serve=None,
+        device="cuda",
+    ):
+        refuse_unported(
+            compression=compression, faults=faults, telemetry=telemetry, cohort=cohort,
+            server_momentum=server_momentum, serve=serve,
+        )
+        self.device = resolve_device(device)
+        configure_numerics(self.device)
+        self.clients = clients
+        self.assignment = np.asarray(assignment)
+        self.program = as_program(program)
+        self.test = test
+        self.schedule = schedule
+        self.rng = np.random.default_rng(seed)
+        self.upp = upp
+        self.params = initial_params(self.program, seed, self.device)
+        self.track_divergence = track_divergence
+        if track_divergence:
+            self.central_params = self.params
+            self.central_data = pooled_dataset(clients, self.program.n_classes)
+            self.central_batch = central_batch
+        model_bits = tree_size_bytes(self.params) * 8
+        self.accountant = CommAccountant(model_bits=model_bits)
+        self.clock = WallClock(cost_latency) if cost_latency is not None else None
+        # the program's uplink payload (FedSGD gradients; else the model)
+        self._uplink_bits = self.program.uplink_bits(model_bits)
+
+    def _edge_round(self, edge_params: List[dict]) -> List[float]:
+        """One edge round: participation draw, every participant's local
+        update in client order, then each edge's FedAvg of its uploads."""
+        m, n = self.assignment.shape
+        participating = self.rng.random(m) < self.upp
+        if not participating.any():
+            participating[self.rng.integers(0, m)] = True
+        losses = []
+        new_models: List[List[dict]] = [[] for _ in range(n)]
+        new_sizes: List[List[float]] = [[] for _ in range(n)]
+        for i, cl in enumerate(self.clients):
+            edges = np.nonzero(self.assignment[i])[0]
+            if len(edges) == 0 or not participating[i]:
+                continue
+            # a DCA client starts from the average of its edges' models
+            start = edge_params[edges[0]] if len(edges) == 1 else edge_aggregate(
+                [edge_params[j] for j in edges], [1.0] * len(edges)
+            )
+            upd, loss = cl.local_update(start, self.rng, epochs=self.schedule.local_steps)
+            losses.append(loss)
+            upd = self.program.quantize_upload(start, upd)
+            for j in edges:
+                new_models[j].append(upd)
+                new_sizes[j].append(cl.data_size)
+        for j in range(n):
+            if new_models[j]:
+                edge_params[j] = edge_aggregate(new_models[j], new_sizes[j])
+        self.accountant.on_edge_sync(
+            self.assignment * participating[:, None], uplink_bits=self._uplink_bits
+        )
+        if self.clock is not None:
+            self.clock.on_edge_sync(self.assignment, participating)
+        return losses
+
+    def _central_step(self) -> None:
+        self.central_params = central_reference_step(
+            self.central_params, self.central_data, self.rng, self.central_batch, self.program,
+            device=self.device,
+        )
+
+    def _edge_data_sizes(self) -> List[float]:
+        return [
+            sum(c.data_size for i, c in enumerate(self.clients) if self.assignment[i, j])
+            for j in range(self.assignment.shape[1])
+        ]
+
+    def run(self, cloud_rounds: int, eval_every: int = 1) -> SimResult:
+        n = self.assignment.shape[1]
+        history: List[RoundMetrics] = []
+        global_params = self.params
+        cloud_weights = [max(s, 1) for s in self._edge_data_sizes()]
+        wall_accum = sim_accum = 0.0
+        for b in range(1, cloud_rounds + 1):
+            t_round = time.perf_counter()
+            sim0 = self.clock.seconds if self.clock is not None else 0.0
+            edge_params = [global_params] * n
+            losses: List[float] = []
+            for _ in range(self.schedule.edge_per_cloud):
+                losses += self._edge_round(edge_params)
+            global_params = cloud_aggregate(edge_params, cloud_weights)
+            self.accountant.on_cloud_sync(n)
+            if self.clock is not None:
+                self.clock.on_cloud_sync()
+            div = 0.0
+            if self.track_divergence:
+                for _ in range(self.schedule.cloud_period):
+                    self._central_step()
+                div = weight_divergence(global_params, self.central_params)
+            acc = None
+            if b % eval_every == 0 or b == cloud_rounds:
+                acc = evaluate(global_params, self.program, self.test)
+            wall_accum += time.perf_counter() - t_round
+            sim_accum += (self.clock.seconds - sim0) if self.clock is not None else 0.0
+            if acc is not None:
+                loss = float(np.mean(losses)) if losses else 0.0
+                history.append(
+                    RoundMetrics(b, acc, div, loss, wall_seconds=wall_accum, sim_seconds=sim_accum)
+                )
+                wall_accum = sim_accum = 0.0
+        self.params = global_params
+        result = SimResult(history, self.accountant, global_params)
+        if self.clock is not None:
+            result.wall_seconds = self.clock.seconds
+        return result
+
+
+def centralized_baseline(
+    clients: List[FLClient],
+    program,
+    test: Dataset,
+    rounds: int,
+    batch: int = 50,
+    seed: int = 0,
+    eval_every: int = 1,
+    device="cuda",
+) -> List[RoundMetrics]:
+    """The paper's benchmark: all data pooled at one server (batch 50/30),
+    one mini-epoch of at most 128 steps per round."""
+    dev = resolve_device(device)
+    configure_numerics(dev)
+    program = as_program(program)
+    rng = np.random.default_rng(seed)
+    data = pooled_dataset(clients, program.n_classes)
+    params = initial_params(program, seed, dev)
+    history = []
+    n = len(data)
+    wall_accum = 0.0
+    for r in range(1, rounds + 1):
+        t_round = time.perf_counter()
+        steps = max(1, min(128, n // batch))
+        idx = rng.permutation(n)[: steps * batch].reshape(steps, batch)
+        xb = torch.as_tensor(data.x[idx], device=dev)
+        yb = torch.as_tensor(data.y[idx], device=dev)
+        params, loss = _local_epoch(params, xb, yb, program, steps, 1e-3)
+        if r % eval_every == 0 or r == rounds:
+            acc = evaluate(params, program, test)
+            wall_accum += time.perf_counter() - t_round
+            history.append(RoundMetrics(r, acc, 0.0, float(loss), wall_seconds=wall_accum))
+            wall_accum = 0.0
+        else:
+            wall_accum += time.perf_counter() - t_round
+    return history

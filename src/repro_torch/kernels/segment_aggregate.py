@@ -48,16 +48,19 @@ def hier_segment_aggregate_ref(updates, seg_ids, weights, n_segments: int) -> to
     through an (E, N) mask and a row sum rather than a scatter, whose
     atomics on the card would add in a different order from run to run),
     then one ``index_add_`` scatter in fp32; empty segments are zero rows;
-    the result is cast back to the input dtype.  Ids must lie in
-    [0, n_segments)."""
+    the result is cast back to the input dtype.  A row whose id lies
+    outside [0, n_segments) belongs to no segment and adds nothing, as in
+    the TPU kernel's one-hot and the reference's ``segment_sum``."""
     seg = seg_ids.to(torch.int64)
+    # ids outside [0, n_segments) go to a spare last row, dropped at the end
+    seg = torch.where((seg >= 0) & (seg < n_segments), seg, n_segments)
     w = weights.to(torch.float32)
-    member = seg[None, :] == torch.arange(n_segments, device=w.device)[:, None]
+    member = seg[None, :] == torch.arange(n_segments + 1, device=w.device)[:, None]
     denom = torch.where(member, w[None, :], 0.0).sum(dim=1)
     wn = w / denom.clamp_min(1e-30)[seg]
-    out = torch.zeros((n_segments, updates.shape[1]), dtype=torch.float32, device=updates.device)
+    out = torch.zeros((n_segments + 1, updates.shape[1]), dtype=torch.float32, device=updates.device)
     out.index_add_(0, seg, updates.to(torch.float32) * wn[:, None])
-    return out.to(updates.dtype)
+    return out[:n_segments].to(updates.dtype)
 
 
 def _launch(updates: torch.Tensor, seg_ids: torch.Tensor, weights: torch.Tensor, n_segments: int) -> torch.Tensor:
@@ -87,11 +90,11 @@ def hier_segment_aggregate(updates, seg_ids, weights, n_segments: int) -> torch.
     dtype; empty (or zero-weight) segments are zero rows and a
     single-member segment is exactly its row.
 
-    CPU tensors take the plain version, and ids outside [0, n_segments)
-    raise ``ValueError``.  CUDA tensors launch the kernel (one launch,
-    counted in ``hier_segment_aggregate.launches``) or raise; there an id
-    outside [0, n_segments) belongs to no segment and adds nothing, as in
-    the TPU kernel, so the wrapper never waits for the card to check them.
+    An id outside [0, n_segments) belongs to no segment and adds nothing,
+    as in the TPU kernel, on both routes.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (one launch, counted in
+    ``hier_segment_aggregate.launches``) or raise, and the wrapper never
+    waits for the card to check the ids.
     """
     name = "hier_segment_aggregate"
     check_updates(updates, name)
@@ -102,8 +105,6 @@ def hier_segment_aggregate(updates, seg_ids, weights, n_segments: int) -> torch.
         raise ValueError(f"{name}: n_segments must be a non-negative int, got {n_segments!r}")
     n_segments = int(n_segments)
     if updates.device.type == "cpu":
-        if n and bool(((seg_ids < 0) | (seg_ids >= n_segments)).any()):
-            raise ValueError(f"{name}: seg_ids must lie in [0, {n_segments})")
         return hier_segment_aggregate_ref(updates, seg_ids, weights, n_segments)
     if n == 0 or d == 0 or n_segments == 0:
         return torch.zeros((n_segments, d), dtype=updates.dtype, device=updates.device)

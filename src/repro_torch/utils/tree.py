@@ -9,8 +9,9 @@ of this package equal, element for element, to the reference's
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Mapping, Tuple
+from typing import Callable, List, Mapping, Sequence, Tuple
 
+import numpy as np
 import torch
 
 Path = Tuple[str, ...]
@@ -58,6 +59,50 @@ def tree_map(fn: Callable, tree, *rest):
     if isinstance(tree, Mapping):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     return fn(tree, *rest)
+
+
+def tree_add(a, b):
+    """Elementwise a + b over two trees of one structure."""
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    """Elementwise a - b over two trees of one structure."""
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(a, s):
+    """Every leaf of ``a`` times the scalar ``s``."""
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_weighted_mean(trees: Sequence, weights):
+    """FedAvg of a list of trees (paper eq. 6 and 8): sum_i w_i tree_i / sum_i w_i.
+
+    The weights go to float32 and are normalized by their sum there, with
+    no clamp (the kernels clamp at 1e-30); each leaf is stacked in float32,
+    contracted with them and cast back to its own dtype.  Plain PyTorch on
+    any device: the reference computes it with a ``jnp`` contraction, not a
+    Pallas kernel.
+    """
+    device = tree_leaves(trees[0])[0].device
+    w = torch.as_tensor(np.asarray(weights, np.float32), device=device)
+    w = w / w.sum()
+
+    def avg(*leaves):
+        stacked = torch.stack([l.to(torch.float32) for l in leaves], dim=0)
+        return torch.tensordot(w, stacked, dims=1).to(leaves[0].dtype)
+
+    return tree_map(avg, *trees)
+
+
+def tree_l2_norm(a) -> torch.Tensor:
+    """Global L2 norm over every leaf in float32, the squares summed leaf by
+    leaf in the sorted-key order (divergence tracking, eq. 17)."""
+    total = 0
+    for leaf in tree_leaves(a):
+        total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
 def tree_size_bytes(tree) -> int:
@@ -109,9 +154,7 @@ def tree_unravel(spec: TreeSpec, flat: torch.Tensor) -> dict:
         raise ValueError(
             f"flat vector has shape {tuple(flat.shape)}, spec wants ({spec.total_size},)"
         )
-    leaves = []
-    off = 0
-    for shape, dtype, size in zip(spec.shapes, spec.dtypes, spec.sizes):
-        leaves.append(flat[off : off + size].reshape(shape).to(dtype))
-        off += size
+    # views of ``flat`` by one ``split``, whose gradient is one concatenation
+    pieces = torch.split(flat, list(spec.sizes))
+    leaves = [t.reshape(shape).to(dtype) for t, shape, dtype in zip(pieces, spec.shapes, spec.dtypes)]
     return tree_unflatten(spec.paths, leaves)

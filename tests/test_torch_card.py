@@ -205,11 +205,108 @@ def test_cloud_reduce_never_synchronises_on_card(cuda, monkeypatch):
 
     hier_aggregate(torch.ones((2, 8), device=cuda), torch.ones(2, device=cuda))  # builds the library first
     monkeypatch.setattr(BatchedSyncEngine, "_cloud_mean", reduce_without_sync)
-    card = sc.simulate(lam, cloud_rounds=2, seed=0, device="cuda")
+    card = sc.simulate(lam, cloud_rounds=2, seed=0, engine="sync", device="cuda")
     assert len(calls) == 2 and all(d.type == "cuda" for d in calls)
-    cpu = sc.simulate(lam, cloud_rounds=2, seed=0, device="cpu")
+    cpu = sc.simulate(lam, cloud_rounds=2, seed=0, engine="sync", device="cpu")
     for a, b in zip(card.history, cpu.history):
         assert abs(a.test_acc - b.test_acc) <= 1.0 / len(sc.test) + 1e-6
+
+
+def _dual_homed(m, n):
+    """Every EU on edge i % n, the first half also on the next edge."""
+    asn = np.zeros((m, n))
+    asn[np.arange(m), np.arange(m) % n] = 1.0
+    asn[: m // 2, (np.arange(m // 2) + 1) % n] = 1.0
+    return asn
+
+
+def _flat_params(res):
+    from repro_torch.utils.tree import tree_leaves
+
+    return torch.cat([leaf.reshape(-1).cpu() for leaf in tree_leaves(res.final_params)])
+
+
+def _card_matches_cpu(card, cpu, n_test):
+    """Phase 4's tolerances: accuracy within one test sample, loss 5e-3,
+    parameters 5e-3, equal accounting."""
+    assert len(card.history) == len(cpu.history)
+    for a, b in zip(card.history, cpu.history):
+        assert abs(a.test_acc - b.test_acc) <= 1.0 / n_test + 1e-6
+        assert abs(a.mean_local_loss - b.mean_local_loss) <= 5e-3
+    assert float((_flat_params(card) - _flat_params(cpu)).abs().max()) <= 5e-3
+    assert card.accountant.totals() == cpu.accountant.totals()
+
+
+@pytest.mark.parametrize("kind", ["sca", "dca"])
+def test_host_pipeline_on_card_matches_cpu_without_sync(cuda, monkeypatch, kind):
+    """The sync engine's host pipeline on the card against the CPU, with
+    every ``flat_mean`` call it makes (edge FedAvg, DCA starts, cloud
+    reduce) run under sync-debug mode "error": the weights are on the
+    device already, and the kernel wrapper never waits for the card.  One
+    ``hier_aggregate`` launch per call, and no segment kernel."""
+    from repro_torch.engine import sync_sim
+    from repro_torch.federated import build_scenario
+
+    sc = build_scenario("heartbeat", scale=0.02, seed=0, n_test_per_class=20, device="cpu")
+    lam = sc.assign("eara-sca", device="cpu").lam if kind == "sca" else _dual_homed(len(sc.clients), sc.n_edges)
+    real = sync_sim.flat_mean
+    calls = []
+
+    def flat_mean_without_sync(updates, weights, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(updates, weights, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        calls.append(weights.device)
+        return out
+
+    hier_aggregate(torch.ones((2, 8), device=cuda), torch.ones(2, device=cuda))  # builds the library first
+    monkeypatch.setattr(sync_sim, "flat_mean", flat_mean_without_sync)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    card = sc.simulate(lam, cloud_rounds=2, seed=0, engine="sync", pipeline="host", device="cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    per_edge_round = int((lam.sum(axis=0) > 0).sum()) + int((lam.sum(axis=1) > 1).sum())
+    assert counts["hier_aggregate"] == len(calls) == 2 * per_edge_round + 2
+    assert counts["hier_segment_aggregate"] == 0
+    assert all(d.type == "cuda" for d in calls)
+    monkeypatch.undo()
+    cpu = sc.simulate(lam, cloud_rounds=2, seed=0, engine="sync", pipeline="host", device="cpu")
+    _card_matches_cpu(card, cpu, len(sc.test))
+
+
+def test_readable_simulator_on_card_matches_cpu_and_launches_no_kernel(cuda):
+    """``engine="reference"`` with divergence tracking on the card: the
+    same run as on the CPU, and no kernel of the port launches under it."""
+    from repro_torch.federated import build_scenario
+
+    sc = build_scenario("heartbeat", scale=0.02, seed=0, n_test_per_class=20, device="cpu")
+    lam = _dual_homed(len(sc.clients), sc.n_edges)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    card = sc.simulate(lam, cloud_rounds=1, seed=4, upp=0.7, track_divergence=True, device="cuda")
+    torch.cuda.synchronize()
+    assert not any(launch_counts().values())
+    cpu = sc.simulate(lam, cloud_rounds=1, seed=4, upp=0.7, track_divergence=True, device="cpu")
+    _card_matches_cpu(card, cpu, len(sc.test))
+    assert card.history[0].divergence == pytest.approx(cpu.history[0].divergence, rel=1e-3)
+    central = [sc.centralized(1, device=d)[0].test_acc for d in ("cuda", "cpu")]
+    assert abs(central[0] - central[1]) <= 1.0 / len(sc.test) + 1e-6
+
+
+@pytest.mark.parametrize("pipeline", ["host", "device"])
+@pytest.mark.parametrize("workload", [{"model": "mlp"}, {"fedsgd": True, "grad_bits": 16}], ids=["mlp", "fedsgd-16"])
+def test_programs_on_card_match_cpu(cuda, workload, pipeline):
+    """The MLP and 16-bit FedSGD programs on both pipelines, card against
+    CPU."""
+    from repro_torch.federated import build_scenario
+
+    sc = build_scenario("heartbeat", scale=0.02, seed=0, n_test_per_class=20, device="cpu", **workload)
+    lam = sc.assign("eara-sca", device="cpu").lam
+    runs = [sc.simulate(lam, cloud_rounds=2, seed=1, engine="sync", pipeline=pipeline, device=d) for d in ("cuda", "cpu")]
+    _card_matches_cpu(*runs, len(sc.test))
 
 
 VARIANT = {"float32": "simt", "bfloat16": "wgmma"}

@@ -107,7 +107,7 @@ def test_sync_engine_matches_reference_two_epochs(pair, lam):
     """
     ref, sc = pair
     ref_res = ref.simulate(lam, cloud_rounds=2, schedule=RefSchedule(2, 2), seed=0, engine="sync")
-    res = sc.simulate(lam, cloud_rounds=2, schedule=HFLSchedule(2, 2), seed=0, device="cpu")
+    res = sc.simulate(lam, cloud_rounds=2, schedule=HFLSchedule(2, 2), seed=0, engine="sync", device="cpu")
     n = len(sc.test)
     _check_trajectory(ref_res, res, n, acc_tol=2.0 / n + 1e-6, param_tol=5e-3)
     want = np.asarray(ref.program.apply(ref_res.final_params, jax.numpy.asarray(sc.test.x)))
@@ -126,7 +126,7 @@ def test_sync_engine_dual_connectivity(pair):
     asn[np.arange(m), np.arange(m) % n] = 1.0
     asn[: m // 2, (np.arange(m // 2) + 1) % n] = 1.0
     ref_res = ref.simulate(asn, cloud_rounds=1, seed=5, engine="sync")
-    res = sc.simulate(asn, cloud_rounds=1, seed=5, device="cpu")
+    res = sc.simulate(asn, cloud_rounds=1, seed=5, engine="sync", device="cpu")
     _check_trajectory(ref_res, res, len(sc.test), acc_tol=1e-6, param_tol=5e-3)
 
 
@@ -134,7 +134,7 @@ def test_partial_participation_and_wall_clock(pair, lam):
     ref, sc = pair
     sc = dataclasses.replace(sc, cost=ref.cost)  # the reference's latencies
     ref_res = ref.simulate(lam, cloud_rounds=2, seed=3, upp=0.6, engine="sync", wall_clock=True)
-    res = sc.simulate(lam, cloud_rounds=2, seed=3, upp=0.6, wall_clock=True, device="cpu")
+    res = sc.simulate(lam, cloud_rounds=2, seed=3, upp=0.6, engine="sync", wall_clock=True, device="cpu")
     _check_trajectory(ref_res, res, len(sc.test), acc_tol=1e-6, param_tol=5e-3)
     assert res.wall_seconds == pytest.approx(ref_res.wall_seconds, rel=1e-5)
 
@@ -154,12 +154,12 @@ def test_cloud_weights_go_to_the_device_once_per_run(pair, lam, backend, monkeyp
         return real(updates, weights, **kw)
 
     monkeypatch.setattr(sync_sim, "flat_mean", spy)
-    res = sc.simulate(lam, cloud_rounds=2, seed=0, backend=backend, device="cpu")
+    res = sc.simulate(lam, cloud_rounds=2, seed=0, engine="sync", backend=backend, device="cpu")
     assert len(seen) == 2 and seen[0] is seen[1]
     assert isinstance(seen[0], torch.Tensor) and seen[0].dtype == torch.float32
     assert seen[0].device == torch.device("cpu")
     monkeypatch.setattr(sync_sim, "flat_mean", lambda u, w, **kw: real(u, w.numpy(), **kw))
-    host = sc.simulate(lam, cloud_rounds=2, seed=0, backend=backend, device="cpu")
+    host = sc.simulate(lam, cloud_rounds=2, seed=0, engine="sync", backend=backend, device="cpu")
     assert [(h.test_acc, h.mean_local_loss) for h in res.history] == [
         (h.test_acc, h.mean_local_loss) for h in host.history
     ]
@@ -169,9 +169,7 @@ def test_cloud_weights_go_to_the_device_once_per_run(pair, lam, backend, monkeyp
 @pytest.mark.parametrize(
     "kw",
     [
-        {"engine": "reference"},
         {"engine": "async"},
-        {"pipeline": "host"},
         {"pipeline": "mesh"},
         {"mesh": 4},
         {"compression": object()},
@@ -180,7 +178,6 @@ def test_cloud_weights_go_to_the_device_once_per_run(pair, lam, backend, monkeyp
         {"cohort": object()},
         {"serve": object()},
         {"distill": object()},
-        {"track_divergence": True},
         {"server_momentum": 0.9},
     ],
     ids=lambda kw: next(iter(kw)),
@@ -192,7 +189,7 @@ def test_unported_options_raise(pair, lam, kw):
 
 
 @pytest.mark.parametrize(
-    "kw", [{"model": "mlp"}, {"fedsgd": True}, {"lazy": True}, {"model_mix": {"cnn": 18}}],
+    "kw", [{"lazy": True}, {"model_mix": {"cnn": 18}}],
     ids=lambda kw: next(iter(kw)),
 )
 def test_unported_scenarios_raise(kw):

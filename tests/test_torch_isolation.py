@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -55,7 +56,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     the card raises and names the argument; device="cpu" runs."""
     from repro_torch.device import resolve_device
     from repro_torch.engine import BatchedSyncEngine
-    from repro_torch.federated import build_scenario
+    from repro_torch.federated import HFLSimulation, build_scenario, centralized_baseline
+    from repro_torch.federated.simulation import central_reference_step, pooled_dataset
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device="):
@@ -70,6 +72,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         sc.simulate(lam, cloud_rounds=1)
     with pytest.raises(RuntimeError, match="device="):
         BatchedSyncEngine(sc.clients, lam, sc.program, sc.test)
+    with pytest.raises(RuntimeError, match="device="):
+        HFLSimulation(sc.clients, lam, sc.program, sc.test)
+    with pytest.raises(RuntimeError, match="device="):
+        centralized_baseline(sc.clients, sc.program, sc.test, rounds=1)
+    with pytest.raises(RuntimeError, match="device="):
+        sc.centralized(1)
+    params = sc.program.init(torch.Generator().manual_seed(0))
+    data = pooled_dataset(sc.clients, sc.program.n_classes)
+    with pytest.raises(RuntimeError, match="device="):
+        central_reference_step(params, data, np.random.default_rng(0), 50, sc.program)
     with pytest.raises(ValueError, match="device"):
         resolve_device("meta")
 

@@ -112,8 +112,8 @@ def test_segment_aggregate_is_per_edge_fedavg(fn):
     [
         (lambda u, s, w: hier_segment_aggregate(u.double(), s, w, 5), TypeError),
         (lambda u, s, w: hier_segment_aggregate(u.t(), s, w, 5), ValueError),
-        (lambda u, s, w: hier_segment_aggregate(u, s, w, 4), ValueError),
-        (lambda u, s, w: hier_segment_aggregate(u, -s, w, 5), ValueError),
+        (lambda u, s, w: hier_segment_aggregate(u, s, w, -1), ValueError),
+        (lambda u, s, w: hier_segment_aggregate(u, s, w, 4.5), ValueError),
         (lambda u, s, w: hier_segment_aggregate(u, s[:-1], w, 5), ValueError),
         (lambda u, s, w: hier_segment_aggregate(u, s.float(), w, 5), TypeError),
         (lambda u, s, w: hier_segment_aggregate(u[0], s, w, 5), ValueError),
@@ -128,6 +128,38 @@ def test_wrappers_reject_bad_inputs(call, err):
     seg = torch.tensor([0, 0, 0, 1, 3, 3, 3, 3, 4])
     with pytest.raises(err):
         call(torch.tensor(x), seg, torch.tensor(w))
+
+
+@pytest.mark.parametrize(
+    "seg,e",
+    [
+        (np.array([0, 0, 0, 1, 3, 3, 3, 3, 4]), 4),  # id 4 outside [0, 4)
+        (-np.array([0, 0, 0, 1, 3, 3, 3, 3, 4]), 5),  # negative ids
+        (np.array([0, 7, 0, -1, 3, 5, 3, 9, 3]), 5),
+        (np.array([-2, -1, 5, 6]), 5),  # no id in range: every segment empty
+    ],
+)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("fn", [hier_segment_aggregate_ref, hier_segment_aggregate], ids=["plain", "wrapper"])
+def test_segment_aggregate_drops_out_of_range_ids(fn, seg, e, dtype):
+    """An id outside [0, E) belongs to no segment on the CPU route, as on
+    the card: the result matches the reference's Pallas kernel (interpret
+    mode, a one-hot that matches no such id) and its ``segment_sum``
+    oracle, and a row of inf there poisons nothing."""
+    from repro.kernels.ref import hier_segment_aggregate_ref as ref_oracle
+
+    jdt, tdt, tol = DTYPES[dtype]
+    x, w = _inputs(len(seg), 257, seed=5)
+    want = ref_seg(jnp.asarray(x).astype(jdt), jnp.asarray(seg), jnp.asarray(w), e, block=64, interpret=True)
+    oracle = ref_oracle(jnp.asarray(x).astype(jdt), jnp.asarray(seg), jnp.asarray(w), e)
+    out = fn(torch.tensor(x).to(tdt), torch.tensor(seg), torch.tensor(w), e)
+    assert out.dtype == tdt and tuple(out.shape) == (e, 257)
+    np.testing.assert_allclose(_as_f32(out), _as_f32(want), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_as_f32(out), _as_f32(oracle), atol=tol, rtol=tol)
+    bad = torch.tensor(x).to(tdt)
+    outside = torch.tensor((seg < 0) | (seg >= e))
+    bad[outside] = float("inf")
+    assert torch.equal(fn(bad, torch.tensor(seg), torch.tensor(w), e), out)
 
 
 @pytest.mark.parametrize(
