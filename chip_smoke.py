@@ -21,9 +21,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    on the card, with the kernel's, the plain version's and one PyTorch
    library call's device times (CUDA events over back-to-back launches)
    beside the least time the card could take (``bound_ms``): the FedAvg
-   reductions at the heartbeat path's shapes, ``hier_aggregate`` both at
-   the cloud reduce (N 5) and at the host pipeline's largest edge FedAvg
-   (N = the most EUs on one edge under EARA-SCA) (fp32 1e-5, bf16 2e-2; zero
+   reductions at the heartbeat path's shapes, ``hier_aggregate`` at the
+   cloud reduce (N 5), at the host pipeline's largest edge FedAvg (N = the
+   most EUs on one edge under EARA-SCA) and at each async flush size (N 1-6)
+   (fp32 1e-5, bf16 2e-2; zero
    total weight writes zeros), the segment kernel also with ids outside
    [0, E) (which belong to no segment on the card), both wrappers' whole
    calls (the card's time per call back to back, the device operations
@@ -60,6 +61,18 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    round with ``track_divergence``; ``centralized(2)``; the MLP and
    16-bit FedSGD programs for one round on both pipelines (FedSGD's uplink
    half the CNN's);
+6c. the async engine, compression and faults at full size (launch counts
+   zeroed just before and read just after each run): async at
+   ``quorum=1.0, staleness_decay=1.0`` for 2 rounds, held to the device
+   pipeline (accuracy within 2 test samples, parameters within 5e-3); async
+   at its defaults for 2 rounds of ``HFLSchedule(1, 2)`` (seconds per
+   round, simulated seconds, ``hier_aggregate`` launches equal to the
+   engine's own count of flushes, DCA starts and cloud reduces, the flush
+   sizes, the weight uploads); top-k 5% for one round on every engine (the
+   uplink is the spec's bits per upload, accuracy above chance); the chaos
+   fault spec of ``tests/test_faults.py`` for 2 rounds on every engine (the
+   simulator and both sync pipelines with identical accuracy and equal
+   accountant totals, async with retried uploads);
 7. serve exactness on the card at qwen3-14b widths cut to 2 layers in
    fp32: a uniform batch gives the same tokens with ``use_flash`` on and
    off, and a ragged batch the same tokens as its requests served alone
@@ -114,6 +127,9 @@ _RATES = (
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 HEARTBEAT_KERNELS = ("hier_segment_aggregate", "hier_aggregate")
+# the async engine's flush sizes at heartbeat scale (anchor + up to 5 of an
+# edge's reporters), timed in phase 3 beside the cloud reduce's N 5
+ASYNC_FLUSH_NS = (1, 2, 3, 4, 5, 6)
 # measured numbers a kernel record carries where its phase took them
 _EXTRA_KEYS = ("tflops", "library_kernel", "library_fused_ms", "library_fused_err", "library_fused_kernel",
                "wrapper_host_ms", "wrapper_ms", "wrapper_device_ops", "wrapper_busy_ms", "floor_ms", "floor_kind",
@@ -362,7 +378,8 @@ def _kernel_phase(rate: float, d_model: int, host_n: int) -> dict:
         result["seg"]["max_abs_err"] = max(result["seg"]["max_abs_err"], err)
         print(f"kernel hier_segment_aggregate [ids outside [0, E)] N={len(ids)} D=1000 E={e} torch.float32: "
               f"max_abs_err={err:.3g}", flush=True)
-    for n, d, timed in ((5, d_model, "cloud reduce"), (host_n, d_model, "host edge FedAvg"), (1, d_model, None),
+    flush_ns = [(n, d_model, "async flush") for n in ASYNC_FLUSH_NS if n not in (5, host_n)]
+    for n, d, timed in ((5, d_model, "cloud reduce"), (host_n, d_model, "host edge FedAvg"), *flush_ns,
                         (4, 1000, None), (8, d_model, None), (9, d_model, None), (13, d_model, None),
                         (18, d_model, None), (32, 512, None), (40, 1000, None)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -392,8 +409,11 @@ def _kernel_phase(rate: float, d_model: int, host_n: int) -> dict:
                 if timed == "cloud reduce":
                     t.update(_wrapper_work(lambda: hier_aggregate(x, w)))
                     result["agg"].update(t)
-                else:
+                elif timed == "host edge FedAvg":
                     result["agg"]["host_edge"] = {"N": n, "D": d, **t}
+                if timed in ("cloud reduce", "host edge FedAvg") or n in ASYNC_FLUSH_NS:
+                    by_n = result["agg"].setdefault("by_n", {})
+                    by_n[n] = {"N": n, "D": d, **{k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
                 line += " " + _fmt(t)
             print(line, flush=True)
     return result
@@ -563,16 +583,17 @@ def _run_counted(sc, lam, label: str, **kw):
     return res, counts
 
 
-def _agree(label: str, a, b, acc_tol: float) -> None:
+def _agree(label: str, a, b, acc_tol: float, totals: bool = True) -> None:
     """Per-round accuracy within ``acc_tol``, final parameters within 5e-3
-    (the reference's own engine tolerance) and equal accountant totals."""
+    (the reference's own engine tolerance) and, with ``totals``, equal
+    accountant totals."""
     for ha, hb in zip(a.history, b.history):
         _require(abs(ha.test_acc - hb.test_acc) <= acc_tol + 1e-6,
                  f"{label}: round {ha.cloud_round} accuracy {ha.test_acc} vs {hb.test_acc}")
     diff = float((_flat_row(a.final_params) - _flat_row(b.final_params)).abs().max())
     print(f"engines: {label} max |param diff| {diff:.3g}", flush=True)
     _require(diff <= 5e-3, f"{label}: parameters differ by {diff}")
-    _require(a.accountant.totals() == b.accountant.totals(), f"{label}: accountant totals differ")
+    _require(not totals or a.accountant.totals() == b.accountant.totals(), f"{label}: accountant totals differ")
 
 
 def _engines_phase(sc, sca_lam) -> dict:
@@ -638,6 +659,98 @@ def _engines_phase(sc, sca_lam) -> dict:
             _require(up == cnn_up_per_round / 2, f"FedSGD 16-bit eu_up_bits {up} is not half the CNN's "
                                                  f"{cnn_up_per_round}")
     return launches
+
+
+def _async_phase(sc, sca_lam) -> dict:
+    """Phase 6c: the async engine, uplink compression and the fault layer
+    at full size, each run's launch counts zeroed just before and read just
+    after.  Returns the async defaults run's ``hier_aggregate`` launches,
+    flush-size histogram and weight uploads."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import CompressionSpec, HFLSchedule
+    from repro_torch.engine import AsyncHFLEngine
+    from repro_torch.faults import FaultSpec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.utils.tree import tree_leaves
+
+    acc_tol = 2.0 / len(sc.test)
+    # the sync corner: quorum 1, no decay -> FedAvg, as the device pipeline
+    corner, corner_counts = _run_counted(sc, sca_lam, "async corner", cloud_rounds=2, engine="async",
+                                         quorum=1.0, staleness_decay=1.0)
+    dev, _ = _run_counted(sc, sca_lam, "sync-device beside the corner", cloud_rounds=2, engine="sync")
+    _agree("async corner vs sync-device", corner, dev, acc_tol, totals=False)
+    _require(corner_counts["hier_segment_aggregate"] == 0, "the segment kernel launched on the async engine")
+
+    # the defaults, through the engine for its own counts
+    eng = AsyncHFLEngine(sc.clients, sca_lam, sc.program, sc.test, latency=sc.cost.latency, schedule=HFLSchedule(1, 2))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res = eng.run(2)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for h in res.history:
+        print(f"async: defaults round {h.cloud_round} acc {h.test_acc:.6f} loss {h.mean_local_loss:.6f} "
+              f"seconds {h.wall_seconds:.4f} simulated {h.sim_seconds:.6f}", flush=True)
+    hist = dict(sorted(eng.flush_rows.items()))
+    print(f"async: defaults wall_seconds (simulated) {res.wall_seconds:.6f} aggregates {json.dumps(eng.aggregates)} "
+          f"launches {json.dumps(counts)} flush N histogram {json.dumps(hist)} weight uploads {eng.weight_uploads} "
+          f"accountant {json.dumps(res.accountant.totals())}", flush=True)
+    _require(counts["hier_aggregate"] == sum(eng.aggregates.values()),
+             f"async: {counts['hier_aggregate']} hier_aggregate launches, the engine counts {eng.aggregates}")
+    _require(counts["hier_segment_aggregate"] == 0, "the segment kernel launched on the async engine")
+    for leaf in tree_leaves(res.final_params):
+        _require(bool(torch.isfinite(leaf).all()), "async defaults: non-finite parameters")
+    _require(res.final_accuracy() > 0.2, f"async defaults accuracy {res.final_accuracy()} is not above chance")
+    out = {"launches_2_rounds": counts["hier_aggregate"], "aggregates": dict(eng.aggregates),
+           "flush_rows": hist, "weight_uploads": eng.weight_uploads,
+           "seconds_per_round": [h.wall_seconds for h in res.history], "wall_seconds": res.wall_seconds}
+
+    # top-k 5%: one round on every engine; the uplink is the spec's bits per upload
+    spec = CompressionSpec("topk", fraction=0.05)
+    uploads = int(sca_lam.any(axis=1).sum())
+    params = sc.program.init(torch.Generator().manual_seed(0))
+    flat_bits = spec.bits(torch.zeros(sum(p.numel() for p in tree_leaves(params))))
+    edges = int(sca_lam.any(axis=0).sum())
+    # (hier_segment_aggregate, hier_aggregate) launches of one round: none
+    # under the simulator; the host pipeline one per edge and the reduce;
+    # the device pipeline one of each; async one flush per edge and the reduce
+    want_launches = {"reference": (0, 0), "sync-host": (0, _expected_aggregates(sca_lam, 1, 1)),
+                     "sync-device": (1, 1), "async": (0, edges + 1)}
+    for label, kw, bits in (("reference", {"engine": "reference"}, spec.bits(params)),
+                            ("sync-host", {"engine": "sync", "pipeline": "host"}, flat_bits),
+                            ("sync-device", {"engine": "sync", "pipeline": "device"}, flat_bits),
+                            ("async", {"engine": "async"}, flat_bits)):
+        run, launched = _run_counted(sc, sca_lam, f"topk {label}", cloud_rounds=1, compression=spec, **kw)
+        got = (launched["hier_segment_aggregate"], launched["hier_aggregate"])
+        _require(got == want_launches[label], f"topk {label}: launches {got}, expected {want_launches[label]}")
+        up = run.accountant.totals()["eu_up_bits"]
+        _require(up == bits * uploads, f"topk {label}: eu_up_bits {up} != {bits} x {uploads} uploads")
+        acc = run.final_accuracy()
+        _require(bool(np.isfinite(acc)) and acc > 0.2, f"topk {label}: accuracy {acc} is not above chance")
+
+    # the chaos spec of tests/test_faults.py: the simulator and both sync
+    # pipelines hold to one another; async retries
+    chaos = FaultSpec(seed=3, p_drop=0.25, p_rejoin=0.5, p_fail=0.2, max_retries=2, backoff_s=0.1,
+                      energy_uploads=6.0, refade_rounds=1, drift_rate=0.05)
+    runs = {}
+    for label, kw in (("reference", {"engine": "reference"}), ("sync-host", {"engine": "sync", "pipeline": "host"}),
+                      ("sync-device", {"engine": "sync", "pipeline": "device"}), ("async", {"engine": "async"})):
+        runs[label], launched = _run_counted(sc, sca_lam, f"chaos {label}", cloud_rounds=2, faults=chaos, **kw)
+        # the kernels of each path ran (how often depends on the churn)
+        uses = {"reference": (False, False), "sync-device": (True, True)}.get(label, (False, True))
+        got = (launched["hier_segment_aggregate"] > 0, launched["hier_aggregate"] > 0)
+        _require(got == uses, f"chaos {label}: launches {launched}")
+    accs = {k: [h.test_acc for h in r.history] for k, r in runs.items()}
+    totals = {k: r.accountant.totals() for k, r in runs.items()}
+    _require(accs["reference"] == accs["sync-host"] == accs["sync-device"], f"chaos: accuracies differ {accs}")
+    _require(totals["reference"] == totals["sync-host"] == totals["sync-device"], f"chaos: totals differ {totals}")
+    _require(totals["reference"]["dropped_uploads"] > 0, "chaos: no upload was dropped")
+    _require(totals["async"]["retried_uploads"] > 0, "chaos: the async engine retried nothing")
+    for label in ("sync-host", "sync-device"):
+        _agree(f"chaos {label} vs reference", runs[label], runs["reference"], 0.0)
+    return out
 
 
 def _attention_work(b: int, s: int, hq: int, hkv: int, d: int, window, elt: int):
@@ -1166,6 +1279,7 @@ def main(argv) -> int:
     counts = _main_path(sc, sca_lam)
     _profile_round(sc, sca_lam)
     host_launches = _engines_phase(sc, sca_lam)
+    async_run = _async_phase(sc, sca_lam)
     exact_variants = _serve_exactness()
     serve_counts, serve_variants = _serve_path()
     flash = kern["flash"]
@@ -1187,8 +1301,13 @@ def main(argv) -> int:
         }
         if variant:
             entry["variant"] = variant
-        if fn_name == "hier_aggregate":  # phase 6b's host pipeline, beside phase 5's count
+        if fn_name == "hier_aggregate":  # phases 6b (host pipeline) and 6c (async), beside phase 5's count
             entry["launches_host_pipeline"] = host_launches
+            entry["launches_async_2_rounds"] = async_run["launches_2_rounds"]
+            entry["async_flush_rows"] = async_run["flush_rows"]
+            entry["async_weight_uploads"] = async_run["weight_uploads"]
+            mode = max(async_run["flush_rows"], key=lambda n: (async_run["flush_rows"][n], -n))
+            entry["async_flush"] = k["by_n"].get(mode, {"N": mode, "ms": "not measured"})
         entry.update({key: k[key] for key in _EXTRA_KEYS if key in k})
         if variant == "simt":
             entry["shape"] = "B 4, S 1536, Hq 40, Hkv 8, d 128, fp32 (phase 7)"

@@ -108,6 +108,52 @@ def round_greedy_kld(
     return lam
 
 
+def repair_assignment(
+    lam: np.ndarray, class_counts: np.ndarray, feasible: np.ndarray
+) -> tuple:
+    """Incrementally re-repair an assignment whose feasible sets drifted.
+
+    Fault-injected runs re-evaluate the channel per round (``repro_torch.faults``);
+    fading drift can push an assigned (EU, edge) pair outside the latency /
+    energy constraints (20)-(21).  Rather than re-running Algorithm 1 from
+    scratch, keep every still-feasible membership, drop the invalidated
+    ones, and re-place only the EUs left without an edge — greedily, largest
+    datasets first, on the feasible edge that least increases the exact P1
+    KLD objective (the same incremental ``_kld_uniform`` scoring as
+    ``round_greedy_kld``, so the two repairs cannot drift apart).
+
+    Returns ``(new_lam, changed_rows)``: ``changed_rows`` are the EU indices
+    whose edge set changed (re-seated EUs and EUs that lost a DCA secondary
+    membership).  ``changed_rows`` is empty iff ``new_lam`` equals ``lam``.
+    """
+    lam0 = np.asarray(lam, np.float64)
+    feasible = np.asarray(feasible, bool)
+    kept = lam0 * feasible
+    homeless = np.nonzero((lam0.sum(axis=1) > 0) & (kept.sum(axis=1) == 0))[0]
+    lam_new = kept.copy()
+    cc = np.asarray(class_counts, np.float64)
+    if len(homeless):
+        edge_counts = lam_new.T @ cc
+        edge_kld = np.array(
+            [_kld_uniform(edge_counts[j]) for j in range(lam_new.shape[1])]
+        )
+        order = homeless[np.argsort(-cc[homeless].sum(axis=1), kind="stable")]
+        for i in order:
+            best_j, best_kld, best_val = None, 0.0, np.inf
+            for j in np.nonzero(feasible[i])[0]:
+                kld_j = _kld_uniform(edge_counts[j] + cc[i])
+                val = kld_j - edge_kld[j]
+                if val < best_val - 1e-12:
+                    best_val, best_j, best_kld = val, int(j), kld_j
+            if best_j is None:
+                continue  # no feasible edge at all: the EU sits the rounds out
+            lam_new[i, best_j] = 1.0
+            edge_counts[best_j] += cc[i]
+            edge_kld[best_j] = best_kld
+    changed = np.nonzero((lam_new != lam0).any(axis=1))[0]
+    return lam_new, changed
+
+
 def round_dca(lam_frac: np.ndarray, feasible: np.ndarray, nu: float = 0.3) -> np.ndarray:
     """Top-1 always; top-2 additionally iff lambda^2_ij > nu (Alg. 1 l. 7-15)."""
     masked = np.where(feasible, lam_frac, -np.inf)

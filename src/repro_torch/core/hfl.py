@@ -63,6 +63,9 @@ class CommAccountant:
       bits per edge; an EU on two edges (DCA) uploads once by multicast at
       ``dca_multicast_overhead`` extra.
     * edge->cloud: every cloud sync, each edge exchanges |W| up + |W| down.
+    * wasted traffic (fault-injected runs): uploads dropped mid-round,
+      async retransmissions and abandoned multicasts go to
+      ``eu_bits_wasted``, apart from the useful ``eu_bits_up``.
     """
 
     model_bits: float
@@ -73,6 +76,11 @@ class CommAccountant:
     eu_bits_up: Dict[int, float] = dataclasses.field(default_factory=dict)
     eu_bits_down: Dict[int, float] = dataclasses.field(default_factory=dict)
     edge_cloud_bits: float = 0.0
+    # failure taxonomy (all zero on fault-free runs)
+    eu_bits_wasted: Dict[int, float] = dataclasses.field(default_factory=dict)
+    dropped_uploads: int = 0
+    retried_uploads: int = 0
+    abandoned_uploads: int = 0
 
     def on_edge_sync(
         self,
@@ -96,6 +104,32 @@ class CommAccountant:
             self.eu_bits_up[i] = self.eu_bits_up.get(i, 0.0) + up
             self.eu_bits_down[i] = self.eu_bits_down.get(i, 0.0) + down
 
+    def on_eu_exchange(self, i: int, up_bits: float = 0.0, down_bits: float = 0.0) -> None:
+        """One EU<->edge exchange (the async engine's uploads and dispatches
+        are per EU, not per round)."""
+        if up_bits:
+            self.eu_bits_up[i] = self.eu_bits_up.get(i, 0.0) + up_bits
+        if down_bits:
+            self.eu_bits_down[i] = self.eu_bits_down.get(i, 0.0) + down_bits
+
+    def on_wasted_upload(self, i: int, bits: float, kind: str = "dropped") -> None:
+        """A transmission that reached no aggregation: "dropped" (a sync
+        upload lost mid-air), "retry" (an async retransmission; the payload
+        finally delivered is charged once by ``on_eu_exchange``) or
+        "abandoned" (a multicast no edge received)."""
+        if kind == "dropped":
+            self.dropped_uploads += 1
+        elif kind == "retry":
+            self.retried_uploads += 1
+        elif kind == "abandoned":
+            self.abandoned_uploads += 1
+        else:
+            raise ValueError(f"unknown wasted-upload kind {kind!r}")
+        self.eu_bits_wasted[i] = self.eu_bits_wasted.get(i, 0.0) + bits
+
+    def on_edge_round(self) -> None:
+        self.edge_rounds += 1
+
     def on_cloud_sync(self, n_edges: int, bits: "float | None" = None) -> None:
         self.cloud_rounds += 1
         payload = self.model_bits if bits is None else bits
@@ -114,6 +148,10 @@ class CommAccountant:
             "cloud_bits": float(self.edge_cloud_bits),
             "edge_rounds": float(self.edge_rounds),
             "cloud_rounds": float(self.cloud_rounds),
+            "wasted_bits": float(sum(self.eu_bits_wasted.values())),
+            "dropped_uploads": float(self.dropped_uploads),
+            "retried_uploads": float(self.retried_uploads),
+            "abandoned_uploads": float(self.abandoned_uploads),
         }
 
 

@@ -45,8 +45,13 @@ class GroupState:
     uplink_bits: List[float]  # per-group EU->edge upload payload
 
 
-def build_group_state(clients, program: ClientProgram, params, pack: FlatPack) -> GroupState:
-    """The single group of a population that trains one program."""
+def build_group_state(clients, program: ClientProgram, params, pack: FlatPack, compression=None) -> GroupState:
+    """The single group of a population that trains one program.
+
+    The uplink payload is ``compression.bits`` of the flat (D,) row the
+    engines compress (one global top-k, not the readable simulator's
+    per-leaf one) when a compression is given, else the program's own
+    (FedSGD's gradient payload, else the model)."""
     programs, group_of = group_clients(clients, fallback=program)
     if programs != [program]:
         raise NotImplementedError(
@@ -54,7 +59,11 @@ def build_group_state(clients, program: ClientProgram, params, pack: FlatPack) -
             "ported yet; see ROADMAP.md Queue 1, heterogeneous models"
         )
     bits = tree_size_bytes(params) * 8
-    return GroupState([program], group_of, [params], [pack], [bits], [program.uplink_bits(bits)])
+    if compression is not None and compression.kind != "none":
+        uplink = compression.bits(torch.zeros((pack.dim,), dtype=torch.float32))
+    else:
+        uplink = program.uplink_bits(bits)
+    return GroupState([program], group_of, [params], [pack], [bits], [uplink])
 
 
 @dataclasses.dataclass
@@ -167,13 +176,16 @@ def _stack_starts(jobs: Sequence[LocalJob]) -> torch.Tensor:
 
 
 def run_cohorts(
-    jobs: Sequence[LocalJob], program: ClientProgram, pack: FlatPack, impl: str = "gemm"
+    jobs: Sequence[LocalJob], program: ClientProgram, pack: FlatPack, store=None, impl: str = "gemm"
 ) -> CohortResult:
     """Train every job, same-shape jobs together as one cohort.
 
-    Batches are stacked from the clients' numpy shards on the host and
-    uploaded per epoch; the cohort's rows carry across epochs.  Every job
-    must train ``program``: a mixed-program list raises
+    Each epoch's batches are gathered on the device from ``store`` (a
+    ``DeviceShardStore``; only the sample indices go to the device), or,
+    with no store, stacked from the clients' numpy shards on the host and
+    uploaded: the same samples either way, so the result does not depend
+    on the route.  The cohort's rows carry across epochs.  Every job must
+    train ``program``: a mixed-program list raises
     ``NotImplementedError`` (heterogeneous models are queued).
     """
     for job in jobs:
@@ -196,9 +208,13 @@ def run_cohorts(
     offset = 0
     for (_, steps, epochs, _, lr), members in groups.items():
         flat = _stack_starts(members)
+        cids = [j.client.cid for j in members]
         for e in range(epochs):
-            xb = torch.as_tensor(np.stack([j.client.shard.x[j.idx[e]] for j in members]), device=device)
-            yb = torch.as_tensor(np.stack([j.client.shard.y[j.idx[e]] for j in members]), device=device)
+            if store is not None:
+                xb, yb = store.gather(cids, np.stack([j.idx[e] for j in members]))
+            else:
+                xb = torch.as_tensor(np.stack([j.client.shard.x[j.idx[e]] for j in members]), device=device)
+                yb = torch.as_tensor(np.stack([j.client.shard.y[j.idx[e]] for j in members]), device=device)
             flat, loss = _cohort_epoch_flat(flat, xb, yb, pack.spec, program, steps, lr, impl=impl)
         mats.append(flat)
         loss = loss.cpu().numpy()

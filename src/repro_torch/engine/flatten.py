@@ -98,6 +98,35 @@ def unravel_batched(spec: TreeSpec, mat: torch.Tensor) -> dict:
     return tree_unflatten(spec.paths, leaves)
 
 
+def compress_flat_upload(spec, errors: dict, key, start_row: torch.Tensor, trained_row: torch.Tensor):
+    """Apply a ``CompressionSpec`` to a flat model delta with error feedback.
+
+    The spec is applied to the whole (D,) delta at once (one global top-k
+    over every parameter), unlike the readable simulator's per-leaf
+    application.  ``errors[key]`` holds the client's error-feedback state
+    and is updated in place."""
+    if spec is None or spec.kind == "none":
+        return trained_row
+    return compress_flat_rows(spec, errors, [key], start_row[None], trained_row[None])[0]
+
+
+def compress_flat_rows(spec, errors: dict, keys, start_rows: torch.Tensor, trained_rows: torch.Tensor):
+    """:func:`compress_flat_upload` for C clients at once: (C, D) start and
+    trained rows, ``keys[c]`` naming row c's error state.  One batched
+    compression over the (C, D) deltas; each row's result, and the error
+    state it leaves, equal the one-row call's."""
+    delta = trained_rows - start_rows
+    prior = [errors.get(k) for k in keys]
+    if all(e is None for e in prior):
+        error = torch.zeros_like(delta)
+    else:
+        error = torch.stack([torch.zeros_like(delta[0]) if e is None else e for e in prior])
+    sparse, err = spec.apply_rows(delta + error)
+    for c, k in enumerate(keys):
+        errors[k] = err[c]
+    return start_rows + sparse
+
+
 def _weights(weights, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(weights, dtype=torch.float32, device=device)
 

@@ -6,7 +6,9 @@ single gather whose only host->device traffic is the ``(C, steps, batch)``
 sample indices the RNG stream draws anyway.  Indices are always drawn in
 ``[0, len(shard_i))``, so the zero padding is never read.  Padding is to the
 LARGEST shard: the heartbeat population at full scale holds 18 x 17,060
-samples of 187 floats, about 230 MB.
+samples of 187 floats, about 230 MB.  One pathologically large shard would
+inflate the store M-fold: ``build_if_economical`` declines past
+``MAX_PADDING_RATIO``, and its callers stack batches on the host instead.
 """
 from __future__ import annotations
 
@@ -14,6 +16,9 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+# past this padding blow-up the store costs more memory than it saves time
+MAX_PADDING_RATIO = 16.0
 
 
 class DeviceShardStore:
@@ -38,6 +43,15 @@ class DeviceShardStore:
         obj = cls.__new__(cls)
         obj._build(list(shards), torch.device(device))
         return obj
+
+    @classmethod
+    def build_if_economical(cls, clients: Sequence, device):
+        """A store, or None when padding to the largest shard would take
+        more than ``MAX_PADDING_RATIO`` cells per real sample (checked
+        before anything is allocated)."""
+        sizes = np.array([len(c.shard) for c in clients] or [0])
+        ratio = len(sizes) * max(1, int(sizes.max())) / max(1, int(sizes.sum()))
+        return cls(clients, device) if ratio <= MAX_PADDING_RATIO else None
 
     def _build(self, shards: List, device: torch.device) -> None:
         if not shards:

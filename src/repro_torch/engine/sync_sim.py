@@ -31,6 +31,16 @@ Both pipelines end the cloud round with ``flat_mean`` over the (E, D) edge
 matrix (eq. 8/9).  With ``backend="kernel"`` (default) the FedAvg
 reductions run on the port's CUDA kernels on the card, and on their plain
 versions on the CPU.
+
+``compression`` (a ``CompressionSpec``) compresses each participant's flat
+(D,) delta with per-client error feedback (one global top-k, not the
+readable simulator's per-leaf one; the device pipeline does all rows of a
+round in one batched sort).  ``faults`` (a ``FaultState``) masks churned-out
+and battery-dead EUs out of a round, gives the uploads it loses weight 0
+(charged as wasted, neither compressed nor fed back), debits energy,
+re-repairs the assignment under drift (rebuilding the pair structure and
+re-uploading the cloud weights) and weighs edges that received nothing
+all cloud round 0 in the cloud reduce, by a mask kept on the device.
 """
 from __future__ import annotations
 
@@ -50,7 +60,14 @@ from repro_torch.engine.cohort import (
     make_job,
     run_cohorts,
 )
-from repro_torch.engine.flatten import BACKENDS, FlatPack, flat_mean, flat_segment_mean
+from repro_torch.engine.flatten import (
+    BACKENDS,
+    FlatPack,
+    compress_flat_rows,
+    compress_flat_upload,
+    flat_mean,
+    flat_segment_mean,
+)
 from repro_torch.engine.store import DeviceShardStore
 from repro_torch.federated.client import FLClient
 from repro_torch.federated.programs import as_program, group_edge_sizes
@@ -81,7 +98,8 @@ class BatchedSyncEngine:
     participation probability in (0, 1]), ``track_divergence`` (the
     distance to a virtual centralized model, eq. 17, stepped from the
     engine RNG after each cloud reduce as in the reference),
-    ``cost_latency`` (an (M, N) latency matrix for the ``WallClock``), and
+    ``cost_latency`` (an (M, N) latency matrix for the ``WallClock``),
+    ``compression`` and ``faults`` (see the module docstring), and
     ``device`` (default "cuda"; raises without CUDA unless "cpu").
 
     Initial parameters come from ``program.init`` with a
@@ -102,7 +120,9 @@ class BatchedSyncEngine:
         central_batch: int = 50,
         cost_latency=None,
         backend: str = "kernel",
+        compression=None,
         pipeline: str = "device",
+        faults=None,
         device="cuda",
     ):
         if pipeline not in PIPELINES:
@@ -124,7 +144,8 @@ class BatchedSyncEngine:
         self.pipeline = pipeline
         self.params = initial_params(self.program, seed, self.device)
         self.pack = FlatPack(self.params)
-        gs = build_group_state(clients, self.program, self.params, self.pack)
+        self.compression = compression
+        gs = build_group_state(clients, self.program, self.params, self.pack, compression)
         self.group_of = gs.group_of
         self._uplink_bits = gs.uplink_bits[0]
         self.accountant = CommAccountant(model_bits=gs.bits[0])
@@ -134,6 +155,14 @@ class BatchedSyncEngine:
             self.central_params = self.params
             self.central_data = pooled_dataset(clients, self.program.n_classes)
             self.central_batch = central_batch
+        self.faults = faults
+        self._round = 0
+        self._er = 0  # edge round within the current cloud round
+        # fault-injected runs: the edges that aggregated an upload this
+        # cloud round, on the host and as a device mask
+        self._edge_got = None
+        self._got_dev = None
+        self._errors: Dict[int, torch.Tensor] = {}  # compression error feedback
         self._data_sizes = np.array([c.data_size for c in clients], np.float32)
         self._build_pair_structure(assignment)
         if pipeline == "device":
@@ -144,7 +173,7 @@ class BatchedSyncEngine:
             # an edge's weights are stacked from views of these rows, so no
             # call uploads from the host or waits for the card
             self._sizes_dev = torch.as_tensor(self._data_sizes, device=self.device)
-            self._ones_dev = torch.ones(max(1, int(self.assignment.sum(axis=1).max())), device=self.device)
+            self._ones_dev = torch.ones(self.assignment.shape[1], device=self.device)
 
     def _build_pair_structure(self, assignment) -> None:
         """The (client, edge) membership pairs in client-major order and
@@ -163,13 +192,31 @@ class BatchedSyncEngine:
         self._single_edge = bool((asn.sum(axis=1) <= 1).all())
         self._client_edge = np.where(self._has_edge, asn.argmax(axis=1), 0).astype(np.int64)
 
-    def _draw_participation(self, m: int) -> np.ndarray:
+    def _maybe_repair(self, b: int) -> bool:
+        """Re-repair the assignment when channel drift invalidated
+        memberships, rebuilding the pair structure; True when it changed."""
+        if not self.faults.spec.reassign:
+            return False
+        new_lam, changed = self.faults.repair(b, self.assignment)
+        if len(changed):
+            self._build_pair_structure(new_lam)
+        return bool(len(changed))
+
+    def _draw_participation(self, m: int):
         """This round's (M,) participation mask, drawn from the engine RNG
-        draw for draw like the reference."""
+        draw for draw like the reference, and under faults the (M,) mask of
+        uploads lost mid-round (else None)."""
         participating = self.rng.random(m) < self.upp
         if not participating.any():
             participating[self.rng.integers(0, m)] = True
-        return participating
+        failed = None
+        if self.faults is not None:
+            # churned-out and battery-dead EUs sit the round out; lost
+            # uploads train but are masked from aggregation.  Keyed fault
+            # streams only: the engine RNG above is untouched.
+            participating &= self.faults.participation(self._round)
+            failed = self.faults.failed_uploads(self._round, self._er) & participating & self._has_edge
+        return participating, failed
 
     def _cloud_mean(self, edge_mat: torch.Tensor, weights) -> torch.Tensor:
         """Cloud FedAvg of the (E, D) edge matrix (paper eq. 9)."""
@@ -186,10 +233,22 @@ class BatchedSyncEngine:
             backend=self.backend,
         )
 
-    def _edge_account(self, participating: np.ndarray) -> None:
-        self.accountant.on_edge_sync(
-            self.assignment * participating[:, None], uplink_bits=self._uplink_bits
-        )
+    def _edge_account(self, participating: np.ndarray, failed) -> None:
+        """Charge one edge round.  A lost upload leaves the useful totals
+        and is charged as wasted bits; the straggler clock and the energy
+        debit still see every EU that attempted."""
+        success = participating if failed is None else participating & ~failed
+        self.accountant.on_edge_sync(self.assignment * success[:, None], uplink_bits=self._uplink_bits)
+        if failed is not None:
+            mc = self.accountant.dca_multicast_overhead
+            for i in np.nonzero(failed)[0]:
+                k = int(np.count_nonzero(self.assignment[i]))
+                if k:
+                    self.accountant.on_wasted_upload(
+                        int(i), self._uplink_bits * (1.0 + (mc if k > 1 else 0.0)), kind="dropped"
+                    )
+        if self.faults is not None:
+            self.faults.debit_round(self._round, participating, self.assignment)
         if self.clock is not None:
             self.clock.on_edge_sync(self.assignment, participating)
 
@@ -197,7 +256,7 @@ class BatchedSyncEngine:
         """One edge round; returns the new (E, D) edge matrix and the
         per-cohort (C,) losses (still on the device)."""
         m, n = self.assignment.shape
-        participating = self._draw_participation(m)
+        participating, failed = self._draw_participation(m)
         active = self._has_edge & participating
         # the plan's draw consumes the RNG in client order, like the reference
         groups, passthrough = self._plan.draw(self.rng, active, self.schedule.local_steps)
@@ -233,15 +292,19 @@ class BatchedSyncEngine:
             offset += len(passthrough)
         if active.any():
             upd_matrix = torch.cat(mats, dim=0) if len(mats) > 1 else mats[0]
-            if self.program.quantizes_upload:
-                # the program's upload transform (FedSGD's fp16 gradients):
-                # one batched op over the participants' (C, D) rows
+            compressing = self.compression is not None and self.compression.kind != "none"
+            if compressing or self.program.quantizes_upload:
                 job_cids = np.nonzero(active)[0]
                 trained = upd_matrix[torch.as_tensor(row_of[job_cids], device=self.device)]
-                upd_matrix = self.program.quantize_upload(starts_for(job_cids), trained)
+                if compressing:
+                    upd_matrix = self._compress_rows(job_cids, starts_for(job_cids), trained, failed)
+                else:
+                    # the program's upload transform (FedSGD's fp16
+                    # gradients): one batched op over the (C, D) rows
+                    upd_matrix = self.program.quantize_upload(starts_for(job_cids), trained)
                 row_of[job_cids] = np.arange(len(job_cids))
             pc, pe = self._pair_clients, self._pair_edges
-            part_pairs = participating[pc]
+            part_pairs = (participating if failed is None else participating & ~failed)[pc]
             take = row_of[pc]
             if len(take) == upd_matrix.shape[0] and np.array_equal(take, np.arange(len(take))):
                 upd = upd_matrix  # rows already in pair order: skip the gather
@@ -250,18 +313,32 @@ class BatchedSyncEngine:
             # edges with no participant keep their previous model
             has = np.bincount(pe, weights=part_pairs, minlength=n) > 0
             w = torch.as_tensor(self._data_sizes[pc] * part_pairs, device=self.device)
-            edge_mat = _segment_agg_keep(
-                upd, self._pair_edges_dev, w, torch.as_tensor(has, device=self.device),
-                edge_mat, n, self.backend,
-            )
-        self._edge_account(participating)
+            has_dev = torch.as_tensor(has, device=self.device)
+            edge_mat = _segment_agg_keep(upd, self._pair_edges_dev, w, has_dev, edge_mat, n, self.backend)
+            if self._edge_got is not None:
+                self._edge_got |= has
+                self._got_dev |= has_dev
+        self._edge_account(participating, failed)
         return edge_mat, loss_chunks
+
+    def _compress_rows(self, job_cids: np.ndarray, starts: torch.Tensor, trained: torch.Tensor, failed):
+        """The participants' (C, D) uploads under the compression, in one
+        batched call; a lost upload keeps its trained row (it weighs 0) and
+        leaves its error feedback alone."""
+        keep = np.ones(len(job_cids), bool) if failed is None else ~failed[job_cids]
+        if keep.all():
+            return compress_flat_rows(self.compression, self._errors, job_cids.tolist(), starts, trained)
+        if not keep.any():
+            return trained
+        sel = torch.as_tensor(np.nonzero(keep)[0], device=self.device)
+        rows = compress_flat_rows(self.compression, self._errors, job_cids[keep].tolist(), starts[sel], trained[sel])
+        return trained.index_copy(0, sel, rows)
 
     def _edge_round_host(self, edge_rows: List[torch.Tensor]) -> List[float]:
         """One edge round, host pipeline; updates ``edge_rows`` (one (D,)
         row per edge) in place and returns the participants' losses."""
         m, n = self.assignment.shape
-        participating = self._draw_participation(m)
+        participating, failed = self._draw_participation(m)
         # job prep consumes the RNG in client order, like the reference
         jobs, job_edges = [], []
         for i, cl in enumerate(self.clients):
@@ -275,24 +352,32 @@ class BatchedSyncEngine:
             jobs.append(make_job(cl, start, self.rng, epochs=self.schedule.local_steps))
             job_edges.append(edges)
         trained = run_cohorts(jobs, self.program, self.pack, impl="xla")
-        quantizing = self.program.quantizes_upload
+        compressing = self.compression is not None and self.compression.kind != "none"
+        transforming = compressing or self.program.quantizes_upload
         losses: List[float] = []
         uploads: Dict[int, List[int]] = {}
         rows: Dict[int, List[torch.Tensor]] = {}
         for job, edges in zip(jobs, job_edges):
             cid = job.client.cid
             losses.append(trained.loss[cid])
-            if quantizing:
+            if failed is not None and failed[cid]:
+                continue  # trained, transmitted, lost: masked out of FedAvg
+            if compressing:
+                row = compress_flat_upload(self.compression, self._errors, cid, job.start_flat, trained.row(cid))
+            elif transforming:
                 row = self.program.quantize_upload(job.start_flat, trained.row(cid))
             for j in edges:
                 uploads.setdefault(j, []).append(cid)
-                if quantizing:
+                if transforming:
                     rows.setdefault(j, []).append(row)
         for j, cids in uploads.items():
-            mat = torch.stack(rows[j]) if quantizing else trained.gather(cids)
+            mat = torch.stack(rows[j]) if transforming else trained.gather(cids)
             weights = torch.stack([self._sizes_dev[c] for c in cids])
             edge_rows[j] = flat_mean(mat, weights, backend=self.backend)
-        self._edge_account(participating)
+            if self._edge_got is not None:
+                self._edge_got[j] = True
+                self._got_dev[j] = True
+        self._edge_account(participating, failed)
         return losses
 
     def _central_step(self) -> None:
@@ -301,33 +386,57 @@ class BatchedSyncEngine:
             device=self.device,
         )
 
+    def _cloud_weights(self) -> torch.Tensor:
+        """The cloud FedAvg weights on the device: uploaded once per run
+        (and again after a reassignment), so that no cloud round's reduce
+        waits on a host-to-device copy."""
+        return torch.as_tensor(group_edge_sizes(self.clients, self.assignment, self.group_of)[0], device=self.device)
+
+    def _cloud_reduce(self, edge_mat: torch.Tensor, edge_sizes: torch.Tensor, global_row: torch.Tensor):
+        """The cloud FedAvg.  Under faults an edge that aggregated nothing
+        all cloud round weighs 0, through the device mask (no upload), and
+        when every edge starved the global row stands (the host mask
+        decides that)."""
+        if self.faults is None:
+            return self._cloud_mean(edge_mat, edge_sizes)
+        if not self._edge_got.any():
+            return global_row
+        return self._cloud_mean(edge_mat, edge_sizes * self._got_dev)
+
     def run(self, cloud_rounds: int, eval_every: int = 1) -> SimResult:
         n = self.assignment.shape[1]
         history: List[RoundMetrics] = []
         global_row = self.pack.ravel(self.params)
-        # the cloud weights go to the device once per run, so that no cloud
-        # round's reduce waits on a host-to-device copy
-        edge_sizes = torch.as_tensor(
-            group_edge_sizes(self.clients, self.assignment, self.group_of)[0], device=self.device
-        )
+        edge_sizes = self._cloud_weights()
         wall_accum = sim_accum = 0.0
         for b in range(1, cloud_rounds + 1):
             t_round = time.perf_counter()
             sim0 = self.clock.seconds if self.clock is not None else 0.0
+            self._round = b
+            if self.faults is not None:
+                if self._maybe_repair(b):
+                    edge_sizes = self._cloud_weights()
+                self._edge_got = np.zeros(n, bool)
+                self._got_dev = torch.zeros(n, dtype=torch.bool, device=self.device)
+                if self.clock is not None:
+                    # the straggler model reads the round's faded channel
+                    self.clock.latency = self.faults.latency(b)
             if self.pipeline == "device":
                 chunks: List[torch.Tensor] = []
                 edge_mat = global_row[None, :].expand(n, -1)
-                for _ in range(self.schedule.edge_per_cloud):
+                for k in range(self.schedule.edge_per_cloud):
+                    self._er = k + 1
                     edge_mat, round_chunks = self._edge_round_device(edge_mat)
                     chunks += round_chunks
-                global_row = self._cloud_mean(edge_mat, edge_sizes)
+                global_row = self._cloud_reduce(edge_mat, edge_sizes, global_row)
                 loss_host = _mean_loss(chunks)
             else:
                 losses: List[float] = []
                 edge_rows = [global_row] * n
-                for _ in range(self.schedule.edge_per_cloud):
+                for k in range(self.schedule.edge_per_cloud):
+                    self._er = k + 1
                     losses += self._edge_round_host(edge_rows)
-                global_row = self._cloud_mean(torch.stack(edge_rows), edge_sizes)
+                global_row = self._cloud_reduce(torch.stack(edge_rows), edge_sizes, global_row)
                 loss_host = float(np.mean(losses)) if losses else 0.0
             self.accountant.on_cloud_sync(n)
             if self.clock is not None:

@@ -30,6 +30,7 @@ from repro_torch.data.partition import (
 )
 from repro_torch.data.synthetic_health import Dataset, heartbeat_like, seizure_like
 from repro_torch.device import resolve_device
+from repro_torch.faults import FaultSpec, FaultState
 from repro_torch.federated.client import FLClient
 from repro_torch.federated.programs import ClientProgram, CNNProgram, FedSGDProgram, MLPProgram
 from repro_torch.federated.simulation import (
@@ -56,6 +57,10 @@ class Scenario:
     wp: WirelessParams
     model_bits: float
     init_edge: np.ndarray
+    # default fault model (a ``repro_torch.faults.FaultSpec``); None is
+    # fault-free.  Each simulate() call builds a fresh FaultState, so runs
+    # never share energy balances or dispatch counters
+    faults: object = None
 
     @property
     def n_edges(self) -> int:
@@ -96,6 +101,8 @@ class Scenario:
         engine: str = "reference",
         backend: str = "kernel",
         compression=None,
+        staleness_decay: float = 0.5,
+        quorum: float = 0.75,
         pipeline: str = "device",
         distill=None,
         faults=None,
@@ -109,16 +116,30 @@ class Scenario:
         """Run the scenario through one of the simulation engines.
 
         engine:   "reference" — the readable simulator (``HFLSimulation``);
-                  "sync"      — the batched engine, same semantics
-                  (the reference's "async" raises).
+                  "sync"      — the batched engine, same semantics;
+                  "async"     — the event-driven engine
+                  (``AsyncHFLEngine``: ``staleness_decay`` in [0, 1],
+                  ``quorum`` in (0, 1], the scenario's latency matrix as
+                  its clock).
         pipeline: the sync engine's round: "device" (fixed-shape segment
                   kernel programs, shard store) | "host" (per-client jobs,
                   one ``flat_mean`` per edge); the reference's "mesh" raises.
-        backend:  the sync engine's aggregation path, "kernel" (the CUDA
+        backend:  the engines' aggregation path, "kernel" (the CUDA
                   kernels on the card, their plain versions on the CPU) |
                   "reference"; the readable simulator ignores it.
+        compression: None | ``core.compression.CompressionSpec`` ("topk" |
+                  "ternary" | "none") on the uplinks, with error feedback;
+                  the accountant counts the compressed bits.  It overrides
+                  the program's own upload quantization (FedSGD's
+                  ``grad_bits=16``).
+        faults:   a ``repro_torch.faults.FaultSpec`` (churn, energy budgets,
+                  time-varying channels, the async retry policy); None
+                  takes the scenario's default (``build_scenario(faults=)``)
+                  and False forces the fault-free path.  A fresh
+                  ``FaultState`` is built per call.
         track_divergence: the distance to a virtual centralized model
-                  (eq. 17) in each round's ``divergence``.
+                  (eq. 17) in each round's ``divergence`` (not with
+                  ``engine="async"``).
         device:   where the engine runs; "cuda" by default, raising without
                   CUDA unless "cpu" is asked for.
 
@@ -129,14 +150,20 @@ class Scenario:
             raise ValueError(f"unknown engine {engine!r} (reference | sync | async)")
         if pipeline not in ("device", "host", "mesh"):
             raise ValueError(f"unknown pipeline {pipeline!r} (device | host | mesh)")
-        if engine == "async":
-            raise not_ported("engine='async'")
         if pipeline == "mesh":
             raise not_ported("pipeline='mesh'")
         refuse_unported(
-            mesh=mesh, compression=compression, distill=distill, faults=faults,
-            telemetry=telemetry, cohort=cohort, serve=serve, server_momentum=server_momentum,
+            mesh=mesh, distill=distill, telemetry=telemetry, cohort=cohort, serve=serve,
+            server_momentum=server_momentum,
         )
+        spec = self.faults if faults is None else (faults or None)
+        fault_state = None
+        if spec is not None:
+            if not isinstance(spec, FaultSpec):
+                raise TypeError(f"faults must be a repro_torch.faults.FaultSpec, got {type(spec).__name__}")
+            fault_state = FaultState(
+                spec, self.topo, self.wp, self.model_bits, class_counts=self.class_counts, device=device
+            )
         cost_latency = self.cost.latency if wall_clock else None
         if engine == "reference":
             sim = HFLSimulation(
@@ -149,6 +176,30 @@ class Scenario:
                 upp=upp,
                 track_divergence=track_divergence,
                 cost_latency=cost_latency,
+                compression=compression,
+                faults=fault_state,
+                device=device,
+            )
+            return sim.run(cloud_rounds, eval_every=eval_every)
+        if engine == "async":
+            from repro_torch.engine.async_sim import AsyncHFLEngine
+
+            if track_divergence:
+                raise ValueError("engine='async' does not support track_divergence; use engine='reference' or 'sync'")
+            sim = AsyncHFLEngine(
+                self.clients,
+                assignment,
+                self.program,
+                self.test,
+                latency=self.cost.latency,
+                schedule=schedule,
+                seed=seed,
+                upp=upp,
+                staleness_decay=staleness_decay,
+                quorum=quorum,
+                backend=backend,
+                compression=compression,
+                faults=fault_state,
                 device=device,
             )
             return sim.run(cloud_rounds, eval_every=eval_every)
@@ -165,7 +216,9 @@ class Scenario:
             track_divergence=track_divergence,
             cost_latency=cost_latency,
             backend=backend,
+            compression=compression,
             pipeline=pipeline,
+            faults=fault_state,
             device=device,
         )
         return sim.run(cloud_rounds, eval_every=eval_every)
@@ -228,12 +281,14 @@ def build_scenario(
     (optional) is one mapping per EU of ``FLClient`` overrides (``lr`` |
     ``batch_size`` | ``local_epochs`` | ``max_steps``).  The cost matrices
     are evaluated on ``device`` ("cuda" by default; raises without CUDA
-    unless "cpu").  The reference's other workloads (the sequence models
-    and the "lm" dataset, ``model_mix``, ``lazy``, ``faults``) raise
+    unless "cpu").  ``faults`` (a ``repro_torch.faults.FaultSpec``) is the
+    scenario's default fault model, which ``simulate`` applies unless told
+    otherwise.  The reference's other workloads (the sequence models and
+    the "lm" dataset, ``model_mix``, ``lazy``) raise
     ``NotImplementedError``.
     """
     resolve_device(device)
-    refuse_unported(lazy=lazy, model_mix=model_mix, faults=faults)
+    refuse_unported(lazy=lazy, model_mix=model_mix)
     if model in ("lm", "moe", "mamba", "rwkv") or dataset == "lm":
         raise not_ported("model")
     if model not in ("cnn", "mlp"):
@@ -278,4 +333,5 @@ def build_scenario(
         wp=wp,
         model_bits=model_bits,
         init_edge=init_edge,
+        faults=faults,
     )

@@ -38,15 +38,12 @@ from repro_torch.data.synthetic_health import Dataset
 from repro_torch.device import configure_numerics, resolve_device
 from repro_torch.federated.client import FLClient, _local_epoch
 from repro_torch.federated.programs import as_program
-from repro_torch.utils.tree import tree_leaves, tree_map, tree_size_bytes
+from repro_torch.utils.tree import tree_add, tree_leaves, tree_map, tree_size_bytes, tree_sub
 
 # where each reference option not carried by this port is queued (ROADMAP.md)
 QUEUED = {
-    "engine='async'": "Queue 1 item 5, async engine",
     "pipeline='mesh'": "Queue 1 item 12, mesh",
     "mesh": "Queue 1 item 12, mesh",
-    "compression": "Queue 1 item 4, compression",
-    "faults": "Queue 1 item 6, faults",
     "cohort": "Queue 1 item 7, streaming populations",
     "server_momentum": "Queue 1 item 7, streaming populations",
     "lazy": "Queue 1 item 7, streaming populations",
@@ -162,10 +159,16 @@ class HFLSimulation:
     """The readable synchronous simulator over one client program.
 
     ``assignment`` is the (M, N) binary matrix (dual-connectivity rows
-    allowed).  Fault-free and uncompressed: UPP participation (``upp``),
-    DCA starts, per-edge and cloud FedAvg, ``CommAccountant``, a
-    ``WallClock`` when ``cost_latency`` is given, and ``track_divergence``.
-    The reference's ``compression``, ``faults``, ``telemetry``, ``cohort``,
+    allowed).  UPP participation (``upp``), DCA starts, per-edge and cloud
+    FedAvg, ``CommAccountant``, a ``WallClock`` when ``cost_latency`` is
+    given, and ``track_divergence``.  ``compression`` (a
+    ``CompressionSpec``) compresses each upload per leaf with per-EU error
+    feedback and charges ``compression.bits(params)``; it takes precedence
+    over the program's own upload quantization.  ``faults`` (a
+    ``FaultState``) masks churned-out and battery-dead EUs out of a round,
+    drops the uploads ``failed_uploads`` marks (charged as wasted), debits
+    energy, re-repairs the assignment under drift and weighs starved edges
+    0 in the cloud reduce.  The reference's ``telemetry``, ``cohort``,
     ``server_momentum`` and ``serve`` raise ``NotImplementedError`` naming
     their queued item.  ``device``: "cuda" by default, raising without
     CUDA unless "cpu".
@@ -191,10 +194,7 @@ class HFLSimulation:
         serve=None,
         device="cuda",
     ):
-        refuse_unported(
-            compression=compression, faults=faults, telemetry=telemetry, cohort=cohort,
-            server_momentum=server_momentum, serve=serve,
-        )
+        refuse_unported(telemetry=telemetry, cohort=cohort, server_momentum=server_momentum, serve=serve)
         self.device = resolve_device(device)
         configure_numerics(self.device)
         self.clients = clients
@@ -213,8 +213,27 @@ class HFLSimulation:
         model_bits = tree_size_bytes(self.params) * 8
         self.accountant = CommAccountant(model_bits=model_bits)
         self.clock = WallClock(cost_latency) if cost_latency is not None else None
-        # the program's uplink payload (FedSGD gradients; else the model)
-        self._uplink_bits = self.program.uplink_bits(model_bits)
+        self.compression = compression
+        self._comp_errors: dict = {}
+        if compression is not None and compression.kind != "none":
+            self._uplink_bits = compression.bits(self.params)
+        else:
+            # the program's uplink payload (FedSGD gradients; else the model)
+            self._uplink_bits = self.program.uplink_bits(model_bits)
+        self.faults = faults
+        self._round = 0
+        self._er = 0  # edge round within the current cloud round
+        self._edge_got = None  # (N,) edges that received an upload this cloud round
+
+    def _compress_upload(self, cid: int, start, trained):
+        """The spec on the EU's model delta, per leaf, with per-EU error
+        feedback; with no spec, the program's own upload transform (FedSGD's
+        fp16 gradients; the identity otherwise)."""
+        if self.compression is None or self.compression.kind == "none":
+            return self.program.quantize_upload(start, trained)
+        sparse, err = self.compression.apply(tree_sub(trained, start), self._comp_errors.get(cid))
+        self._comp_errors[cid] = err
+        return tree_add(start, sparse)
 
     def _edge_round(self, edge_params: List[dict]) -> List[float]:
         """One edge round: participation draw, every participant's local
@@ -223,6 +242,16 @@ class HFLSimulation:
         participating = self.rng.random(m) < self.upp
         if not participating.any():
             participating[self.rng.integers(0, m)] = True
+        failed = None
+        if self.faults is not None:
+            # churned-out and battery-dead EUs sit the round out; of the
+            # rest, the EUs ``failed_uploads`` marks train but lose their
+            # (single, no-retry) upload.  Keyed fault streams only: the
+            # engine RNG above is untouched.
+            participating &= self.faults.participation(self._round)
+            failed = (
+                self.faults.failed_uploads(self._round, self._er) & participating & self.assignment.any(axis=1)
+            )
         losses = []
         new_models: List[List[dict]] = [[] for _ in range(n)]
         new_sizes: List[List[float]] = [[] for _ in range(n)]
@@ -236,16 +265,28 @@ class HFLSimulation:
             )
             upd, loss = cl.local_update(start, self.rng, epochs=self.schedule.local_steps)
             losses.append(loss)
-            upd = self.program.quantize_upload(start, upd)
+            if failed is not None and failed[i]:
+                continue  # trained, transmitted, lost: no edge averages it
+            upd = self._compress_upload(cl.cid, start, upd)
             for j in edges:
                 new_models[j].append(upd)
                 new_sizes[j].append(cl.data_size)
         for j in range(n):
             if new_models[j]:
                 edge_params[j] = edge_aggregate(new_models[j], new_sizes[j])
-        self.accountant.on_edge_sync(
-            self.assignment * participating[:, None], uplink_bits=self._uplink_bits
-        )
+                if self._edge_got is not None:
+                    self._edge_got[j] = True
+        success = participating if failed is None else participating & ~failed
+        self.accountant.on_edge_sync(self.assignment * success[:, None], uplink_bits=self._uplink_bits)
+        if self.faults is not None:
+            mc = self.accountant.dca_multicast_overhead
+            for i in np.nonzero(failed)[0]:
+                k = int(np.count_nonzero(self.assignment[i]))
+                if k:
+                    self.accountant.on_wasted_upload(
+                        int(i), self._uplink_bits * (1.0 + (mc if k > 1 else 0.0)), kind="dropped"
+                    )
+            self.faults.debit_round(self._round, participating, self.assignment)
         if self.clock is not None:
             self.clock.on_edge_sync(self.assignment, participating)
         return losses
@@ -262,20 +303,47 @@ class HFLSimulation:
             for j in range(self.assignment.shape[1])
         ]
 
+    def _maybe_repair(self, b: int) -> None:
+        """Re-repair the assignment when channel drift invalidated
+        memberships."""
+        if not self.faults.spec.reassign:
+            return
+        new_lam, changed = self.faults.repair(b, self.assignment)
+        if len(changed):
+            self.assignment = new_lam
+
     def run(self, cloud_rounds: int, eval_every: int = 1) -> SimResult:
         n = self.assignment.shape[1]
         history: List[RoundMetrics] = []
         global_params = self.params
-        cloud_weights = [max(s, 1) for s in self._edge_data_sizes()]
+        edge_sizes = self._edge_data_sizes()
         wall_accum = sim_accum = 0.0
         for b in range(1, cloud_rounds + 1):
             t_round = time.perf_counter()
             sim0 = self.clock.seconds if self.clock is not None else 0.0
+            self._round = b
+            if self.faults is not None:
+                self._maybe_repair(b)
+                if self.faults.spec.reassign:
+                    edge_sizes = self._edge_data_sizes()
+                self._edge_got = np.zeros(n, bool)
+                if self.clock is not None:
+                    # the straggler model reads the round's faded channel
+                    self.clock.latency = self.faults.latency(b)
             edge_params = [global_params] * n
             losses: List[float] = []
-            for _ in range(self.schedule.edge_per_cloud):
+            for k in range(self.schedule.edge_per_cloud):
+                self._er = k + 1
                 losses += self._edge_round(edge_params)
-            global_params = cloud_aggregate(edge_params, cloud_weights)
+            if self.faults is not None:
+                # degraded reduce: an edge that received no upload all cloud
+                # round holds the stale global model and weighs 0; when every
+                # edge starved, the global model stands
+                w = [s if self._edge_got[j] else 0.0 for j, s in enumerate(edge_sizes)]
+                if any(w):
+                    global_params = cloud_aggregate(edge_params, w)
+            else:
+                global_params = cloud_aggregate(edge_params, [max(s, 1) for s in edge_sizes])
             self.accountant.on_cloud_sync(n)
             if self.clock is not None:
                 self.clock.on_cloud_sync()

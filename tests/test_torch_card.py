@@ -309,6 +309,124 @@ def test_programs_on_card_match_cpu(cuda, workload, pipeline):
     _card_matches_cpu(*runs, len(sc.test))
 
 
+def _true_dual_homed(m, n):
+    """Every EU on edge i % n, the first half also on edge (i + 1) % n."""
+    asn = np.zeros((m, n))
+    asn[np.arange(m), np.arange(m) % n] = 1.0
+    half = np.arange(m // 2)
+    asn[half, (half + 1) % n] = 1.0
+    return asn
+
+
+@pytest.mark.parametrize("kind,quorum,decay", [("sca", 1.0, 1.0), ("sca", 0.75, 0.5), ("dca", 0.75, 0.5)])
+def test_async_on_card_matches_cpu(cuda, kind, quorum, decay):
+    """The async engine on the card against the CPU on one latency array:
+    the same event sequence, so the same flushes; every weighted average it
+    counts (flushes, DCA starts, cloud reduces) is one ``hier_aggregate``
+    launch, and the segment kernel never runs."""
+    from repro_torch.core import HFLSchedule
+    from repro_torch.engine import AsyncHFLEngine
+    from repro_torch.federated import build_scenario
+
+    sc = build_scenario("heartbeat", scale=0.02, seed=0, n_test_per_class=20, device="cpu")
+    lam = sc.assign("eara-sca", device="cpu").lam if kind == "sca" else _true_dual_homed(len(sc.clients), sc.n_edges)
+    runs, engines = [], []
+    for d in ("cuda", "cpu"):
+        eng = AsyncHFLEngine(sc.clients, lam, sc.program, sc.test, latency=sc.cost.latency,
+                             schedule=HFLSchedule(1, 2), seed=1, quorum=quorum, staleness_decay=decay, device=d)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        runs.append(eng.run(2))
+        torch.cuda.synchronize()
+        engines.append((eng, launch_counts()))
+    (card_eng, card_counts), (cpu_eng, cpu_counts) = engines
+    assert card_counts["hier_aggregate"] == sum(card_eng.aggregates.values()) > 0
+    assert card_counts["hier_segment_aggregate"] == 0
+    assert not any(cpu_counts.values())
+    assert card_eng.aggregates == cpu_eng.aggregates and card_eng.flush_rows == cpu_eng.flush_rows
+    assert card_eng.weight_uploads == card_eng.aggregates["flush"] + 1
+    if kind == "dca":
+        assert card_eng.aggregates["dca_start"] > 0
+    _card_matches_cpu(*runs, len(sc.test))
+    assert runs[0].wall_seconds == runs[1].wall_seconds
+
+
+def test_topk_compression_on_card_equals_cpu_under_ties(cuda):
+    """Top-k on the card keeps exactly the CPU's entries when magnitudes
+    tie at the cutoff (a stable sort on CUDA too), row by row and batched;
+    ternarization agrees to 1e-6."""
+    from repro_torch.core import CompressionSpec
+    from repro_torch.engine.flatten import compress_flat_rows
+
+    rng = np.random.default_rng(0)
+    base = np.round(rng.standard_normal((6, 25141)) * 3).astype(np.float32) / 8  # many ties
+    for kind, tol in (("topk", 0.0), ("ternary", 1e-6)):
+        spec = CompressionSpec(kind, fraction=0.05)
+        outs = []
+        for d in ("cuda", "cpu"):
+            starts = torch.zeros((6, 25141), device=d)
+            errors = {}
+            first = compress_flat_rows(spec, errors, list(range(6)), starts, torch.tensor(base, device=d))
+            second = compress_flat_rows(spec, errors, list(range(6)), starts, torch.tensor(base[::-1].copy(), device=d))
+            outs.append([first.cpu(), second.cpu()] + [errors[c].cpu() for c in range(6)])
+        for a, b in zip(*outs):
+            if kind == "topk":
+                assert torch.equal(a, b)
+            else:
+                assert float((a - b).abs().max()) <= tol
+        if kind == "topk":
+            k = int(np.ceil(25141 * 0.05))
+            assert bool(((outs[0][0] != 0).sum(dim=1) == k).all())
+
+
+def test_sync_device_pipeline_under_faults_on_card(cuda, monkeypatch):
+    """The chaos spec on the device pipeline, card against CPU.  The cloud
+    weights go to the card once per run; each cloud round's degraded reduce
+    (starved edges at weight 0 through the device mask) runs under
+    sync-debug mode "error" and uploads nothing."""
+    from repro_torch.engine import BatchedSyncEngine
+    from repro_torch.faults import FaultSpec
+    from repro_torch.federated import build_scenario
+
+    sc = build_scenario("heartbeat", scale=0.02, seed=0, n_test_per_class=20, device="cpu")
+    lam = sc.assign("eara-sca", device="cpu").lam
+    spec = FaultSpec(seed=3, p_drop=0.25, p_rejoin=0.5, p_fail=0.2, max_retries=2, backoff_s=0.1,
+                     energy_uploads=6.0, refade_rounds=1, drift_rate=0.05)
+    real_reduce, real_weights = BatchedSyncEngine._cloud_reduce, BatchedSyncEngine._cloud_weights
+    reduces, uploads = [], []
+
+    def reduce_without_sync(self, edge_mat, edge_sizes, global_row):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real_reduce(self, edge_mat, edge_sizes, global_row)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        reduces.append(edge_sizes.device)
+        return out
+
+    def counted_weights(self):
+        uploads.append(1)
+        return real_weights(self)
+
+    hier_aggregate(torch.ones((2, 8), device=cuda), torch.ones(2, device=cuda))  # builds the library first
+    monkeypatch.setattr(BatchedSyncEngine, "_cloud_reduce", reduce_without_sync)
+    monkeypatch.setattr(BatchedSyncEngine, "_cloud_weights", counted_weights)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    card = sc.simulate(lam, cloud_rounds=3, seed=0, engine="sync", faults=spec, device="cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert len(reduces) == 3 and all(d.type == "cuda" for d in reduces) and len(uploads) == 1
+    # one segment launch per edge round with a participant, one aggregate
+    # launch per cloud round whose hierarchy did not starve
+    assert 0 < counts["hier_segment_aggregate"] <= 3 and 0 < counts["hier_aggregate"] <= 3
+    monkeypatch.undo()
+    cpu = sc.simulate(lam, cloud_rounds=3, seed=0, engine="sync", faults=spec, device="cpu")
+    _card_matches_cpu(card, cpu, len(sc.test))
+    assert card.accountant.totals()["dropped_uploads"] > 0
+
+
 VARIANT = {"float32": "simt", "bfloat16": "wgmma"}
 
 

@@ -169,11 +169,8 @@ def test_cloud_weights_go_to_the_device_once_per_run(pair, lam, backend, monkeyp
 @pytest.mark.parametrize(
     "kw",
     [
-        {"engine": "async"},
         {"pipeline": "mesh"},
         {"mesh": 4},
-        {"compression": object()},
-        {"faults": object()},
         {"telemetry": True},
         {"cohort": object()},
         {"serve": object()},
@@ -186,6 +183,14 @@ def test_unported_options_raise(pair, lam, kw):
     _, sc = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sc.simulate(lam, cloud_rounds=1, device="cpu", **kw)
+
+
+def test_faults_must_be_a_fault_spec(pair, lam):
+    """As in the reference: ``faults=`` takes a ``FaultSpec`` (or None /
+    False), anything else raises ``TypeError``."""
+    _, sc = pair
+    with pytest.raises(TypeError, match="FaultSpec"):
+        sc.simulate(lam, cloud_rounds=1, device="cpu", faults=object())
 
 
 @pytest.mark.parametrize(

@@ -55,7 +55,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     """No silent fallback: without CUDA, every entry point that defaults to
     the card raises and names the argument; device="cpu" runs."""
     from repro_torch.device import resolve_device
-    from repro_torch.engine import BatchedSyncEngine
+    from repro_torch.engine import AsyncHFLEngine, BatchedSyncEngine
+    from repro_torch.faults import FaultSpec, FaultState
     from repro_torch.federated import HFLSimulation, build_scenario, centralized_baseline
     from repro_torch.federated.simulation import central_reference_step, pooled_dataset
 
@@ -74,6 +75,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         BatchedSyncEngine(sc.clients, lam, sc.program, sc.test)
     with pytest.raises(RuntimeError, match="device="):
         HFLSimulation(sc.clients, lam, sc.program, sc.test)
+    with pytest.raises(RuntimeError, match="device="):
+        AsyncHFLEngine(sc.clients, lam, sc.program, sc.test, latency=sc.cost.latency)
+    with pytest.raises(RuntimeError, match="device="):
+        FaultState(FaultSpec(energy_uploads=2.0), sc.topo, sc.wp, sc.model_bits)  # prices round 1 on the card
     with pytest.raises(RuntimeError, match="device="):
         centralized_baseline(sc.clients, sc.program, sc.test, rounds=1)
     with pytest.raises(RuntimeError, match="device="):

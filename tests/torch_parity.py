@@ -5,6 +5,12 @@ cannot repeat; ``reference_inits`` makes the port's programs return the
 reference's draw for the same seed (the engines seed their
 ``torch.Generator`` with the run's seed, as the reference seeds its
 ``PRNGKey``), carried across as numpy arrays.
+
+The fault layer's cost matrices are float32 in both packages, from XLA and
+from PyTorch, and may differ in the last bits; ``reference_costs`` makes the
+port's ``FaultState.cost`` return the reference's matrices for the same
+round, so that an energy or latency threshold cannot flip between the two
+runs of a parity test.  Their agreement is held on its own, at rtol 1e-5.
 """
 import contextlib
 import dataclasses
@@ -13,8 +19,12 @@ import jax
 import numpy as np
 import pytest
 
+from repro.core.compression import CompressionSpec as RefCompressionSpec
 from repro.data.synthetic_health import Dataset as RefDataset
+from repro.engine.async_sim import AsyncHFLEngine as RefAsyncHFLEngine
 from repro.engine.sync_sim import BatchedSyncEngine as RefBatchedSyncEngine
+from repro.faults import FaultSpec as RefFaultSpec
+from repro.faults import FaultState as RefFaultState
 from repro.federated.client import FLClient as RefFLClient
 from repro.federated.programs import CNNProgram as RefCNNProgram
 from repro.federated.programs import FedSGDProgram as RefFedSGDProgram
@@ -23,8 +33,12 @@ from repro.federated.simulation import HFLSimulation as RefHFLSimulation
 from repro.federated.simulation import centralized_baseline as ref_centralized_baseline
 from repro.models.cnn1d import CNNConfig as RefCNNConfig
 from repro.utils.tree import tree_ravel as ref_tree_ravel
+from repro.wireless.channel import Topology as RefTopology
+from repro.wireless.channel import WirelessParams as RefWirelessParams
+from repro.wireless.channel import build_cost_matrices as ref_build_cost_matrices
 from repro_torch.convert import params_from_numpy
 from repro_torch.engine.flatten import FlatPack
+from repro_torch.faults import FaultState
 from repro_torch.federated.programs import CNNProgram, FedSGDProgram, MLPProgram
 
 
@@ -39,9 +53,12 @@ def reference_program(program):
 
 
 class ReferencePopulation:
-    """A port scenario's clients, program and test set rebuilt in the
-    reference package (the same numpy shards), to run the reference's
-    engines on the port's inputs without building its scenario."""
+    """A port scenario's clients, program, test set and topology rebuilt in
+    the reference package (the same numpy shards and arrays), to run the
+    reference's engines on the port's inputs without building its
+    scenario.  ``cost`` is the reference's cost model of the port's
+    topology: give the port the same latency with
+    ``dataclasses.replace(sc, cost=ref.cost)``."""
 
     def __init__(self, sc):
         self.program = reference_program(sc.program)
@@ -53,11 +70,32 @@ class ReferencePopulation:
         ]
         self.test = RefDataset(sc.test.x, sc.test.y, sc.test.n_classes)
         self.n_edges = sc.n_edges
+        self.topo = RefTopology(**{f.name: getattr(sc.topo, f.name) for f in dataclasses.fields(sc.topo)})
+        self.wp = RefWirelessParams(**dataclasses.asdict(sc.wp))
+        self.model_bits = sc.model_bits
+        self.class_counts = sc.class_counts
+        self.cost = ref_build_cost_matrices(self.topo, sc.model_bits, self.wp)
 
-    def simulate(self, lam, cloud_rounds, engine="reference", pipeline="device", **kw):
-        """The reference's ``HFLSimulation`` or ``BatchedSyncEngine`` run."""
+    def fault_state(self, spec):
+        """The reference's ``FaultState`` for a port ``FaultSpec``, on the
+        port scenario's topology."""
+        return RefFaultState(
+            RefFaultSpec(**dataclasses.asdict(spec)), self.topo, self.wp, self.model_bits,
+            class_counts=self.class_counts,
+        )
+
+    def simulate(self, lam, cloud_rounds, engine="reference", pipeline="device", compression=None, faults=None, **kw):
+        """The reference's ``HFLSimulation``, ``BatchedSyncEngine`` or
+        ``AsyncHFLEngine`` run (the async engine takes ``latency=``), given
+        the port's ``CompressionSpec`` and ``FaultSpec``."""
+        if compression is not None:
+            kw["compression"] = RefCompressionSpec(**dataclasses.asdict(compression))
+        if faults is not None:
+            kw["faults"] = self.fault_state(faults)
         if engine == "reference":
             sim = RefHFLSimulation(self.clients, lam, self.program, self.test, **kw)
+        elif engine == "async":
+            sim = RefAsyncHFLEngine(self.clients, lam, self.program, self.test, **kw)
         else:
             sim = RefBatchedSyncEngine(self.clients, lam, self.program, self.test, pipeline=pipeline, **kw)
         return sim.run(cloud_rounds)
@@ -78,6 +116,23 @@ def reference_inits():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(CNNProgram, "init", _ref_init)
         mp.setattr(MLPProgram, "init", _ref_init)
+        yield
+
+
+@contextlib.contextmanager
+def reference_costs(ref: ReferencePopulation):
+    """Within the block, the port's ``FaultState.cost(b)`` returns the
+    reference's cost matrices of ``ref``'s topology at round ``b``'s fading
+    (which both packages draw byte-equal), energy budgets included."""
+
+    def cost(self, b):
+        if b not in self._cost:
+            topo_b = dataclasses.replace(ref.topo, fading_mag2=self.fading(b))
+            self._cost[b] = ref_build_cost_matrices(topo_b, self.model_bits, ref.wp)
+        return self._cost[b]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(FaultState, "cost", cost)
         yield
 
 
