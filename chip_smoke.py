@@ -26,7 +26,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    most EUs on one edge under EARA-SCA) and at each async flush size (N 1-6)
    (fp32 1e-5, bf16 2e-2; zero
    total weight writes zeros), the segment kernel also with ids outside
-   [0, E) (which belong to no segment on the card), both wrappers' whole
+   [0, E) (which belong to no segment on the card), both at the streaming
+   engine's shapes (a cohort of N 256 into E 8; the cloud reduce at N 8),
+   both wrappers' whole
    calls (the card's time per call back to back, the device operations
    one call queues and their device time, the host time) and a run under
    ``torch.cuda.set_sync_debug_mode("error")``;
@@ -40,8 +42,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    tokens, k 8, at the granite-moe router width (E 40) and at E 128 and
    1000, beside softmax -> topk -> scatter -> divide as a yardstick;
 4. card against CPU: the heartbeat sync engine (scale 0.02, two cloud
-   rounds), and the qwen3-14b smoke config served with the same parameters
-   (prefill logits 1e-4, identical greedy tokens);
+   rounds), the streaming engine (a lazy population of 120 over 4 edges, a
+   cohort of 24, two rounds), and the qwen3-14b smoke config served with
+   the same parameters (prefill logits 1e-4, identical greedy tokens);
 5. the heartbeat path at full size: ``build_scenario("heartbeat")`` and
    ``assign("eara-sca")`` (built before phase 3), ``simulate(engine="sync",
    pipeline="device", cloud_rounds=5)``, then one cloud round under
@@ -73,6 +76,21 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    fault spec of ``tests/test_faults.py`` for 2 rounds on every engine (the
    simulator and both sync pipelines with identical accuracy and equal
    accountant totals, async with retried uploads);
+6d. streaming populations at full width: ``build_scenario("heartbeat",
+   lazy=True, n_eus=1_000_000, n_edges=8)`` (build seconds), one warm-up
+   round, then 3 cloud rounds of ``StreamSyncEngine`` with
+   ``CohortSpec(size=256, seed=0)`` (seconds per round, clients per
+   second, page hits, misses and evictions, the paged store's device bytes,
+   peak device memory above the run's baseline; launch counts zeroed just
+   before and read just after: one segment and one ``hier_aggregate``
+   launch a round), one more round timed for its paging seconds and one
+   under ``torch.profiler`` (the card's busy share); the same
+   at 100,000 clients (peak memory at 1M within 1.10x of it); the 1M run
+   with ``page_slots=256`` (evictions, bit-identical result); at 2,048
+   clients the stream engine against the sync device pipeline with
+   ``cohort=`` on the materialized population (accuracy within 2 test
+   samples, parameters within 1e-4, equal accounting); one sync-device
+   round with ``server_momentum=0.9`` and ``cohort=``;
 7. serve exactness on the card at qwen3-14b widths cut to 2 layers in
    fp32: a uniform batch gives the same tokens with ``use_flash`` on and
    off, and a ragged batch the same tokens as its requests served alone
@@ -130,6 +148,10 @@ HEARTBEAT_KERNELS = ("hier_segment_aggregate", "hier_aggregate")
 # the async engine's flush sizes at heartbeat scale (anchor + up to 5 of an
 # edge's reporters), timed in phase 3 beside the cloud reduce's N 5
 ASYNC_FLUSH_NS = (1, 2, 3, 4, 5, 6)
+# the streaming engine at full size (phase 6d): a cohort of 256 a round over
+# 8 edges, so its edge FedAvg is one segment launch of N 256 into E 8 and
+# its cloud reduce one hier_aggregate launch of N 8
+STREAM_COHORT, STREAM_EDGES = 256, 8
 # measured numbers a kernel record carries where its phase took them
 _EXTRA_KEYS = ("tflops", "library_kernel", "library_fused_ms", "library_fused_err", "library_fused_kernel",
                "wrapper_host_ms", "wrapper_ms", "wrapper_device_ops", "wrapper_busy_ms", "floor_ms", "floor_kind",
@@ -318,9 +340,12 @@ def _kernel_phase(rate: float, d_model: int, host_n: int) -> dict:
     sca = rng.permutation(np.repeat(np.arange(5), [3, 4, 5, 3, 3]))
     # DCA starts: 21 pairs with segments = the 18 clients, 3 dual-homed
     dca = np.sort(np.concatenate([np.arange(18), [2, 7, 11]]))
+    # the streaming engine's edge FedAvg: a cohort of 256 rows into 8 edges
+    stream_ids = rng.integers(0, STREAM_EDGES, STREAM_COHORT)
     seg_cases = [
         ("edge FedAvg (SCA)", sca, 5, d_model, "main"),
         ("DCA starts", dca, 18, d_model, "timed"),
+        ("stream edge FedAvg", stream_ids, STREAM_EDGES, d_model, "stream"),
         ("ragged", np.array([0, 0, 0, 1, 3, 3, 3, 3, 4]), 5, 257, None),
         ("one segment", np.zeros(9, int), 1, 1000, None),
         ("own segment + empty", np.arange(9), 10, 1000, None),
@@ -363,6 +388,8 @@ def _kernel_phase(rate: float, d_model: int, host_n: int) -> dict:
                     t.update(floor)
                     t.update(_wrapper_work(lambda: hier_segment_aggregate(x, seg, w, e)))
                     result["seg"].update(t)
+                elif timed == "stream":
+                    result["seg"]["stream"] = {"N": n, "E": e, "D": d, "max_abs_err": err, **t}
                 line += " " + _fmt(t)
             print(line, flush=True)
     # ids outside [0, E) belong to no segment on the card: the same result as
@@ -380,7 +407,8 @@ def _kernel_phase(rate: float, d_model: int, host_n: int) -> dict:
               f"max_abs_err={err:.3g}", flush=True)
     flush_ns = [(n, d_model, "async flush") for n in ASYNC_FLUSH_NS if n not in (5, host_n)]
     for n, d, timed in ((5, d_model, "cloud reduce"), (host_n, d_model, "host edge FedAvg"), *flush_ns,
-                        (4, 1000, None), (8, d_model, None), (9, d_model, None), (13, d_model, None),
+                        (STREAM_EDGES, d_model, "stream cloud reduce"),
+                        (4, 1000, None), (9, d_model, None), (13, d_model, None),
                         (18, d_model, None), (32, 512, None), (40, 1000, None)):
         for dtype in (torch.float32, torch.bfloat16):
             tol = TOL[str(dtype).split(".")[1]]
@@ -411,6 +439,8 @@ def _kernel_phase(rate: float, d_model: int, host_n: int) -> dict:
                     result["agg"].update(t)
                 elif timed == "host edge FedAvg":
                     result["agg"]["host_edge"] = {"N": n, "D": d, **t}
+                elif timed == "stream cloud reduce":
+                    result["agg"]["stream"] = {"N": n, "D": d, "max_abs_err": err, **t}
                 if timed in ("cloud reduce", "host edge FedAvg") or n in ASYNC_FLUSH_NS:
                     by_n = result["agg"].setdefault("by_n", {})
                     by_n[n] = {"N": n, "D": d, **{k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
@@ -443,6 +473,25 @@ def _card_vs_cpu() -> None:
     print(f"card-vs-cpu max |param diff| {diff:.3g}", flush=True)
     _require(diff <= 5e-3, "card and CPU parameters disagree")
     _require(gpu.accountant.totals() == cpu.accountant.totals(), "card and CPU accounting disagree")
+
+
+def _stream_card_vs_cpu() -> None:
+    """Phase 4: ``StreamSyncEngine`` on the card against the CPU, same
+    initial parameters: M 120 over 4 edges, a cohort of 24, 2 rounds."""
+    from repro_torch.federated import CohortSpec, build_scenario
+
+    sc = build_scenario("heartbeat", lazy=True, n_eus=120, n_edges=4, seed=3, n_test_per_class=20, device="cpu")
+    runs = [sc.simulate(CohortSpec(size=24, seed=9), cloud_rounds=2, seed=0, device=d) for d in ("cuda", "cpu")]
+    one_sample = 1.0 / len(sc.test)
+    for a, b in zip(*(r.history for r in runs)):
+        print(f"card-vs-cpu stream round {a.cloud_round}: acc {a.test_acc:.6f} vs {b.test_acc:.6f}, "
+              f"loss {a.mean_local_loss:.6f} vs {b.mean_local_loss:.6f}", flush=True)
+        _require(abs(a.test_acc - b.test_acc) <= one_sample + 1e-6, "stream: card and CPU accuracy disagree")
+        _require(abs(a.mean_local_loss - b.mean_local_loss) <= 5e-3, "stream: card and CPU loss disagree")
+    diff = float((_flat_row(runs[0].final_params).cpu() - _flat_row(runs[1].final_params)).abs().max())
+    print(f"card-vs-cpu stream max |param diff| {diff:.3g}", flush=True)
+    _require(diff <= 5e-3, "stream: card and CPU parameters disagree")
+    _require(runs[0].accountant.totals() == runs[1].accountant.totals(), "stream: card and CPU accounting disagree")
 
 
 def _heartbeat_scenario():
@@ -750,6 +799,143 @@ def _async_phase(sc, sca_lam) -> dict:
     _require(totals["async"]["retried_uploads"] > 0, "chaos: the async engine retried nothing")
     for label in ("sync-host", "sync-device"):
         _agree(f"chaos {label} vs reference", runs[label], runs["reference"], 0.0)
+    return out
+
+
+def _stream_run(sc, label: str, rounds: int, **kw):
+    """A fresh ``StreamSyncEngine`` over ``sc`` for ``rounds`` cloud rounds
+    of a cohort of ``STREAM_COHORT`` (seed 0), launch counts and peak
+    memory reset just before it is built and read just after it ran.  The
+    peak returned is the run's own: ``max_memory_allocated`` less what was
+    allocated when the peak was reset (earlier phases' tensors)."""
+    import torch
+
+    from repro_torch.engine import StreamSyncEngine
+    from repro_torch.federated import CohortSpec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eng = StreamSyncEngine(sc.source, sc.edge_of, sc.program, sc.test, cohort=CohortSpec(size=STREAM_COHORT, seed=0),
+                           n_edges=sc.n_edges, **kw)
+    res = eng.run(rounds)
+    torch.cuda.synchronize()
+    counts, peak = launch_counts(), torch.cuda.max_memory_allocated() - base
+    st = eng.store
+    for h in res.history:
+        print(f"stream: {label} round {h.cloud_round} acc {h.test_acc:.6f} loss {h.mean_local_loss:.6f} "
+              f"seconds {h.wall_seconds:.4f} clients/s {STREAM_COHORT / h.wall_seconds:.1f}", flush=True)
+    print(f"stream: {label} pages hits {st.hits} misses {st.misses} evictions {st.evictions} "
+          f"device_bytes {st.device_bytes} peak memory above the {base}-byte baseline {peak} "
+          f"launches {json.dumps(counts)}", flush=True)
+    for leaf in _leaves(res.final_params):
+        _require(bool(torch.isfinite(leaf).all()), f"stream {label}: non-finite parameters")
+    return res, eng, counts, peak
+
+
+def _stream_profile(eng) -> None:
+    """Where a streaming round goes: one more round of ``eng`` timed, with
+    the host's seconds in ``store.ensure`` (shard synthesis and the miss
+    batch's upload), then one under ``torch.profiler`` (the card's busy
+    share and its top kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    real, spent = eng.store.ensure, [0.0]
+
+    def timed_ensure(cids):
+        t0 = time.perf_counter()
+        out = real(cids)
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    eng.store.ensure = timed_ensure
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(1)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    print(f"stream: profile round: paging (store.ensure) {spent[0]:.4f}s of {plain_wall:.4f}s", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng.store.ensure = real
+    _report_profile(prof, plain_wall, wall, "stream: profile round")
+
+
+def _stream_phase() -> dict:
+    """Phase 6d: streaming populations at full size.  The lazy heartbeat
+    population of 1,000,000 clients over 8 edges: one warm-up round, then 3
+    cloud rounds of a cohort of 256 (one segment and one ``hier_aggregate``
+    launch a round at ``HFLSchedule(1, 1)``); the same at 100,000 clients,
+    whose peak device memory the 1M run must hold within 1.10x; the 1M run
+    again with ``page_slots`` = the cohort (heavy eviction, bit-identical
+    result); at 2,048 clients the stream engine against the sync device
+    pipeline with ``cohort=`` on the materialized population (accuracy
+    within 2 test samples, parameters within 1e-4); one sync-device round
+    with ``server_momentum=0.9`` and ``cohort=``."""
+    import torch
+
+    from repro_torch.engine import BatchedSyncEngine
+    from repro_torch.federated import CohortSpec, build_scenario
+
+    out = {}
+    peaks = {}
+    for m in (1_000_000, 100_000):
+        t0 = time.perf_counter()
+        sc = build_scenario("heartbeat", lazy=True, n_eus=m, n_edges=STREAM_EDGES)
+        build_s = time.perf_counter() - t0
+        print(f"stream: build_scenario lazy n_eus={m} n_edges={STREAM_EDGES}: {build_s:.3f}s, "
+              f"kld {sc.kld_total():.6g}, samples {int(sc.source.sizes.sum())}", flush=True)
+        if m == 1_000_000:
+            _stream_run(sc, f"M={m} warm-up", 1)
+        res, eng, counts, peaks[m] = _stream_run(sc, f"M={m}", 3)
+        _require(counts["hier_segment_aggregate"] == 3 and counts["hier_aggregate"] == 3,
+                 f"stream M={m}: launches {counts}, expected 1 segment and 1 hier_aggregate a round")
+        rec = {"M": m, "build_s": build_s, "seconds_per_round": [h.wall_seconds for h in res.history],
+               "hits": eng.store.hits, "misses": eng.store.misses, "evictions": eng.store.evictions,
+               "device_bytes": eng.store.device_bytes, "peak_memory": peaks[m],
+               "acc": [h.test_acc for h in res.history],
+               "launches_per_round": {k: v / len(res.history) for k, v in counts.items()}}
+        out[m] = rec
+        if m == 1_000_000:
+            _stream_profile(eng)
+            small, small_eng, _, _ = _stream_run(sc, f"M={m} page_slots={STREAM_COHORT}", 3, page_slots=STREAM_COHORT)
+            _require(small_eng.store.evictions > 0, "stream: page_slots = cohort evicted nothing")
+            _require([h.test_acc for h in small.history] == [h.test_acc for h in res.history]
+                     and torch.equal(_flat_row(small.final_params), _flat_row(res.final_params)),
+                     "stream: the page_slots = cohort run is not bit-identical to the default run")
+            rec["evictions_at_cohort_slots"] = small_eng.store.evictions
+    ratio = peaks[1_000_000] / peaks[100_000]
+    print(f"stream: peak device memory 1M / 100k = {ratio:.4f}", flush=True)
+    _require(ratio <= 1.10, f"stream: peak device memory at 1M is {ratio:.4f}x the 100k run's")
+    out["peak_ratio"] = ratio
+
+    sc = build_scenario("heartbeat", lazy=True, n_eus=2048, n_edges=STREAM_EDGES)
+    stream, _, _, _ = _stream_run(sc, "M=2048", 2)
+    clients, lam = list(sc.clients()), sc.assignment_matrix()
+    spec = CohortSpec(size=STREAM_COHORT, seed=0)
+    sync = BatchedSyncEngine(clients, lam, sc.program, sc.test, cohort=spec).run(2)
+    acc_tol = 2.0 / len(sc.test)
+    for a, b in zip(stream.history, sync.history):
+        print(f"stream: M=2048 round {a.cloud_round} stream acc {a.test_acc:.6f} sync-device acc {b.test_acc:.6f}",
+              flush=True)
+        _require(abs(a.test_acc - b.test_acc) <= acc_tol + 1e-6, "stream vs sync-device: accuracy differs")
+    diff = float((_flat_row(stream.final_params) - _flat_row(sync.final_params)).abs().max())
+    print(f"stream: M=2048 stream vs sync-device max |param diff| {diff:.3g}", flush=True)
+    _require(diff <= 1e-4, f"stream vs sync-device: parameters differ by {diff}")
+    _require(stream.accountant.totals() == sync.accountant.totals(), "stream vs sync-device: accounting differs")
+    out["stream_vs_sync_param_diff"] = diff
+    mom = BatchedSyncEngine(clients, lam, sc.program, sc.test, cohort=spec, server_momentum=0.9).run(1)
+    h = mom.history[-1]
+    print(f"stream: sync-device server_momentum=0.9 cohort=256 round 1 acc {h.test_acc:.6f} "
+          f"loss {h.mean_local_loss:.6f}", flush=True)
+    for leaf in _leaves(mom.final_params):
+        _require(bool(torch.isfinite(leaf).all()), "sync-device with server momentum: non-finite parameters")
     return out
 
 
@@ -1275,11 +1461,13 @@ def main(argv) -> int:
     kern["flash"] = _flash_phase(rates)
     kern["topk"] = _topk_phase(rates[0], kern["floor"])
     _card_vs_cpu()
+    _stream_card_vs_cpu()
     _serve_card_vs_cpu()
     counts = _main_path(sc, sca_lam)
     _profile_round(sc, sca_lam)
     host_launches = _engines_phase(sc, sca_lam)
     async_run = _async_phase(sc, sca_lam)
+    stream_run = _stream_phase()
     exact_variants = _serve_exactness()
     serve_counts, serve_variants = _serve_path()
     flash = kern["flash"]
@@ -1301,6 +1489,10 @@ def main(argv) -> int:
         }
         if variant:
             entry["variant"] = variant
+        if fn_name in HEARTBEAT_KERNELS:  # the streaming engine (phase 6d): shape timed in phase 3, launches a round
+            big = stream_run[1_000_000]
+            entry["stream"] = {**k["stream"], "launches_per_round": big["launches_per_round"][fn_name],
+                               "seconds_per_round_1M": big["seconds_per_round"]}
         if fn_name == "hier_aggregate":  # phases 6b (host pipeline) and 6c (async), beside phase 5's count
             entry["launches_host_pipeline"] = host_launches
             entry["launches_async_2_rounds"] = async_run["launches_2_rounds"]

@@ -17,7 +17,7 @@ from typing import Dict, Sequence
 
 import numpy as np
 
-from repro_torch.utils.tree import tree_l2_norm, tree_sub, tree_weighted_mean
+from repro_torch.utils.tree import tree_add, tree_l2_norm, tree_map, tree_sub, tree_weighted_mean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +55,30 @@ def weight_divergence(w_f, w_c) -> float:
     return float(tree_l2_norm(tree_sub(w_f, w_c)))
 
 
+class ServerMomentum:
+    """Cloud momentum on the aggregated delta, in delta form:
+    ``v <- mu * v + (new - old)``, then ``old + v``, over a parameter tree
+    or a flat row.  With FedSGD's single-step clients this is centralized
+    SGD with momentum on the aggregated gradient.  A model that stood
+    (``new is old``: every edge starved all cloud round under faults)
+    skips the update rather than decaying ``v`` with a zero delta, as in
+    the reference.  ``mu = 0`` returns ``new`` untouched."""
+
+    def __init__(self, mu: float):
+        self.mu = float(mu)
+        self.velocity = None
+
+    def __call__(self, old, new):
+        if not self.mu or new is old:
+            return new
+        delta = tree_sub(new, old)
+        if self.velocity is None:
+            self.velocity = delta
+        else:
+            self.velocity = tree_map(lambda v, d: self.mu * v + d, self.velocity, delta)
+        return tree_add(old, self.velocity)
+
+
 @dataclasses.dataclass
 class CommAccountant:
     """Counts rounds and bits as the paper's Figs. 5-6 do.
@@ -88,9 +112,12 @@ class CommAccountant:
         uplink_bits: "float | None" = None,
         downlink_bits: "float | None" = None,
         count_round: bool = True,
+        row_ids: "np.ndarray | None" = None,
     ) -> None:
         """One synchronous edge round over the (M, N) assignment rows of the
-        EUs that took part (a zero row charges nothing)."""
+        EUs that took part (a zero row charges nothing).  ``row_ids`` maps
+        the rows to client ids: the streaming engine charges a compact
+        (cohort, N) matrix, not the (M, N) population matrix."""
         if count_round:
             self.edge_rounds += 1
         payload = self.model_bits if uplink_bits is None else uplink_bits
@@ -101,8 +128,9 @@ class CommAccountant:
                 continue
             up = payload * (1.0 + (self.dca_multicast_overhead if len(edges) > 1 else 0.0))
             down = down_payload * len(edges)
-            self.eu_bits_up[i] = self.eu_bits_up.get(i, 0.0) + up
-            self.eu_bits_down[i] = self.eu_bits_down.get(i, 0.0) + down
+            key = i if row_ids is None else int(row_ids[i])
+            self.eu_bits_up[key] = self.eu_bits_up.get(key, 0.0) + up
+            self.eu_bits_down[key] = self.eu_bits_down.get(key, 0.0) + down
 
     def on_eu_exchange(self, i: int, up_bits: float = 0.0, down_bits: float = 0.0) -> None:
         """One EU<->edge exchange (the async engine's uploads and dispatches

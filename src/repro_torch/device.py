@@ -7,6 +7,7 @@ check) ask for it with ``device="cpu"``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -43,3 +44,16 @@ def configure_numerics(device: torch.device) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def upload(array, device: torch.device) -> torch.Tensor:
+    """A host numpy array as a tensor on ``device``, without making the host
+    wait for the card: on CUDA the array is staged in pinned memory and
+    copied asynchronously on the current stream (PyTorch's caching host
+    allocator holds the staging buffer until the copy has run), so no
+    upload makes the host wait for the kernels queued before it.  On the
+    CPU it is the array's own memory."""
+    t = torch.as_tensor(np.ascontiguousarray(array))
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

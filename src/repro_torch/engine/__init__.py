@@ -9,11 +9,15 @@ module                role
                       contraction (``backend="reference"``)
 ``store``             ``DeviceShardStore`` — all client shards padded into
                       one (M, n_max, L, Ch) device tensor; cohort batches
-                      gathered on the device from sample indices
+                      gathered on the device from sample indices;
+                      ``PagedShardStore`` — the streaming variant, a
+                      fixed slab of LRU-paged slots over a lazy source
 ``cohort``            same-shape client cohorts trained in one batched
                       step; ``CohortPlan`` draws their batches (device
                       pipeline), ``LocalJob`` / ``make_job`` /
-                      ``run_cohorts`` train per-round jobs (host pipeline)
+                      ``run_cohorts`` train per-round jobs (host
+                      pipeline), ``StreamCohortPlan`` groups a sampled
+                      cohort from the shard sizes alone
 ``sync_sim``          ``BatchedSyncEngine`` — the reference's synchronous
                       semantics; ``pipeline="device"`` (default) or
                       ``"host"`` (per-edge ``flat_mean`` loop)
@@ -21,10 +25,21 @@ module                role
                       engine (copied from the reference)
 ``async_sim``         ``AsyncHFLEngine`` — quorum flushes, staleness
                       decay, the cloud barrier, on the simulated clock
+``stream_sim``        ``StreamSyncEngine`` — the population M as a
+                      streaming axis: a sampled cohort per edge round,
+                      shards paged from a lazy source, O(cohort) device
+                      state
 ====================  =====================================================
 """
 from repro_torch.engine.async_sim import AsyncHFLEngine
-from repro_torch.engine.cohort import CohortPlan, LocalJob, draw_batch_indices, make_job, run_cohorts
+from repro_torch.engine.cohort import (
+    CohortPlan,
+    LocalJob,
+    StreamCohortPlan,
+    draw_batch_indices,
+    make_job,
+    run_cohorts,
+)
 from repro_torch.engine.events import Event, EventQueue
 from repro_torch.engine.flatten import (
     BACKENDS,
@@ -34,7 +49,8 @@ from repro_torch.engine.flatten import (
     flat_mean,
     flat_segment_mean,
 )
-from repro_torch.engine.store import DeviceShardStore
+from repro_torch.engine.store import DeviceShardStore, PagedShardStore
+from repro_torch.engine.stream_sim import StreamSyncEngine
 from repro_torch.engine.sync_sim import PIPELINES, BatchedSyncEngine
 
 __all__ = [
@@ -48,6 +64,9 @@ __all__ = [
     "FlatPack",
     "LocalJob",
     "PIPELINES",
+    "PagedShardStore",
+    "StreamCohortPlan",
+    "StreamSyncEngine",
     "compress_flat_rows",
     "compress_flat_upload",
     "draw_batch_indices",

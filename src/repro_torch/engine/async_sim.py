@@ -43,7 +43,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.hfl import CommAccountant, HFLSchedule
+from repro_torch.core.hfl import CommAccountant, HFLSchedule, ServerMomentum
 from repro_torch.data.synthetic_health import Dataset
 from repro_torch.device import configure_numerics, resolve_device
 from repro_torch.engine.cohort import LocalJob, build_group_state, make_job, run_cohorts
@@ -52,7 +52,14 @@ from repro_torch.engine.flatten import BACKENDS, FlatPack, compress_flat_upload,
 from repro_torch.engine.store import DeviceShardStore
 from repro_torch.federated.client import FLClient
 from repro_torch.federated.programs import as_program, group_edge_sizes
-from repro_torch.federated.simulation import RoundMetrics, SimResult, evaluate, initial_params, refuse_unported
+from repro_torch.federated.simulation import (
+    RoundMetrics,
+    SimResult,
+    check_cohort,
+    evaluate,
+    initial_params,
+    refuse_unported,
+)
 
 
 @dataclasses.dataclass
@@ -85,11 +92,13 @@ class AsyncHFLEngine:
     ("kernel" | "reference"), ``compression`` (a ``CompressionSpec``,
     per-client error feedback; it takes precedence over the program's own
     upload quantization), ``faults`` (a ``FaultState``: churn, retry
-    cascades, energy, fading) and ``device`` (default "cuda"; raises
-    without CUDA unless "cpu").  The reference's ``distill``,
-    ``telemetry``, ``cohort``, ``server_momentum`` and ``serve``, and
-    populations of more than one program, raise ``NotImplementedError``
-    naming their queued item.
+    cascades, energy, fading), ``cohort`` (a ``CohortSpec``, drawn once per
+    cloud round at edge-round key 1, the members the sync engines train in
+    their first edge round; needs ``upp=1.0``), ``server_momentum`` (cloud
+    momentum on the aggregated delta) and ``device`` (default "cuda";
+    raises without CUDA unless "cpu").  The reference's ``distill``,
+    ``telemetry`` and ``serve``, and populations of more than one program,
+    raise ``NotImplementedError`` naming their queued item.
 
     The engine counts its own weighted averages in ``aggregates``
     (``"flush"``, ``"dca_start"``, ``"cloud_reduce"``: one
@@ -121,11 +130,10 @@ class AsyncHFLEngine:
         serve=None,
         device="cuda",
     ):
-        refuse_unported(
-            distill=distill, telemetry=telemetry, cohort=cohort, server_momentum=server_momentum, serve=serve
-        )
+        refuse_unported(distill=distill, telemetry=telemetry, serve=serve)
         if not (0.0 < quorum <= 1.0):
             raise ValueError(f"quorum must be in (0, 1], got {quorum}")
+        check_cohort(cohort, upp)
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         self.device = resolve_device(device)
@@ -138,6 +146,8 @@ class AsyncHFLEngine:
         self.schedule = schedule
         self.rng = np.random.default_rng(seed)
         self.upp = upp
+        self.cohort = cohort
+        self._momentum = ServerMomentum(server_momentum)
         self.staleness_decay = staleness_decay
         self.quorum = quorum
         self.backhaul_s = backhaul_s
@@ -362,9 +372,12 @@ class AsyncHFLEngine:
                     edge_sizes_dev = self._upload(edge_sizes)
                 # retry deadlines and the event clock read the round's faded channel
                 self._lat = self.faults.latency(b)
-            participating = self.rng.random(m) < self.upp
-            if not participating.any():
-                participating[self.rng.integers(0, m)] = True
+            if self.cohort is not None:
+                participating = self.cohort.mask(b, 1, assignment=self.assignment)
+            else:
+                participating = self.rng.random(m) < self.upp
+                if not participating.any():
+                    participating[self.rng.integers(0, m)] = True
             if self.faults is not None:
                 participating &= self.faults.participation(b)
             # every edge starts the cloud round from the global model, in a
@@ -397,15 +410,17 @@ class AsyncHFLEngine:
             # cloud barrier: every edge reported; drop in-flight stragglers
             self.queue.clear()
             self.queue.now = max(e.done_time for e in edges.values()) + self.backhaul_s
+            new_row = global_row
             if self.faults is not None:
                 # degraded reduce: starved edges weigh 0; a fully starved
                 # hierarchy keeps the global model
                 got = np.array([edges[j].got for j in range(n)], bool)
                 gw = np.asarray(edge_sizes, np.float32) * got
                 if gw.any():
-                    global_row = self._cloud_mean(self._upload(gw))
+                    new_row = self._cloud_mean(self._upload(gw))
             else:
-                global_row = self._cloud_mean(edge_sizes_dev)
+                new_row = self._cloud_mean(edge_sizes_dev)
+            global_row = self._momentum(global_row, new_row)
             self.accountant.on_cloud_sync(n)
             acc = None
             if b % eval_every == 0 or b == cloud_rounds:

@@ -12,10 +12,11 @@ Batch indices replicate the reference's draws exactly (permutation, then
 resample-padding, in global client order), so the engine consumes the numpy
 RNG stream as the reference does and both train on identical batches.
 
-Two ways in: the device pipeline's ``CohortPlan`` (grouping fixed at
-construction, batches gathered from a ``DeviceShardStore``) and the host
+Three ways in: the device pipeline's ``CohortPlan`` (grouping fixed at
+construction, batches gathered from a ``DeviceShardStore``), the host
 pipeline's ``LocalJob`` list through ``run_cohorts`` (grouping per round,
-batches stacked from the numpy shards).
+batches stacked from the numpy shards), and the streaming engine's
+``StreamCohortPlan`` (grouping per round from the shard sizes alone).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.engine.flatten import FlatPack, ravel_batched, unravel_batched
-from repro_torch.federated.client import FLClient
+from repro_torch.federated.client import _BUCKETS, FLClient
 from repro_torch.federated.programs import ClientProgram, group_clients
 from repro_torch.utils.tree import TreeSpec, tree_map, tree_size_bytes
 
@@ -314,6 +315,89 @@ class CohortPlan:
             n = int(self.sizes[i])
             need = g.steps * g.batch
             for e in range(g.epochs):
+                idx = rng.permutation(n)
+                if need > n:  # pad by resampling
+                    idx = np.concatenate([idx, rng.integers(0, n, need - n)])
+                g.idx[c, e] = idx[:need].reshape(g.steps, g.batch)
+        return groups, np.asarray(passthrough, np.int64)
+
+
+class StreamCohortPlan:
+    """``CohortPlan`` over an analytic population: no per-client objects.
+
+    ``CohortPlan`` walks M ``FLClient`` objects when it is built, which
+    alone breaks the streaming budget at M = 1M.  This plan takes the
+    source's (M,) ``sizes`` and one set of hyperparameters, and derives a
+    member's padded step count when it is drawn (``FLClient``'s bucketing,
+    vectorized).  :meth:`draw` works on the round's member ids: it consumes
+    the RNG as ``draw_batch_indices`` does, one permutation (and the
+    resampling pad) per member and epoch, in ascending client id, which is
+    what ``CohortPlan`` consumes for the same members, so the streaming and
+    the sync engine train on the same batches.
+    """
+
+    def __init__(
+        self,
+        sizes: np.ndarray,
+        program: ClientProgram,
+        *,
+        batch_size: int = 10,
+        lr: float = 1e-3,
+        max_steps: int = 128,
+    ):
+        self.program = program
+        self.batch = int(batch_size)
+        self.lr = float(lr)
+        self.max_steps = int(max_steps)
+        # the source's (M,) array, shared: the plan holds no O(M) state
+        self.sizes = np.asarray(sizes)
+        self._buckets = np.asarray(_BUCKETS, np.int64)
+
+    def steps_for(self, members: np.ndarray) -> np.ndarray:
+        """Padded step count per member (``FLClient.plan_steps``)."""
+        s = self.sizes[members].astype(np.int64)
+        if self.program.single_step:
+            return (s > 0).astype(np.int64)
+        raw = np.clip((s + self.batch - 1) // self.batch, 1, self.max_steps)
+        pos = np.minimum(np.searchsorted(self._buckets, raw, side="left"), len(self._buckets) - 1)
+        return np.where(s > 0, self._buckets[pos], 0)
+
+    def draw(
+        self, rng: np.random.Generator, members: np.ndarray, epochs: int
+    ) -> Tuple[List[_PlanGroup], np.ndarray]:
+        """(groups, passthrough) for the cohort ``members`` (sorted ids)."""
+        epochs = 1 if self.program.single_step else int(epochs)
+        members = np.asarray(members, np.int64)
+        steps_of = dict(zip(members.tolist(), self.steps_for(members).tolist()))
+        grouped: Dict[int, List[int]] = {}
+        passthrough: List[int] = []
+        for i in members:
+            if self.sizes[i] == 0:
+                passthrough.append(int(i))
+            else:
+                grouped.setdefault(steps_of[int(i)], []).append(int(i))
+        groups = [
+            _PlanGroup(
+                members=np.asarray(ids, np.int64),
+                idx=np.zeros((len(ids), epochs, steps, self.batch), np.int32),
+                steps=steps,
+                batch=self.batch,
+                lr=self.lr,
+                program=self.program,
+            )
+            for steps, ids in grouped.items()
+        ]
+        slot = {}
+        for g in groups:
+            for c, i in enumerate(g.members):
+                slot[int(i)] = (g, c)
+        for i in members:  # the draws in ascending client id
+            if self.sizes[i] == 0:
+                continue
+            g, c = slot[int(i)]
+            n = int(self.sizes[i])
+            need = g.steps * g.batch
+            for e in range(epochs):
                 idx = rng.permutation(n)
                 if need > n:  # pad by resampling
                     idx = np.concatenate([idx, rng.integers(0, n, need - n)])

@@ -41,6 +41,11 @@ and battery-dead EUs out of a round, gives the uploads it loses weight 0
 re-repairs the assignment under drift (rebuilding the pair structure and
 re-uploading the cloud weights) and weighs edges that received nothing
 all cloud round 0 in the cloud reduce, by a mask kept on the device.
+
+``cohort`` (a ``CohortSpec``) trains only the spec's sampled members each
+edge round, drawn from its keyed side-channel generator in place of the UPP
+draw (the engine RNG is not consumed); ``server_momentum`` applies cloud
+momentum to the aggregated delta of the global row.
 """
 from __future__ import annotations
 
@@ -50,7 +55,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.hfl import CommAccountant, HFLSchedule, WallClock, weight_divergence
+from repro_torch.core.hfl import CommAccountant, HFLSchedule, ServerMomentum, WallClock, weight_divergence
 from repro_torch.data.synthetic_health import Dataset
 from repro_torch.device import configure_numerics, resolve_device
 from repro_torch.engine.cohort import (
@@ -75,6 +80,7 @@ from repro_torch.federated.simulation import (
     RoundMetrics,
     SimResult,
     central_reference_step,
+    check_cohort,
     evaluate,
     initial_params,
     pooled_dataset,
@@ -99,8 +105,9 @@ class BatchedSyncEngine:
     distance to a virtual centralized model, eq. 17, stepped from the
     engine RNG after each cloud reduce as in the reference),
     ``cost_latency`` (an (M, N) latency matrix for the ``WallClock``),
-    ``compression`` and ``faults`` (see the module docstring), and
-    ``device`` (default "cuda"; raises without CUDA unless "cpu").
+    ``compression``, ``faults``, ``cohort`` and ``server_momentum`` (see
+    the module docstring; a cohort needs ``upp=1.0``), and ``device``
+    (default "cuda"; raises without CUDA unless "cpu").
 
     Initial parameters come from ``program.init`` with a
     ``torch.Generator`` seeded from ``seed``, drawn on the CPU, as the
@@ -123,6 +130,8 @@ class BatchedSyncEngine:
         compression=None,
         pipeline: str = "device",
         faults=None,
+        cohort=None,
+        server_momentum: float = 0.0,
         device="cuda",
     ):
         if pipeline not in PIPELINES:
@@ -132,6 +141,7 @@ class BatchedSyncEngine:
             )
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        check_cohort(cohort, upp)
         self.device = resolve_device(device)
         configure_numerics(self.device)
         self.clients = clients
@@ -140,6 +150,8 @@ class BatchedSyncEngine:
         self.schedule = schedule
         self.rng = np.random.default_rng(seed)
         self.upp = upp
+        self.cohort = cohort
+        self._momentum = ServerMomentum(server_momentum)
         self.backend = backend
         self.pipeline = pipeline
         self.params = initial_params(self.program, seed, self.device)
@@ -203,12 +215,16 @@ class BatchedSyncEngine:
         return bool(len(changed))
 
     def _draw_participation(self, m: int):
-        """This round's (M,) participation mask, drawn from the engine RNG
-        draw for draw like the reference, and under faults the (M,) mask of
-        uploads lost mid-round (else None)."""
-        participating = self.rng.random(m) < self.upp
-        if not participating.any():
-            participating[self.rng.integers(0, m)] = True
+        """This round's (M,) participation mask, and under faults the (M,)
+        mask of uploads lost mid-round (else None).  A cohort is drawn from
+        its keyed side channel (the engine RNG is untouched); the UPP draw
+        consumes the engine RNG draw for draw like the reference."""
+        if self.cohort is not None:
+            participating = self.cohort.mask(self._round, self._er, assignment=self.assignment)
+        else:
+            participating = self.rng.random(m) < self.upp
+            if not participating.any():
+                participating[self.rng.integers(0, m)] = True
         failed = None
         if self.faults is not None:
             # churned-out and battery-dead EUs sit the round out; lost
@@ -428,7 +444,7 @@ class BatchedSyncEngine:
                     self._er = k + 1
                     edge_mat, round_chunks = self._edge_round_device(edge_mat)
                     chunks += round_chunks
-                global_row = self._cloud_reduce(edge_mat, edge_sizes, global_row)
+                new_row = self._cloud_reduce(edge_mat, edge_sizes, global_row)
                 loss_host = _mean_loss(chunks)
             else:
                 losses: List[float] = []
@@ -436,8 +452,9 @@ class BatchedSyncEngine:
                 for k in range(self.schedule.edge_per_cloud):
                     self._er = k + 1
                     losses += self._edge_round_host(edge_rows)
-                global_row = self._cloud_reduce(torch.stack(edge_rows), edge_sizes, global_row)
+                new_row = self._cloud_reduce(torch.stack(edge_rows), edge_sizes, global_row)
                 loss_host = float(np.mean(losses)) if losses else 0.0
+            global_row = self._momentum(global_row, new_row)
             self.accountant.on_cloud_sync(n)
             if self.clock is not None:
                 self.clock.on_cloud_sync()

@@ -9,6 +9,7 @@ from repro_torch.federated.programs import (
     group_clients,
     group_edge_sizes,
 )
+from repro_torch.federated.sampling import CohortSpec, pareto_weights
 from repro_torch.federated.scenario import Scenario, build_scenario
 from repro_torch.federated.simulation import (
     HFLSimulation,
@@ -17,22 +18,36 @@ from repro_torch.federated.simulation import (
     centralized_baseline,
     evaluate,
 )
+from repro_torch.federated.stream import (
+    LazyClientList,
+    StreamScenario,
+    build_stream_scenario,
+    edge_kld_uniform,
+    striped_assignment,
+)
 
 __all__ = [
     "CNNProgram",
     "ClientProgram",
+    "CohortSpec",
     "FLClient",
     "FedSGDProgram",
     "HFLSimulation",
+    "LazyClientList",
     "MLPProgram",
     "PROGRAMS",
     "RoundMetrics",
     "Scenario",
     "SimResult",
+    "StreamScenario",
     "as_program",
     "build_scenario",
+    "build_stream_scenario",
     "centralized_baseline",
+    "edge_kld_uniform",
     "evaluate",
     "group_clients",
     "group_edge_sizes",
+    "pareto_weights",
+    "striped_assignment",
 ]

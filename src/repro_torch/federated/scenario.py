@@ -41,6 +41,7 @@ from repro_torch.federated.simulation import (
     not_ported,
     refuse_unported,
 )
+from repro_torch.federated.stream import SEQUENCE_MODELS, build_stream_scenario
 from repro_torch.models.cnn1d import HEARTBEAT_CNN, SEIZURE_CNN
 from repro_torch.utils.tree import tree_size_bytes
 from repro_torch.wireless.channel import WirelessParams, build_cost_matrices, sample_topology
@@ -137,6 +138,13 @@ class Scenario:
                   takes the scenario's default (``build_scenario(faults=)``)
                   and False forces the fault-free path.  A fresh
                   ``FaultState`` is built per call.
+        cohort:   None (full participation, or UPP) or a
+                  ``repro_torch.federated.sampling.CohortSpec``: every
+                  engine then trains only the spec's per-round cohort,
+                  drawn from a keyed side-channel generator (needs
+                  ``upp=1.0``).
+        server_momentum: cloud momentum on the aggregated model delta
+                  (0.0: plain FedAvg).
         track_divergence: the distance to a virtual centralized model
                   (eq. 17) in each round's ``divergence`` (not with
                   ``engine="async"``).
@@ -152,10 +160,7 @@ class Scenario:
             raise ValueError(f"unknown pipeline {pipeline!r} (device | host | mesh)")
         if pipeline == "mesh":
             raise not_ported("pipeline='mesh'")
-        refuse_unported(
-            mesh=mesh, distill=distill, telemetry=telemetry, cohort=cohort, serve=serve,
-            server_momentum=server_momentum,
-        )
+        refuse_unported(mesh=mesh, distill=distill, telemetry=telemetry, serve=serve)
         spec = self.faults if faults is None else (faults or None)
         fault_state = None
         if spec is not None:
@@ -178,6 +183,8 @@ class Scenario:
                 cost_latency=cost_latency,
                 compression=compression,
                 faults=fault_state,
+                cohort=cohort,
+                server_momentum=server_momentum,
                 device=device,
             )
             return sim.run(cloud_rounds, eval_every=eval_every)
@@ -200,6 +207,8 @@ class Scenario:
                 backend=backend,
                 compression=compression,
                 faults=fault_state,
+                cohort=cohort,
+                server_momentum=server_momentum,
                 device=device,
             )
             return sim.run(cloud_rounds, eval_every=eval_every)
@@ -219,6 +228,8 @@ class Scenario:
             compression=compression,
             pipeline=pipeline,
             faults=fault_state,
+            cohort=cohort,
+            server_momentum=server_momentum,
             device=device,
         )
         return sim.run(cloud_rounds, eval_every=eval_every)
@@ -270,8 +281,10 @@ def build_scenario(
     n_test_per_class: int = 300,
     wp: Optional[WirelessParams] = None,
     lazy: bool = False,
+    n_eus: Optional[int] = None,
+    n_edges: Optional[int] = None,
     device="cuda",
-) -> Scenario:
+):
     """The paper's heartbeat or seizure setup.
 
     ``model`` picks the client program, "cnn" (the paper's) or "mlp" (a
@@ -283,13 +296,41 @@ def build_scenario(
     are evaluated on ``device`` ("cuda" by default; raises without CUDA
     unless "cpu").  ``faults`` (a ``repro_torch.faults.FaultSpec``) is the
     scenario's default fault model, which ``simulate`` applies unless told
-    otherwise.  The reference's other workloads (the sequence models and
-    the "lm" dataset, ``model_mix``, ``lazy``) raise
-    ``NotImplementedError``.
+    otherwise.
+
+    ``lazy=True`` builds a streaming population of ``n_eus`` clients over
+    ``n_edges`` edges (default 8) instead: a ``federated.stream.
+    StreamScenario`` whose shards are synthesized on demand, assigned by
+    analytic striping, and simulated by ``StreamSyncEngine`` over a sampled
+    cohort (``simulate(CohortSpec(...))``).  It takes no ``faults``,
+    ``model_mix`` or ``hparams`` (per-client state, O(M)).
+
+    The reference's other workloads (the sequence models and the "lm"
+    dataset, ``model_mix``) raise ``NotImplementedError``.
     """
     resolve_device(device)
-    refuse_unported(lazy=lazy, model_mix=model_mix)
-    if model in ("lm", "moe", "mamba", "rwkv") or dataset == "lm":
+    if lazy:
+        if model_mix is not None or hparams is not None or faults is not None:
+            raise ValueError(
+                "lazy mode supports homogeneous fault-free populations "
+                "(model_mix/hparams/faults are per-client state, O(M))"
+            )
+        if n_eus is None:
+            raise ValueError("lazy mode requires n_eus= (population size)")
+        return build_stream_scenario(
+            dataset,
+            n_eus=n_eus,
+            n_edges=n_edges if n_edges is not None else 8,
+            model=model,
+            fedsgd=fedsgd,
+            grad_bits=grad_bits,
+            seed=seed,
+            n_test_per_class=n_test_per_class,
+        )
+    if n_eus is not None or n_edges is not None:
+        raise ValueError("n_eus/n_edges are lazy-mode knobs (pass lazy=True)")
+    refuse_unported(model_mix=model_mix)
+    if model in SEQUENCE_MODELS or dataset == "lm":
         raise not_ported("model")
     if model not in ("cnn", "mlp"):
         raise ValueError(f"unknown model {model!r} (cnn | mlp)")

@@ -29,6 +29,7 @@ import torch
 from repro_torch.core.hfl import (
     CommAccountant,
     HFLSchedule,
+    ServerMomentum,
     WallClock,
     cloud_aggregate,
     edge_aggregate,
@@ -44,9 +45,6 @@ from repro_torch.utils.tree import tree_add, tree_leaves, tree_map, tree_size_by
 QUEUED = {
     "pipeline='mesh'": "Queue 1 item 12, mesh",
     "mesh": "Queue 1 item 12, mesh",
-    "cohort": "Queue 1 item 7, streaming populations",
-    "server_momentum": "Queue 1 item 7, streaming populations",
-    "lazy": "Queue 1 item 7, streaming populations",
     "distill": "Queue 1 item 8, heterogeneous models",
     "model_mix": "Queue 1 item 8, heterogeneous models",
     "telemetry": "Queue 1 item 9, telemetry",
@@ -68,6 +66,14 @@ def refuse_unported(**options) -> None:
     for option, value in options.items():
         if value is not None and value is not False and value != 0.0:
             raise not_ported(option)
+
+
+def check_cohort(cohort, upp: float) -> None:
+    """A cohort and UPP are both participation models: a ``CohortSpec``
+    runs with ``upp=1.0`` only (``ValueError`` otherwise), as in the
+    reference."""
+    if cohort is not None and upp != 1.0:
+        raise ValueError("cohort sampling and UPP are both participation models; use upp=1.0 with a CohortSpec")
 
 
 @dataclasses.dataclass
@@ -168,10 +174,14 @@ class HFLSimulation:
     ``FaultState``) masks churned-out and battery-dead EUs out of a round,
     drops the uploads ``failed_uploads`` marks (charged as wasted), debits
     energy, re-repairs the assignment under drift and weighs starved edges
-    0 in the cloud reduce.  The reference's ``telemetry``, ``cohort``,
-    ``server_momentum`` and ``serve`` raise ``NotImplementedError`` naming
-    their queued item.  ``device``: "cuda" by default, raising without
-    CUDA unless "cpu".
+    0 in the cloud reduce.  ``cohort`` (a ``CohortSpec``, with ``upp=1.0``)
+    trains only the spec's sampled members each edge round, drawn from its
+    keyed side channel in place of the UPP draw (the engine RNG is not
+    consumed).  ``server_momentum`` applies cloud momentum to the
+    aggregated delta (``core.hfl.ServerMomentum``).  The reference's
+    ``telemetry`` and ``serve`` raise ``NotImplementedError`` naming their
+    queued item.  ``device``: "cuda" by default, raising without CUDA
+    unless "cpu".
     """
 
     def __init__(
@@ -194,7 +204,8 @@ class HFLSimulation:
         serve=None,
         device="cuda",
     ):
-        refuse_unported(telemetry=telemetry, cohort=cohort, server_momentum=server_momentum, serve=serve)
+        refuse_unported(telemetry=telemetry, serve=serve)
+        check_cohort(cohort, upp)
         self.device = resolve_device(device)
         configure_numerics(self.device)
         self.clients = clients
@@ -204,6 +215,8 @@ class HFLSimulation:
         self.schedule = schedule
         self.rng = np.random.default_rng(seed)
         self.upp = upp
+        self.cohort = cohort
+        self._momentum = ServerMomentum(server_momentum)
         self.params = initial_params(self.program, seed, self.device)
         self.track_divergence = track_divergence
         if track_divergence:
@@ -239,9 +252,12 @@ class HFLSimulation:
         """One edge round: participation draw, every participant's local
         update in client order, then each edge's FedAvg of its uploads."""
         m, n = self.assignment.shape
-        participating = self.rng.random(m) < self.upp
-        if not participating.any():
-            participating[self.rng.integers(0, m)] = True
+        if self.cohort is not None:
+            participating = self.cohort.mask(self._round, self._er, assignment=self.assignment)
+        else:
+            participating = self.rng.random(m) < self.upp
+            if not participating.any():
+                participating[self.rng.integers(0, m)] = True
         failed = None
         if self.faults is not None:
             # churned-out and battery-dead EUs sit the round out; of the
@@ -341,9 +357,11 @@ class HFLSimulation:
                 # edge starved, the global model stands
                 w = [s if self._edge_got[j] else 0.0 for j, s in enumerate(edge_sizes)]
                 if any(w):
-                    global_params = cloud_aggregate(edge_params, w)
+                    global_params = self._momentum(global_params, cloud_aggregate(edge_params, w))
             else:
-                global_params = cloud_aggregate(edge_params, [max(s, 1) for s in edge_sizes])
+                global_params = self._momentum(
+                    global_params, cloud_aggregate(edge_params, [max(s, 1) for s in edge_sizes])
+                )
             self.accountant.on_cloud_sync(n)
             if self.clock is not None:
                 self.clock.on_cloud_sync()

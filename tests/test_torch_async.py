@@ -15,7 +15,7 @@ from repro.core.hfl import HFLSchedule as RefSchedule  # noqa: E402
 from repro_torch.core import CompressionSpec, HFLSchedule  # noqa: E402
 from repro_torch.engine import AsyncHFLEngine, DeviceShardStore, EventQueue, async_sim, make_job, run_cohorts  # noqa: E402
 from repro_torch.engine.flatten import FlatPack  # noqa: E402
-from repro_torch.federated import build_scenario  # noqa: E402
+from repro_torch.federated import CohortSpec, build_scenario  # noqa: E402
 from torch_parity import ReferencePopulation, check_run, reference_inits  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -167,5 +167,8 @@ def test_async_refuses_what_the_reference_refuses(pair):
         sc.simulate(lam, 1, engine="async", track_divergence=True, device="cpu")
     with pytest.raises(ValueError, match="quorum"):
         sc.simulate(lam, 1, engine="async", quorum=0.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AsyncHFLEngine(sc.clients, lam, sc.program, sc.test, latency=sc.cost.latency, cohort=object(), device="cpu")
+    with pytest.raises(ValueError, match="upp=1.0"):
+        AsyncHFLEngine(
+            sc.clients, lam, sc.program, sc.test, latency=sc.cost.latency, cohort=CohortSpec(size=4), upp=0.5,
+            device="cpu",
+        )

@@ -611,3 +611,93 @@ def test_flash_kernel_non_causal_on_card(cuda, window):
     out = _flash_launch_checked(qb, kb, vb, "wgmma", causal=False, window=window)
     want = flash_attention_ref(qb, kb, vb, causal=False, window=window)
     np.testing.assert_allclose(_f32(out), _f32(want), atol=2e-2, rtol=2e-2)
+
+
+# -- streaming populations ------------------------------------------------------
+def test_paged_store_on_card_matches_cpu_after_evictions(cuda):
+    """Waves of cohorts through a 6-slot paged store on the card gather the
+    CPU store's bytes, with the same slots and counters, after evictions."""
+    from repro_torch.data import HealthShardSource
+    from repro_torch.engine import PagedShardStore
+
+    src = HealthShardSource(2, 40)
+    card, cpu = PagedShardStore(src, 6, cuda), PagedShardStore(src, 6, "cpu")
+    rng = np.random.default_rng(1)
+    for _ in range(8):
+        cids = np.sort(rng.choice(40, size=5, replace=False))
+        idx = np.stack([rng.integers(0, src.sizes[c], size=(2, 10)) for c in cids])
+        (cx, cy), (px, py) = card.gather(cids, idx), cpu.gather(cids, idx)
+        assert torch.equal(cx.cpu(), px) and torch.equal(cy.cpu(), py)
+        assert (card.hits, card.misses, card.evictions) == (cpu.hits, cpu.misses, cpu.evictions)
+    assert card.evictions > 0 and card.device_bytes == cpu.device_bytes
+
+
+@pytest.mark.parametrize("n,e", [(256, 8)] + [(n, 8) for n in range(33, 41)])
+def test_segment_kernel_at_stream_shapes_on_card(cuda, n, e):
+    """The streaming engine's edge FedAvg: a cohort of 256 rows into 8
+    edges, and N 33-40 (a second ballot of ids), fp32 at 1e-5, one launch."""
+    x, w = _inputs(n, 25141, seed=n)
+    seg = np.random.default_rng(n).integers(0, e, n)
+    u, wt, s = torch.tensor(x, device=cuda), torch.tensor(w, device=cuda), torch.tensor(seg, device=cuda)
+    reset_launch_counts()
+    out = hier_segment_aggregate(u, s, wt, e)
+    assert launch_counts()["hier_segment_aggregate"] == 1
+    np.testing.assert_allclose(_f32(out), _f32(hier_segment_aggregate_ref(u, s, wt, e)), atol=1e-5, rtol=1e-5)
+
+
+def test_aggregate_kernel_at_stream_reduce_on_card(cuda):
+    """The streaming engine's cloud reduce: N 8 edges weighted by their data
+    sizes, fp32 at 1e-5 and bit for bit against the replay, one launch."""
+    x, _ = _inputs(8, 25141, seed=8)
+    w = np.random.default_rng(8).integers(100_000, 140_000, 8).astype(np.float32)
+    u, wt = torch.tensor(x, device=cuda), torch.tensor(w, device=cuda)
+    reset_launch_counts()
+    out = hier_aggregate(u, wt)
+    assert launch_counts()["hier_aggregate"] == 1
+    np.testing.assert_allclose(_f32(out), _f32(hier_aggregate_ref(u, wt)), atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(_f32(out), aggregate_kernel_replay(x, w))
+
+
+def test_stream_round_queues_no_host_sync_on_card(cuda, monkeypatch):
+    """``StreamSyncEngine`` on the card: every edge round runs under
+    sync-debug mode "error" (the uploads are asynchronous from pinned memory
+    and the losses stay on the card), one segment launch per edge round and
+    one ``hier_aggregate`` launch per cloud reduce, and the run is the CPU
+    run at phase 4's tolerances, paged store and all."""
+    from repro_torch.engine import StreamSyncEngine
+    from repro_torch.federated import CohortSpec, build_scenario
+
+    sc = build_scenario("heartbeat", lazy=True, n_eus=120, n_edges=4, seed=3, n_test_per_class=20, device="cpu")
+    real = StreamSyncEngine._edge_round
+    calls = []
+
+    def round_without_sync(self, edge_mat, b, er):
+        if self.device.type != "cuda":
+            return real(self, edge_mat, b, er)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(self, edge_mat, b, er)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        calls.append((b, er))
+        return out
+
+    hier_aggregate(torch.ones((2, 8), device=cuda), torch.ones(2, device=cuda))  # builds the library first
+    monkeypatch.setattr(StreamSyncEngine, "_edge_round", round_without_sync)
+    runs = []
+    for d in ("cuda", "cpu"):
+        eng = StreamSyncEngine(sc.source, sc.edge_of, sc.program, sc.test, cohort=CohortSpec(size=24, seed=9),
+                               n_edges=sc.n_edges, seed=0, page_slots=24, device=d)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        runs.append(eng.run(3))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if d == "cuda":
+            assert calls == [(1, 1), (2, 1), (3, 1)]
+            assert counts["hier_segment_aggregate"] == 3 and counts["hier_aggregate"] == 3
+            assert eng.store.evictions > 0
+        else:
+            assert not any(counts.values())
+    _card_matches_cpu(*runs, len(sc.test))

@@ -172,10 +172,8 @@ def test_cloud_weights_go_to_the_device_once_per_run(pair, lam, backend, monkeyp
         {"pipeline": "mesh"},
         {"mesh": 4},
         {"telemetry": True},
-        {"cohort": object()},
         {"serve": object()},
         {"distill": object()},
-        {"server_momentum": 0.9},
     ],
     ids=lambda kw: next(iter(kw)),
 )
@@ -194,7 +192,7 @@ def test_faults_must_be_a_fault_spec(pair, lam):
 
 
 @pytest.mark.parametrize(
-    "kw", [{"lazy": True}, {"model_mix": {"cnn": 18}}],
+    "kw", [{"model_mix": {"cnn": 18}}],
     ids=lambda kw: next(iter(kw)),
 )
 def test_unported_scenarios_raise(kw):

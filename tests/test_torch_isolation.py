@@ -57,7 +57,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.device import resolve_device
     from repro_torch.engine import AsyncHFLEngine, BatchedSyncEngine
     from repro_torch.faults import FaultSpec, FaultState
-    from repro_torch.federated import HFLSimulation, build_scenario, centralized_baseline
+    from repro_torch.engine import StreamSyncEngine
+    from repro_torch.federated import CohortSpec, HFLSimulation, build_scenario, centralized_baseline
     from repro_torch.federated.simulation import central_reference_step, pooled_dataset
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -89,6 +90,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         central_reference_step(params, data, np.random.default_rng(0), 50, sc.program)
     with pytest.raises(ValueError, match="device"):
         resolve_device("meta")
+    with pytest.raises(RuntimeError, match="device="):
+        build_scenario("heartbeat", lazy=True, n_eus=40, n_test_per_class=2)
+    lazy = build_scenario("heartbeat", lazy=True, n_eus=40, n_test_per_class=2, device="cpu")
+    with pytest.raises(RuntimeError, match="device="):
+        lazy.simulate(CohortSpec(size=4), cloud_rounds=1)
+    with pytest.raises(RuntimeError, match="device="):
+        StreamSyncEngine(lazy.source, lazy.edge_of, lazy.program, lazy.test, cohort=CohortSpec(size=4))
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import serve as serve_launch

@@ -114,7 +114,7 @@ def test_sync_engine_matches_readable_simulator(pair, sim_runs, case, pipeline):
 
 @pytest.mark.parametrize(
     "option,value",
-    [("telemetry", True), ("cohort", object()), ("server_momentum", 0.9), ("serve", object())],
+    [("telemetry", True), ("serve", object())],
 )
 def test_readable_simulator_refuses_unported_options(pair, option, value):
     """The reference simulator's options that are not ported raise and name
