@@ -27,8 +27,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (fp32 1e-5, bf16 2e-2; zero
    total weight writes zeros), the segment kernel also with ids outside
    [0, E) (which belong to no segment on the card), both at the streaming
-   engine's shapes (a cohort of N 256 into E 8; the cloud reduce at N 8),
-   both wrappers' whole
+   engine's shapes (a cohort of N 256 into E 8; the cloud reduce at N 8)
+   and at phase 6e's groups' shapes (the CNN's edge FedAvg N 12 and the
+   MLP's N 6 into E 5, the MLP's cloud reduce N 5 at D 12,357), both
+   wrappers' whole
    calls (the card's time per call back to back, the device operations
    one call queues and their device time, the host time) and a run under
    ``torch.cuda.set_sync_debug_mode("error")``;
@@ -91,6 +93,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``cohort=`` on the materialized population (accuracy within 2 test
    samples, parameters within 1e-4, equal accounting); one sync-device
    round with ``server_momentum=0.9`` and ``cohort=``;
+6e. heterogeneous models at full width: ``build_scenario("heartbeat",
+   model_mix={"cnn": 12, "mlp": 6})`` (built before phase 3) and
+   ``assign("eara-sca")``, each run's launch counts zeroed just before and
+   read just after: the device pipeline for 1 round (held to the readable
+   simulator's 1 round) and 2 timed rounds (held to the host pipeline's 2:
+   accuracy within 2 test samples, parameters within 5e-3, equal
+   accountant totals), 2 segment and 2 ``hier_aggregate`` launches a
+   device round, one ``hier_aggregate`` per (group, edge) cell with
+   uploads plus 2 a host round; async at ``quorum=1.0,
+   staleness_decay=1.0`` and at its defaults for 1 round (its flushes
+   plus 2 launches); ``final_params`` keyed ``{"cnn", "mlp"}``; the fuse
+   timed by CUDA events inside every sync round, then alone on the card
+   against the CPU (1e-5) and under ``torch.profiler`` (device ops); one
+   device-pipeline round under ``torch.profiler`` (busy share);
 7. serve exactness on the card at qwen3-14b widths cut to 2 layers in
    fp32: a uniform batch gives the same tokens with ``use_flash`` on and
    off, and a ragged batch the same tokens as its requests served alone
@@ -152,6 +168,8 @@ ASYNC_FLUSH_NS = (1, 2, 3, 4, 5, 6)
 # 8 edges, so its edge FedAvg is one segment launch of N 256 into E 8 and
 # its cloud reduce one hier_aggregate launch of N 8
 STREAM_COHORT, STREAM_EDGES = 256, 8
+# phase 6e's heterogeneous population: 12 CNN EUs and 6 MLP EUs
+MIX = {"cnn": 12, "mlp": 6}
 # measured numbers a kernel record carries where its phase took them
 _EXTRA_KEYS = ("tflops", "library_kernel", "library_fused_ms", "library_fused_err", "library_fused_kernel",
                "wrapper_host_ms", "wrapper_ms", "wrapper_device_ops", "wrapper_busy_ms", "floor_ms", "floor_kind",
@@ -314,10 +332,13 @@ def _timings(kernel, wrapper, plain, library, nbytes: int, rate: float) -> dict:
     }
 
 
-def _kernel_phase(rate: float, d_model: int, host_n: int) -> dict:
+def _kernel_phase(rate: float, d_model: int, host_n: int, mix_ids) -> dict:
     """Phase 3: each kernel against its plain version on the card, and the
     timings at the main path's shapes (``hier_aggregate`` also at
-    ``host_n`` rows, the host pipeline's largest edge FedAvg)."""
+    ``host_n`` rows, the host pipeline's largest edge FedAvg).  ``mix_ids``
+    is ``((ids, D), ...)``: the segment ids (pair edges) and width of each
+    architecture group of phase 6e's mixed population, whose edge FedAvg
+    and cloud reduce (N 5) are timed at those shapes too."""
     import importlib
 
     import numpy as np
@@ -346,6 +367,7 @@ def _kernel_phase(rate: float, d_model: int, host_n: int) -> dict:
         ("edge FedAvg (SCA)", sca, 5, d_model, "main"),
         ("DCA starts", dca, 18, d_model, "timed"),
         ("stream edge FedAvg", stream_ids, STREAM_EDGES, d_model, "stream"),
+        *((f"mix group edge FedAvg (D {d})", ids, 5, d, "mix") for ids, d in mix_ids),
         ("ragged", np.array([0, 0, 0, 1, 3, 3, 3, 3, 4]), 5, 257, None),
         ("one segment", np.zeros(9, int), 1, 1000, None),
         ("own segment + empty", np.arange(9), 10, 1000, None),
@@ -390,6 +412,8 @@ def _kernel_phase(rate: float, d_model: int, host_n: int) -> dict:
                     result["seg"].update(t)
                 elif timed == "stream":
                     result["seg"]["stream"] = {"N": n, "E": e, "D": d, "max_abs_err": err, **t}
+                elif timed == "mix":
+                    result["seg"].setdefault("mix", []).append({"N": n, "E": e, "D": d, "max_abs_err": err, **t})
                 line += " " + _fmt(t)
             print(line, flush=True)
     # ids outside [0, E) belong to no segment on the card: the same result as
@@ -408,6 +432,7 @@ def _kernel_phase(rate: float, d_model: int, host_n: int) -> dict:
     flush_ns = [(n, d_model, "async flush") for n in ASYNC_FLUSH_NS if n not in (5, host_n)]
     for n, d, timed in ((5, d_model, "cloud reduce"), (host_n, d_model, "host edge FedAvg"), *flush_ns,
                         (STREAM_EDGES, d_model, "stream cloud reduce"),
+                        *((5, d, "mix cloud reduce") for _, d in mix_ids if d != d_model),
                         (4, 1000, None), (9, d_model, None), (13, d_model, None),
                         (18, d_model, None), (32, 512, None), (40, 1000, None)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -441,7 +466,9 @@ def _kernel_phase(rate: float, d_model: int, host_n: int) -> dict:
                     result["agg"]["host_edge"] = {"N": n, "D": d, **t}
                 elif timed == "stream cloud reduce":
                     result["agg"]["stream"] = {"N": n, "D": d, "max_abs_err": err, **t}
-                if timed in ("cloud reduce", "host edge FedAvg") or n in ASYNC_FLUSH_NS:
+                elif timed == "mix cloud reduce":
+                    result["agg"].setdefault("mix", []).append({"N": n, "D": d, "max_abs_err": err, **t})
+                if timed in ("cloud reduce", "host edge FedAvg") or (n in ASYNC_FLUSH_NS and d == d_model):
                     by_n = result["agg"].setdefault("by_n", {})
                     by_n[n] = {"N": n, "D": d, **{k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
                 line += " " + _fmt(t)
@@ -936,6 +963,160 @@ def _stream_phase() -> dict:
           f"loss {h.mean_local_loss:.6f}", flush=True)
     for leaf in _leaves(mom.final_params):
         _require(bool(torch.isfinite(leaf).all()), "sync-device with server momentum: non-finite parameters")
+    return out
+
+
+def _mix_scenario():
+    """Phase 6e's population, built before phase 3 (which times the FedAvg
+    kernels at its groups' shapes): ``build_scenario("heartbeat",
+    model_mix={"cnn": 12, "mlp": 6})`` at full size and its EARA-SCA
+    assignment, with each group's pair edges (its segment ids) and width."""
+    import numpy as np
+
+    from repro_torch.engine import pack_for
+    from repro_torch.federated import build_scenario, group_clients
+
+    t0 = time.perf_counter()
+    sc = build_scenario("heartbeat", model_mix=MIX)
+    build_s = time.perf_counter() - t0
+    lam = sc.assign("eara-sca").lam
+    programs, group_of = group_clients(sc.clients)
+    pc, pe = np.nonzero(lam)
+    ids = [(pe[group_of[pc] == g], pack_for(p).dim) for g, p in enumerate(programs)]
+    print(f"mix: build_scenario heartbeat model_mix={MIX}: {sc.name}, {len(sc.clients)} EUs, {sc.n_edges} edges, "
+          f"public {[len(d) for d in sc.public]}, widths {[d for _, d in ids]}, model_bits {sc.model_bits}, "
+          f"{build_s:.3f}s; per-edge EUs by group {[np.bincount(i, minlength=sc.n_edges).tolist() for i, _ in ids]}",
+          flush=True)
+    return sc, lam, ids
+
+
+def _mix_phase(sc, lam) -> dict:
+    """Phase 6e: the mixed population at full size on every engine.  The
+    device pipeline for 1 round (warm-up, held to the readable simulator's
+    1 round) and then 2 timed rounds (held to the host pipeline's 2), async
+    at the sync corner and at its defaults for 1 round each; each run's
+    launch counts zeroed just before and read just after.  The fuse is
+    timed by CUDA events inside every sync round; it is then checked on the
+    card against the CPU (1e-5) and profiled alone (device ops), and one
+    device-pipeline round is profiled (busy share).  Returns the counts and
+    times for the kernels line."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine import AsyncHFLEngine, BatchedSyncEngine, distill_fuse_flat
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    smi = _smi()
+    acc_tol = 2.0 / len(sc.test)
+    real_fuse = BatchedSyncEngine._kd_fuse_device
+    fuse_events = []
+
+    def timed_fuse(self, edge_mats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_fuse(self, edge_mats)
+        end.record()
+        fuse_events.append((start, end))
+        return out
+
+    BatchedSyncEngine._kd_fuse_device = timed_fuse
+    try:
+        runs = {}
+        for label, kw in (("sync-device warm-up", {"engine": "sync", "cloud_rounds": 1}),
+                          ("reference", {"engine": "reference", "cloud_rounds": 1}),
+                          ("sync-device", {"engine": "sync", "cloud_rounds": 2}),
+                          ("sync-host", {"engine": "sync", "pipeline": "host", "cloud_rounds": 2})):
+            fuse_events.clear()
+            runs[label] = _run_counted(sc, lam, f"mix {label}", **kw)
+            torch.cuda.synchronize()
+            fuse_s = [s.elapsed_time(e) / 1e3 for s, e in fuse_events]
+            rounds = runs[label][0].history
+            print(f"mix: {label} seconds per cloud round {[h.wall_seconds for h in rounds]}; fuse seconds per "
+                  f"cloud round (CUDA events) {fuse_s} [{smi}]", flush=True)
+            runs[label] += (fuse_s,)
+    finally:
+        BatchedSyncEngine._kd_fuse_device = real_fuse
+    (warm, warm_counts, _), (ref, ref_counts, _), (dev, dev_counts, dev_fuse), (host, host_counts, host_fuse) = (
+        runs.values())
+    for r in (warm, ref, dev, host):
+        _require(set(r.final_params) == {"cnn", "mlp"}, f"mix: final_params keys {set(r.final_params)}")
+    # each group's parameters within 5e-3: the rows hold both groups' trees
+    _agree("mix sync-device vs reference (1 round)", warm, ref, acc_tol)
+    _agree("mix sync-host vs sync-device (2 rounds)", host, dev, acc_tol)
+    _require(not any(ref_counts.values()), f"mix: a kernel launched under the readable simulator: {ref_counts}")
+    _require(dev_counts["hier_segment_aggregate"] == 2 * 2 and dev_counts["hier_aggregate"] == 2 * 2,
+             f"mix sync-device: launches {dev_counts}, expected 2 segment and 2 hier_aggregate a round")
+    groups = np.array([0] * MIX["cnn"] + [1] * MIX["mlp"])
+    cells = sum(int((lam[groups == g].sum(axis=0) > 0).sum()) for g in range(2))
+    _require(host_counts["hier_aggregate"] == 2 * (cells + 2) and host_counts["hier_segment_aggregate"] == 0,
+             f"mix sync-host: launches {host_counts}, expected {cells} (group, edge) cells + 2 a round")
+    _require(len(dev_fuse) == 2 and len(host_fuse) == 2, "mix: the fuse did not run once a cloud round")
+
+    out = {"seconds_per_round": {}, "fuse_s": dev_fuse, "card": smi,
+           "launches": {"sync-device, 2 rounds": dev_counts, "sync-host, 2 rounds": host_counts}}
+    out["seconds_per_round"]["sync-device"] = [h.wall_seconds for h in dev.history]
+    out["seconds_per_round"]["sync-host"] = [h.wall_seconds for h in host.history]
+    out["seconds_per_round"]["reference"] = [h.wall_seconds for h in ref.history]
+    for label, kw in (("async corner", {"quorum": 1.0, "staleness_decay": 1.0}), ("async defaults", {})):
+        eng = AsyncHFLEngine(sc.clients, lam, sc.program, sc.test, latency=sc.cost.latency,
+                             public_shards=sc.public, distill=sc.distill, **kw)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        res = eng.run(1)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        h = res.history[-1]
+        print(f"mix: {label} round 1 acc {h.test_acc:.6f} loss {h.mean_local_loss:.6f} seconds {h.wall_seconds:.4f} "
+              f"simulated {h.sim_seconds:.6f} aggregates {json.dumps(eng.aggregates)} launches {json.dumps(counts)} "
+              f"accountant {json.dumps(res.accountant.totals())} [{smi}]", flush=True)
+        _require(set(res.final_params) == {"cnn", "mlp"}, f"mix {label}: final_params {set(res.final_params)}")
+        _require(counts["hier_aggregate"] == eng.aggregates["flush"] + 2 == sum(eng.aggregates.values())
+                 and counts["hier_segment_aggregate"] == 0, f"mix {label}: launches {counts}, {eng.aggregates}")
+        for leaf in _leaves(res.final_params):
+            _require(bool(torch.isfinite(leaf).all()), f"mix {label}: non-finite parameters")
+        out["seconds_per_round"][label] = [h.wall_seconds for h in res.history]
+        out["launches"][f"{label}, 1 round"] = counts
+        if label == "async corner":
+            _agree("mix async corner vs sync-device (1 round)", res, warm, acc_tol, totals=False)
+
+    # the fuse alone at the engines' shapes: card against CPU, then its device ops
+    eng = BatchedSyncEngine(sc.clients, lam, sc.program, sc.test, public_shards=sc.public, distill=sc.distill)
+    rng = np.random.default_rng(0)
+    mats = [torch.as_tensor(rng.standard_normal((sc.n_edges, pk.dim)) * 0.05, dtype=torch.float32, device="cuda")
+            for pk in eng.packs]
+    idx = rng.integers(0, 15, (sc.n_edges, sc.distill.steps, sc.distill.batch))
+    xb = eng.public_store.gather(np.arange(sc.n_edges), idx)[0]
+    specs = [pk.spec for pk in eng.packs]
+    card, card_losses = distill_fuse_flat(eng.groups, specs, mats, xb, sc.distill)
+    cpu, cpu_losses = distill_fuse_flat(eng.groups, specs, [m.cpu() for m in mats], xb.cpu(), sc.distill)
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(card, cpu))
+    print(f"mix: distill_fuse_flat card vs CPU max |diff| {err:.3g}, losses {[float(v) for v in card_losses]} vs "
+          f"{[float(v) for v in cpu_losses]}", flush=True)
+    _require(err <= 1e-5, f"mix: the fuse on the card differs from the CPU by {err}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        distill_fuse_flat(eng.groups, specs, mats, xb, sc.distill)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    ops = sum(e.count for e in device)
+    busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in device)
+    print(f"mix: distill_fuse_flat device ops {ops}, device time {busy_us / 1e3:.3f} ms [{smi}]", flush=True)
+    out.update(fuse_device_ops=ops, fuse_device_ms=busy_us / 1e3 if busy_us > 0 else "not measured",
+               fuse_card_vs_cpu=err)
+
+    # one device-pipeline round under the profiler: the card's busy share
+    eng.run(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(1)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report_profile(prof, plain_wall, wall, f"mix: profile sync-device round [{smi}]")
     return out
 
 
@@ -1456,7 +1637,8 @@ def main(argv) -> int:
     d_model = tree_num_params(CNNProgram().init(torch.Generator().manual_seed(0)))
     layout = _build_report(log, so, 5, d_model)  # the cloud reduce phase 3 times
     sc, sca_lam = _heartbeat_scenario()
-    kern = _kernel_phase(rates[0], d_model, int(sca_lam.sum(axis=0).max()))
+    mix_sc, mix_lam, mix_ids = _mix_scenario()
+    kern = _kernel_phase(rates[0], d_model, int(sca_lam.sum(axis=0).max()), mix_ids)
     kern["agg"]["layout"] = layout
     kern["flash"] = _flash_phase(rates)
     kern["topk"] = _topk_phase(rates[0], kern["floor"])
@@ -1468,6 +1650,7 @@ def main(argv) -> int:
     host_launches = _engines_phase(sc, sca_lam)
     async_run = _async_phase(sc, sca_lam)
     stream_run = _stream_phase()
+    mix_run = _mix_phase(mix_sc, mix_lam)
     exact_variants = _serve_exactness()
     serve_counts, serve_variants = _serve_path()
     flash = kern["flash"]
@@ -1493,6 +1676,9 @@ def main(argv) -> int:
             big = stream_run[1_000_000]
             entry["stream"] = {**k["stream"], "launches_per_round": big["launches_per_round"][fn_name],
                                "seconds_per_round_1M": big["seconds_per_round"]}
+        if fn_name in HEARTBEAT_KERNELS:  # phase 6e: the groups' shapes timed in phase 3, launches per path
+            entry["mix"] = {"shapes": k["mix"], "launches": {
+                path: counts[fn_name] for path, counts in mix_run["launches"].items()}}
         if fn_name == "hier_aggregate":  # phases 6b (host pipeline) and 6c (async), beside phase 5's count
             entry["launches_host_pipeline"] = host_launches
             entry["launches_async_2_rounds"] = async_run["launches_2_rounds"]

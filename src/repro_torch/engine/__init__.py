@@ -29,7 +29,14 @@ module                role
                       streaming axis: a sampled cohort per edge round,
                       shards paged from a lazy source, O(cohort) device
                       state
+``distill``           distillation aggregation for heterogeneous-MODEL
+                      populations: per-architecture FedAvg stays flat, and
+                      each edge's group models are fused by ensemble logit
+                      distillation on a public shard (``DistillSpec``,
+                      ``distill_fuse_flat``, ``distill_edge``)
 ====================  =====================================================
+
+Mixed-model populations come from ``build_scenario(model_mix={...})``.
 """
 from repro_torch.engine.async_sim import AsyncHFLEngine
 from repro_torch.engine.cohort import (
@@ -38,7 +45,16 @@ from repro_torch.engine.cohort import (
     StreamCohortPlan,
     draw_batch_indices,
     make_job,
+    pack_for,
     run_cohorts,
+)
+from repro_torch.engine.distill import (
+    DistillSpec,
+    distill_edge,
+    distill_fuse_flat,
+    draw_public_batches,
+    kd_loss,
+    soft_targets,
 )
 from repro_torch.engine.events import Event, EventQueue
 from repro_torch.engine.flatten import (
@@ -59,6 +75,7 @@ __all__ = [
     "BatchedSyncEngine",
     "CohortPlan",
     "DeviceShardStore",
+    "DistillSpec",
     "Event",
     "EventQueue",
     "FlatPack",
@@ -69,9 +86,15 @@ __all__ = [
     "StreamSyncEngine",
     "compress_flat_rows",
     "compress_flat_upload",
+    "distill_edge",
+    "distill_fuse_flat",
     "draw_batch_indices",
+    "draw_public_batches",
     "flat_mean",
     "flat_segment_mean",
+    "kd_loss",
     "make_job",
+    "pack_for",
     "run_cohorts",
+    "soft_targets",
 ]

@@ -24,7 +24,11 @@ Wall clock is the simulated event time itself: ``SimResult.wall_seconds``
 measures what async buys over the synchronous max-latency model.
 
 Edge models live in one (E, D) matrix that owns its storage (a quorum
-flush writes one row in place).  Cohorts gather their batches from a
+flush writes one row in place); a heterogeneous-model population keeps one
+(E, D_g) matrix per architecture group, flushes average within a group
+(the quorum counts reporters of every group), and the cloud barrier fuses
+each edge's group models by distillation (``engine.distill``) before one
+cloud reduce per group.  Cohorts gather their batches from a
 ``DeviceShardStore`` (the GEMM-form step).  Every weighted average — the
 quorum flushes (N 1-6 rows), the DCA start means and the cloud reduce
 (N = edges) — goes through ``flat_mean``, so on the card each is one
@@ -47,6 +51,7 @@ from repro_torch.core.hfl import CommAccountant, HFLSchedule, ServerMomentum
 from repro_torch.data.synthetic_health import Dataset
 from repro_torch.device import configure_numerics, resolve_device
 from repro_torch.engine.cohort import LocalJob, build_group_state, make_job, run_cohorts
+from repro_torch.engine.distill import check_distillable, check_public_shards, distill_fuse_flat, draw_public_batches
 from repro_torch.engine.events import EventQueue
 from repro_torch.engine.flatten import BACKENDS, FlatPack, compress_flat_upload, flat_mean
 from repro_torch.engine.store import DeviceShardStore
@@ -57,9 +62,11 @@ from repro_torch.federated.simulation import (
     SimResult,
     check_cohort,
     evaluate,
+    hetero_final_params,
     initial_params,
     refuse_unported,
 )
+from repro_torch.utils.tree import tree_size_bytes
 
 
 @dataclasses.dataclass
@@ -95,16 +102,18 @@ class AsyncHFLEngine:
     cascades, energy, fading), ``cohort`` (a ``CohortSpec``, drawn once per
     cloud round at edge-round key 1, the members the sync engines train in
     their first edge round; needs ``upp=1.0``), ``server_momentum`` (cloud
-    momentum on the aggregated delta) and ``device`` (default "cuda";
-    raises without CUDA unless "cpu").  The reference's ``distill``,
-    ``telemetry`` and ``serve``, and populations of more than one program,
-    raise ``NotImplementedError`` naming their queued item.
+    momentum on the aggregated delta, one velocity per group),
+    ``public_shards`` and ``distill`` (the cloud barrier's distillation
+    fuse of a heterogeneous-model population; ignored for a homogeneous
+    one) and ``device`` (default "cuda"; raises without CUDA unless
+    "cpu").  The reference's ``telemetry`` and ``serve`` raise
+    ``NotImplementedError`` naming their queued item.
 
     The engine counts its own weighted averages in ``aggregates``
     (``"flush"``, ``"dca_start"``, ``"cloud_reduce"``: one
     ``hier_aggregate`` launch each on the card), the rows of each flush in
     ``flush_rows`` (N -> count) and its host-to-device weight copies in
-    ``weight_uploads``.
+    ``weight_uploads`` (a flush or a reduce is per group).
     """
 
     def __init__(
@@ -122,6 +131,7 @@ class AsyncHFLEngine:
         backhaul_s: float = 0.05,
         backend: str = "kernel",
         compression=None,
+        public_shards=None,
         distill=None,
         faults=None,
         telemetry=None,
@@ -130,7 +140,7 @@ class AsyncHFLEngine:
         serve=None,
         device="cuda",
     ):
-        refuse_unported(distill=distill, telemetry=telemetry, serve=serve)
+        refuse_unported(telemetry=telemetry, serve=serve)
         if not (0.0 < quorum <= 1.0):
             raise ValueError(f"quorum must be in (0, 1], got {quorum}")
         check_cohort(cohort, upp)
@@ -147,7 +157,6 @@ class AsyncHFLEngine:
         self.rng = np.random.default_rng(seed)
         self.upp = upp
         self.cohort = cohort
-        self._momentum = ServerMomentum(server_momentum)
         self.staleness_decay = staleness_decay
         self.quorum = quorum
         self.backhaul_s = backhaul_s
@@ -155,10 +164,19 @@ class AsyncHFLEngine:
         self.compression = compression
         self.params = initial_params(self.program, seed, self.device)
         self.pack = FlatPack(self.params)
-        gs = build_group_state(clients, self.program, self.params, self.pack, compression)
-        self.group_of = gs.group_of
-        self._model_bits, self._uplink_bits = gs.bits[0], gs.uplink_bits[0]
-        self.accountant = CommAccountant(model_bits=self._model_bits)
+        # architecture groups: one edge matrix, pack and payload per program
+        gs = build_group_state(clients, self.program, self.params, self.pack, seed, compression)
+        self.groups, self.group_of = gs.programs, gs.group_of
+        self.group_params, self.packs = gs.params, gs.packs
+        self._group_bits, self._uplink_bits = gs.bits, gs.uplink_bits
+        self._momentum = [ServerMomentum(server_momentum) for _ in self.groups]
+        self.distill = distill if len(self.groups) > 1 else None
+        self.public_store = None
+        if self.distill is not None:
+            check_public_shards(public_shards, self.assignment.shape[1])
+            check_distillable(self.groups)
+            self.public_store = DeviceShardStore.from_shards(public_shards, self.device)
+        self.accountant = CommAccountant(model_bits=tree_size_bytes(self.params) * 8)
         self.faults = faults
         self._lat = self.latency  # the round's faded latency under faults
         self._client_edges: Dict[int, List[int]] = {}
@@ -167,7 +185,7 @@ class AsyncHFLEngine:
         self._errors: Dict[int, torch.Tensor] = {}
         self.queue = EventQueue()
         self._losses: List[float] = []
-        self._edge_mat: Optional[torch.Tensor] = None
+        self._edge_mats: Optional[List[torch.Tensor]] = None  # per group, (E, D_g)
         self._ones = torch.ones(self.assignment.shape[1], device=self.device)
         # None when shard sizes are so skewed that padding would cost more
         # memory than the device gather saves: batches are then stacked on
@@ -189,15 +207,16 @@ class AsyncHFLEngine:
         self.flush_rows[len(rows)] += 1
         return flat_mean(torch.stack(rows), self._upload(weights), backend=self.backend)
 
-    def _start_mean(self, js: List[int]) -> torch.Tensor:
-        """A DCA client's start: the unweighted mean of its edges' models."""
+    def _start_mean(self, js: List[int], g: int) -> torch.Tensor:
+        """A DCA client's start: the unweighted mean of its edges' models of
+        its group ``g``."""
         self.aggregates["dca_start"] += 1
-        rows = torch.stack([self._edge_mat[j] for j in js])
+        rows = torch.stack([self._edge_mats[g][j] for j in js])
         return flat_mean(rows, self._ones[: len(js)], backend=self.backend)
 
-    def _cloud_mean(self, weights: torch.Tensor) -> torch.Tensor:
+    def _cloud_mean(self, g: int, weights: torch.Tensor) -> torch.Tensor:
         self.aggregates["cloud_reduce"] += 1
-        return flat_mean(self._edge_mat, weights, backend=self.backend)
+        return flat_mean(self._edge_mats[g], weights, backend=self.backend)
 
     # -- dispatch and transmission ------------------------------------------
     def _dispatch(self, client_ids: List[int], edges: Dict[int, _EdgeState]) -> None:
@@ -222,32 +241,36 @@ class AsyncHFLEngine:
             client_ids = live
         jobs: List[LocalJob] = []
         for i in client_ids:
+            g = int(self.group_of[i])
             js = self._client_edges[i]
-            start = self._edge_mat[js[0]] if len(js) == 1 else self._start_mean(js)
+            start = self._edge_mats[g][js[0]] if len(js) == 1 else self._start_mean(js, g)
             jobs.append(make_job(self.clients[i], start, self.rng, self.schedule.local_steps))
         trained = run_cohorts(jobs, self.program, self.pack, store=self.store)
         compressing = self.compression is not None and self.compression.kind != "none"
         for i, job in zip(client_ids, jobs):
+            g = int(self.group_of[i])
             js = self._client_edges[i]
             upd = trained.row(i)
             self._losses.append(trained.loss[i])
-            if not compressing and self.program.quantizes_upload:
-                upd = self.program.quantize_upload(job.start_flat, upd)
+            program = self.clients[i].program
+            if not compressing and program.quantizes_upload:
+                upd = program.quantize_upload(job.start_flat, upd)
             else:
                 upd = compress_flat_upload(self.compression, self._errors, i, job.start_flat, upd)
-            # each member edge sent a downlink copy; the uplink is ONE
-            # multicast (paper: ~3% overhead)
+            # each member edge sent a downlink copy of the group's model; the
+            # uplink is ONE multicast (paper: ~3% overhead)
+            bits = self._uplink_bits[g]
             mc = self.accountant.dca_multicast_overhead if len(js) > 1 else 0.0
-            self.accountant.on_eu_exchange(i, down_bits=self._model_bits * len(js))
+            self.accountant.on_eu_exchange(i, down_bits=self._group_bits[g] * len(js))
             if self.faults is None:
-                self.accountant.on_eu_exchange(i, up_bits=self._uplink_bits * (1.0 + mc))
+                self.accountant.on_eu_exchange(i, up_bits=bits * (1.0 + mc))
                 for j in js:
                     self.queue.push(
                         self.queue.now + float(self._lat[i, j]), "upload",
                         client=i, edge=j, row=upd, birth=edges[j].version,
                     )
             else:
-                self._transmit(i, js, upd, edges, self._uplink_bits * (1.0 + mc), self._uplink_bits)
+                self._transmit(i, js, upd, edges, bits * (1.0 + mc), bits)
 
     def _transmit(
         self, i: int, js: List[int], upd: torch.Tensor, edges: Dict[int, _EdgeState],
@@ -314,22 +337,34 @@ class AsyncHFLEngine:
 
     def _edge_aggregate(self, j: int, edge: _EdgeState) -> List[int]:
         """Staleness-weighted flush of edge ``j``; returns the clients to
-        redispatch.  The anchor row (the current edge model, weighted by
-        the members that have not reported) goes first and the reporters
-        follow by client id, so the kernel adds them in the reference's
-        order."""
-        rows, weights, reporters = [], [], []
-        for i, row, size, birth in sorted(edge.buffer, key=lambda u: u[0]):
-            rows.append(row)
-            weights.append(max(size, 1.0) * self.staleness_decay ** (edge.version - birth))
-            reporters.append(i)
-        if rows:
+        redispatch.  Uploads average within their architecture group (a CNN
+        row cannot average with an MLP row), the group's current edge model
+        anchoring for its members that have not reported; a group with no
+        upload keeps its model.  The anchor row goes first and the
+        reporters follow by client id, so the kernel adds them in the
+        reference's order."""
+        all_reporters: List[int] = []
+        for g in range(len(self.groups)):
+            rows, weights, reporters = [], [], []
+            for i, row, size, birth in sorted(edge.buffer, key=lambda u: u[0]):
+                if int(self.group_of[i]) != g:
+                    continue
+                rows.append(row)
+                weights.append(max(size, 1.0) * self.staleness_decay ** (edge.version - birth))
+                reporters.append(i)
+            if not rows:
+                continue
             reported = set(reporters)
-            anchor_w = float(sum(max(self.clients[i].data_size, 1.0) for i in edge.members if i not in reported))
+            anchor_w = float(sum(
+                max(self.clients[i].data_size, 1.0)
+                for i in edge.members if int(self.group_of[i]) == g and i not in reported
+            ))
             if anchor_w > 0:
-                rows = [self._edge_mat[j]] + rows
+                rows = [self._edge_mats[g][j]] + rows
                 weights = [anchor_w] + weights
-            self._edge_mat[j] = self._flush_mean(rows, weights)
+            self._edge_mats[g][j] = self._flush_mean(rows, weights)
+            all_reporters += reporters
+        if edge.buffer:
             edge.got = True
         edge.version += 1
         edge.rounds_done += 1
@@ -340,7 +375,7 @@ class AsyncHFLEngine:
             return []
         # a redispatched client trains once and uploads to all its member
         # edges (deduplicated: a client can buffer twice)
-        return sorted(set(reporters))
+        return sorted(set(all_reporters))
 
     # -- main loop ------------------------------------------------------------
     def _round_edges(self, participating: np.ndarray) -> Dict[int, _EdgeState]:
@@ -356,10 +391,12 @@ class AsyncHFLEngine:
 
     def run(self, cloud_rounds: int, eval_every: int = 1) -> SimResult:
         m, n = self.assignment.shape
+        n_groups = len(self.groups)
         history: List[RoundMetrics] = []
-        global_row = self.pack.ravel(self.params)
-        edge_sizes = group_edge_sizes(self.clients, self.assignment, self.group_of)[0]
-        edge_sizes_dev = self._upload(edge_sizes)
+        global_rows = [pk.ravel(t) for pk, t in zip(self.packs, self.group_params)]
+        edge_sizes = group_edge_sizes(self.clients, self.assignment, self.group_of)
+        edge_sizes_dev = [self._upload(w) for w in edge_sizes]
+        cloud_bits = None if n_groups == 1 else float(sum(self._group_bits))
         wall_accum = sim_accum = 0.0
         for b in range(1, cloud_rounds + 1):
             t_round = time.perf_counter()
@@ -368,8 +405,8 @@ class AsyncHFLEngine:
             self._losses = []
             if self.faults is not None:
                 if self._maybe_repair(b):
-                    edge_sizes = group_edge_sizes(self.clients, self.assignment, self.group_of)[0]
-                    edge_sizes_dev = self._upload(edge_sizes)
+                    edge_sizes = group_edge_sizes(self.clients, self.assignment, self.group_of)
+                    edge_sizes_dev = [self._upload(w) for w in edge_sizes]
                 # retry deadlines and the event clock read the round's faded channel
                 self._lat = self.faults.latency(b)
             if self.cohort is not None:
@@ -380,9 +417,10 @@ class AsyncHFLEngine:
                     participating[self.rng.integers(0, m)] = True
             if self.faults is not None:
                 participating &= self.faults.participation(b)
-            # every edge starts the cloud round from the global model, in a
-            # matrix that owns its rows (a flush writes one in place)
-            self._edge_mat = global_row.repeat(n, 1)
+            # every edge starts the cloud round from its group's global
+            # model, in matrices that own their rows (a flush writes one in
+            # place)
+            self._edge_mats = [row.repeat(n, 1) for row in global_rows]
             edges = self._round_edges(participating)
             client_ids = [i for i in range(m) if participating[i] and self.assignment[i].any()]
             self._client_edges = {i: [int(j) for j in np.nonzero(self.assignment[i])[0]] for i in client_ids}
@@ -410,26 +448,36 @@ class AsyncHFLEngine:
             # cloud barrier: every edge reported; drop in-flight stragglers
             self.queue.clear()
             self.queue.now = max(e.done_time for e in edges.values()) + self.backhaul_s
-            new_row = global_row
+            if self.distill is not None:
+                # fuse each edge's group models on its public shard before
+                # the per-group cloud reduce (edge-local: no EU traffic)
+                idx = draw_public_batches(self.rng, self.public_store.sizes, self.distill)
+                xb = self.public_store.gather(np.arange(n), idx)[0]
+                self._edge_mats, _ = distill_fuse_flat(
+                    self.groups, [pk.spec for pk in self.packs], self._edge_mats, xb, self.distill
+                )
+            new_rows = list(global_rows)
             if self.faults is not None:
                 # degraded reduce: starved edges weigh 0; a fully starved
-                # hierarchy keeps the global model
+                # hierarchy keeps every group's global model
                 got = np.array([edges[j].got for j in range(n)], bool)
-                gw = np.asarray(edge_sizes, np.float32) * got
-                if gw.any():
-                    new_row = self._cloud_mean(self._upload(gw))
+                if got.any():
+                    new_rows = [self._cloud_mean(g, self._upload(edge_sizes[g] * got)) for g in range(n_groups)]
             else:
-                new_row = self._cloud_mean(edge_sizes_dev)
-            global_row = self._momentum(global_row, new_row)
-            self.accountant.on_cloud_sync(n)
+                new_rows = [self._cloud_mean(g, edge_sizes_dev[g]) for g in range(n_groups)]
+            global_rows = [self._momentum[g](global_rows[g], new_rows[g]) for g in range(n_groups)]
+            self.accountant.on_cloud_sync(n, bits=cloud_bits)
             acc = None
             if b % eval_every == 0 or b == cloud_rounds:
-                acc = evaluate(self.pack.unravel(global_row), self.program, self.test)
+                acc = float(np.mean([
+                    evaluate(self.packs[g].unravel(global_rows[g]), self.groups[g], self.test) for g in range(n_groups)
+                ]))
             wall_accum += time.perf_counter() - t_round
             sim_accum += self.queue.now - sim0
             if acc is not None:
                 loss = float(np.mean(self._losses)) if self._losses else 0.0
                 history.append(RoundMetrics(b, acc, 0.0, loss, wall_seconds=wall_accum, sim_seconds=sim_accum))
                 wall_accum = sim_accum = 0.0
-        self.params = self.pack.unravel(global_row)
+        trees = [pk.unravel(row) for pk, row in zip(self.packs, global_rows)]
+        self.params = trees[0] if n_groups == 1 else hetero_final_params(self.groups, trees)
         return SimResult(history, self.accountant, self.params, wall_seconds=self.queue.now)

@@ -17,10 +17,15 @@ construction, batches gathered from a ``DeviceShardStore``), the host
 pipeline's ``LocalJob`` list through ``run_cohorts`` (grouping per round,
 batches stacked from the numpy shards), and the streaming engine's
 ``StreamCohortPlan`` (grouping per round from the shard sizes alone).
+
+A heterogeneous-model population (clients of more than one program) never
+stacks two architectures' rows: the program leads every cohort key, and
+``run_cohorts`` returns one block of rows per program.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -29,14 +34,26 @@ import torch
 from repro_torch.engine.flatten import FlatPack, ravel_batched, unravel_batched
 from repro_torch.federated.client import _BUCKETS, FLClient
 from repro_torch.federated.programs import ClientProgram, group_clients
-from repro_torch.utils.tree import TreeSpec, tree_map, tree_size_bytes
+from repro_torch.federated.simulation import initial_params
+from repro_torch.utils.tree import TreeSpec, tree_leaves, tree_map, tree_size_bytes
+
+
+@functools.lru_cache(maxsize=None)
+def pack_for(program: ClientProgram) -> FlatPack:
+    """The ``FlatPack`` of ``program``'s parameter layout, one per program
+    (a layout depends on the program alone, not on parameter values): for
+    the callers that meet a program through a client, not a constructor
+    argument (mixed-program cohorts, the engines' other groups)."""
+    return FlatPack(program.init(torch.Generator().manual_seed(0)))
 
 
 @dataclasses.dataclass
 class GroupState:
-    """Per-architecture-group engine state, one entry per distinct program
-    in first-appearance order.  This slice trains one architecture, so
-    every list holds one entry."""
+    """Per-architecture-group engine state (heterogeneous-model
+    federation), one entry per distinct client program in first-appearance
+    order: parameter trees, flat packs, model bits and the per-EU uplink
+    payload.  The sync and async engines both build it here, so the two
+    cannot drift apart."""
 
     programs: List[ClientProgram]
     group_of: np.ndarray  # (M,) client -> group index
@@ -46,25 +63,37 @@ class GroupState:
     uplink_bits: List[float]  # per-group EU->edge upload payload
 
 
-def build_group_state(clients, program: ClientProgram, params, pack: FlatPack, compression=None) -> GroupState:
-    """The single group of a population that trains one program.
+def build_group_state(
+    clients, program: ClientProgram, params, pack: FlatPack, seed: int, compression=None
+) -> GroupState:
+    """Partition ``clients`` by program and build each group's state.
 
-    The uplink payload is ``compression.bits`` of the flat (D,) row the
+    ``program`` / ``params`` / ``pack`` are the engine's own: the group of
+    ``program`` reuses them (which keeps a homogeneous run bit-identical to
+    the single-group engine), and every other group starts from
+    ``initial_params`` with the same ``seed``, on ``params``' device.  An
+    engine program that no client trains raises ``ValueError`` (the
+    accounting defaults would follow an unused model).  The uplink payload
+    is ``compression.bits`` of the group's flat (D_g,) row, the layout the
     engines compress (one global top-k, not the readable simulator's
-    per-leaf one) when a compression is given, else the program's own
-    (FedSGD's gradient payload, else the model)."""
+    per-leaf one), when a compression is given, else the program's own
+    (FedSGD's gradient payload, else the model).
+    """
     programs, group_of = group_clients(clients, fallback=program)
-    if programs != [program]:
-        raise NotImplementedError(
-            "populations of more than one client program (model_mix) are not "
-            "ported yet; see ROADMAP.md Queue 1, heterogeneous models"
+    if clients and program not in programs:
+        raise ValueError(
+            f"engine program {program.name!r} matches none of the clients' "
+            f"programs {[p.name for p in programs]}"
         )
-    bits = tree_size_bytes(params) * 8
+    device = tree_leaves(params)[0].device
+    group_params = [params if p == program else initial_params(p, seed, device) for p in programs]
+    packs = [pack if p == program else FlatPack(t) for p, t in zip(programs, group_params)]
+    bits = [tree_size_bytes(t) * 8 for t in group_params]
     if compression is not None and compression.kind != "none":
-        uplink = compression.bits(torch.zeros((pack.dim,), dtype=torch.float32))
+        uplink = [compression.bits(torch.zeros((pk.dim,), dtype=torch.float32)) for pk in packs]
     else:
-        uplink = program.uplink_bits(bits)
-    return GroupState([program], group_of, [params], [pack], [bits], [uplink])
+        uplink = [p.uplink_bits(b) for p, b in zip(programs, bits)]
+    return GroupState(programs, group_of, group_params, packs, bits, uplink)
 
 
 @dataclasses.dataclass
@@ -152,20 +181,35 @@ def _cohort_epoch_body(params, xb, yb, program: ClientProgram, n_steps: int, lr:
 
 @dataclasses.dataclass
 class CohortResult:
-    """The trained rows of one ``run_cohorts`` call: one (P, D) matrix (the
-    port trains one program per population), each client's row in it and
-    its loss (the mean over its last epoch's steps)."""
+    """The trained rows of one ``run_cohorts`` call, in one (P_b, D_b)
+    block per distinct program (rows of different architectures have
+    different widths), each client's (block, row) and its loss (the mean
+    over its last epoch's steps).  A single-program call has one block,
+    :attr:`matrix`."""
 
-    matrix: torch.Tensor
-    index: Dict[int, int]  # client id -> row
+    blocks: List[torch.Tensor]
+    index: Dict[int, Tuple[int, int]]  # client id -> (block, row)
     loss: Dict[int, float]
 
+    @property
+    def matrix(self) -> torch.Tensor:
+        """The one block of a single-program result."""
+        if len(self.blocks) != 1:
+            raise ValueError(
+                f"CohortResult holds {len(self.blocks)} program blocks; "
+                "use row()/gather() for mixed-program results"
+            )
+        return self.blocks[0]
+
     def row(self, cid: int) -> torch.Tensor:
-        return self.matrix[self.index[cid]]
+        b, r = self.index[cid]
+        return self.blocks[b][r]
 
     def gather(self, cids: Sequence[int]) -> torch.Tensor:
-        """(len(cids), D) rows, stacked from views: no index goes to the
-        device."""
+        """(len(cids), D) rows of one program block, stacked from views: no
+        index goes to the device."""
+        if len({self.index[c][0] for c in cids}) > 1:
+            raise ValueError("gather() tags span program blocks")
         return torch.stack([self.row(c) for c in cids])
 
 
@@ -179,35 +223,37 @@ def _stack_starts(jobs: Sequence[LocalJob]) -> torch.Tensor:
 def run_cohorts(
     jobs: Sequence[LocalJob], program: ClientProgram, pack: FlatPack, store=None, impl: str = "gemm"
 ) -> CohortResult:
-    """Train every job, same-shape jobs together as one cohort.
+    """Train every job, same-shape jobs of one program together as one
+    cohort.
 
-    Each epoch's batches are gathered on the device from ``store`` (a
-    ``DeviceShardStore``; only the sample indices go to the device), or,
-    with no store, stacked from the clients' numpy shards on the host and
-    uploaded: the same samples either way, so the result does not depend
-    on the route.  The cohort's rows carry across epochs.  Every job must
-    train ``program``: a mixed-program list raises
-    ``NotImplementedError`` (heterogeneous models are queued).
+    ``program`` / ``pack`` are the engine's own; a job whose client trains
+    another program (a heterogeneous-model population) uses that program's
+    ``pack_for`` and lands in its own result block, blocks in order of the
+    programs' first job.  Each epoch's batches are gathered on the device
+    from ``store`` (a ``DeviceShardStore``; only the sample indices go to
+    the device), or, with no store, stacked from the clients' numpy shards
+    on the host and uploaded: the same samples either way, so the result
+    does not depend on the route.  The cohort's rows carry across epochs.
     """
-    for job in jobs:
-        if job.client.program != program:
-            raise NotImplementedError(
-                "jobs of more than one client program (model_mix) are not ported "
-                "yet; see ROADMAP.md Queue 1 item 8, heterogeneous models"
-            )
     device = jobs[0].start_flat.device if jobs else torch.device("cpu")
+
+    def pack_of(prog):
+        return pack if prog == program else pack_for(prog)
+
+    block_of: Dict[ClientProgram, int] = {}
     groups: Dict[Tuple, List[LocalJob]] = {}
-    passthrough: List[LocalJob] = []
+    passthrough: Dict[ClientProgram, List[LocalJob]] = {}
     for job in jobs:
+        block_of.setdefault(job.client.program, len(block_of))
         if job.steps == 0:  # empty shard: the start row passes through
-            passthrough.append(job)
+            passthrough.setdefault(job.client.program, []).append(job)
         else:
             groups.setdefault(job.key, []).append(job)
-    mats: List[torch.Tensor] = []
-    index: Dict[int, int] = {}
+    mats: Dict[ClientProgram, List[torch.Tensor]] = {p: [] for p in block_of}
+    offsets: Dict[ClientProgram, int] = {p: 0 for p in block_of}
+    index: Dict[int, Tuple[int, int]] = {}
     loss_of: Dict[int, float] = {}
-    offset = 0
-    for (_, steps, epochs, _, lr), members in groups.items():
+    for (prog, steps, epochs, _, lr), members in groups.items():
         flat = _stack_starts(members)
         cids = [j.client.cid for j in members]
         for e in range(epochs):
@@ -216,21 +262,23 @@ def run_cohorts(
             else:
                 xb = torch.as_tensor(np.stack([j.client.shard.x[j.idx[e]] for j in members]), device=device)
                 yb = torch.as_tensor(np.stack([j.client.shard.y[j.idx[e]] for j in members]), device=device)
-            flat, loss = _cohort_epoch_flat(flat, xb, yb, pack.spec, program, steps, lr, impl=impl)
-        mats.append(flat)
+            flat, loss = _cohort_epoch_flat(flat, xb, yb, pack_of(prog).spec, prog, steps, lr, impl=impl)
+        mats[prog].append(flat)
         loss = loss.cpu().numpy()
         for c, job in enumerate(members):
-            index[job.client.cid] = offset + c
+            index[job.client.cid] = (block_of[prog], offsets[prog] + c)
             loss_of[job.client.cid] = float(loss[c])
-        offset += len(members)
-    if passthrough:
-        mats.append(_stack_starts(passthrough))
-        for c, job in enumerate(passthrough):
-            index[job.client.cid] = offset + c
+        offsets[prog] += len(members)
+    for prog, jobs_pt in passthrough.items():
+        mats[prog].append(_stack_starts(jobs_pt))
+        for c, job in enumerate(jobs_pt):
+            index[job.client.cid] = (block_of[prog], offsets[prog] + c)
             loss_of[job.client.cid] = 0.0
-    if not mats:
-        return CohortResult(torch.zeros((0, pack.dim), dtype=torch.float32, device=device), {}, {})
-    return CohortResult(mats[0] if len(mats) == 1 else torch.cat(mats, dim=0), index, loss_of)
+        offsets[prog] += len(jobs_pt)
+    if not block_of:
+        return CohortResult([torch.zeros((0, pack.dim), dtype=torch.float32, device=device)], {}, {})
+    blocks = [torch.cat(m, dim=0) if len(m) > 1 else m[0] for m in mats.values()]
+    return CohortResult(blocks, index, loss_of)
 
 
 @dataclasses.dataclass

@@ -85,9 +85,11 @@ class DeviceShardStore:
 
     def gather(self, cids, idx) -> Tuple[torch.Tensor, torch.Tensor]:
         """cids: (C,) client ids; idx: (C, steps, batch) in-shard indices ->
-        (C, steps, batch, *feat) batches and (C, steps, batch) labels."""
-        c = torch.as_tensor(np.asarray(cids, np.int64), device=self.device)[:, None, None]
-        i = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
+        (C, steps, batch, *feat) batches and (C, steps, batch) labels.  The
+        indices go to the device from pinned memory: the host does not wait
+        for the card."""
+        c = upload(np.asarray(cids, np.int64), self.device)[:, None, None]
+        i = upload(np.asarray(idx, np.int64), self.device)
         return self.x[c, i], self.y[c, i]
 
 

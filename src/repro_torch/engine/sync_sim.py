@@ -46,6 +46,18 @@ all cloud round 0 in the cloud reduce, by a mask kept on the device.
 edge round, drawn from its keyed side-channel generator in place of the UPP
 draw (the engine RNG is not consumed); ``server_momentum`` applies cloud
 momentum to the aggregated delta of the global row.
+
+Heterogeneous-model federation: clients may carry different programs.
+Every structure above is then kept per architecture group (one (E, D_g)
+edge matrix, the group's membership pairs, one segment launch per group
+per edge round, one cloud reduce per group, one starved-edge mask and one
+momentum velocity per group), and once per cloud round, between the edge
+rounds and the cloud reduce, each edge's group models are fused by logit
+distillation on its public shard (``engine.distill``; ``distill=`` and
+``public_shards=``).  A homogeneous population is the one-group corner of
+the same code, so its runs are those of the single-program engine.
+Inside a device-pipeline edge round the host uploads from pinned memory
+and never waits for the card.
 """
 from __future__ import annotations
 
@@ -57,7 +69,7 @@ import torch
 
 from repro_torch.core.hfl import CommAccountant, HFLSchedule, ServerMomentum, WallClock, weight_divergence
 from repro_torch.data.synthetic_health import Dataset
-from repro_torch.device import configure_numerics, resolve_device
+from repro_torch.device import configure_numerics, resolve_device, upload
 from repro_torch.engine.cohort import (
     CohortPlan,
     _cohort_epoch_flat,
@@ -65,6 +77,7 @@ from repro_torch.engine.cohort import (
     make_job,
     run_cohorts,
 )
+from repro_torch.engine.distill import check_distillable, check_public_shards, distill_fuse_flat, draw_public_batches
 from repro_torch.engine.flatten import (
     BACKENDS,
     FlatPack,
@@ -82,9 +95,11 @@ from repro_torch.federated.simulation import (
     central_reference_step,
     check_cohort,
     evaluate,
+    hetero_final_params,
     initial_params,
     pooled_dataset,
 )
+from repro_torch.utils.tree import tree_size_bytes
 
 PIPELINES = ("device", "host")
 
@@ -97,21 +112,26 @@ def _segment_agg_keep(upd, seg_ids, weights, has, prev, n_segments: int, backend
 
 
 class BatchedSyncEngine:
-    """Batched synchronous engine over one client program.
+    """Batched synchronous engine.
 
     Knobs: ``pipeline`` ("device" | "host"; the reference's "mesh" is not
     ported yet), ``backend`` ("kernel" | "reference"), ``upp`` (per-round
     participation probability in (0, 1]), ``track_divergence`` (the
     distance to a virtual centralized model, eq. 17, stepped from the
-    engine RNG after each cloud reduce as in the reference),
-    ``cost_latency`` (an (M, N) latency matrix for the ``WallClock``),
-    ``compression``, ``faults``, ``cohort`` and ``server_momentum`` (see
-    the module docstring; a cohort needs ``upp=1.0``), and ``device``
+    engine RNG after each cloud reduce as in the reference; one program
+    group only), ``cost_latency`` (an (M, N) latency matrix for the
+    ``WallClock``), ``compression``, ``faults``, ``cohort`` and
+    ``server_momentum`` (see the module docstring; a cohort needs
+    ``upp=1.0``), ``public_shards`` and ``distill`` (the distillation fuse
+    of a heterogeneous-model population: one public ``Dataset`` per edge
+    and a ``DistillSpec``; ignored for a homogeneous one), and ``device``
     (default "cuda"; raises without CUDA unless "cpu").
 
-    Initial parameters come from ``program.init`` with a
-    ``torch.Generator`` seeded from ``seed``, drawn on the CPU, as the
-    readable simulator draws them.
+    ``program`` is the engine's own program; the clients may carry others,
+    and the population then splits into one group per program (the
+    engine's program must be one of them).  Initial parameters come from
+    each program's ``init`` with a ``torch.Generator`` seeded from
+    ``seed``, drawn on the CPU, as the readable simulator draws them.
     """
 
     def __init__(
@@ -129,6 +149,8 @@ class BatchedSyncEngine:
         backend: str = "kernel",
         compression=None,
         pipeline: str = "device",
+        public_shards=None,
+        distill=None,
         faults=None,
         cohort=None,
         server_momentum: float = 0.0,
@@ -151,27 +173,42 @@ class BatchedSyncEngine:
         self.rng = np.random.default_rng(seed)
         self.upp = upp
         self.cohort = cohort
-        self._momentum = ServerMomentum(server_momentum)
         self.backend = backend
         self.pipeline = pipeline
         self.params = initial_params(self.program, seed, self.device)
         self.pack = FlatPack(self.params)
         self.compression = compression
-        gs = build_group_state(clients, self.program, self.params, self.pack, compression)
-        self.group_of = gs.group_of
-        self._uplink_bits = gs.uplink_bits[0]
-        self.accountant = CommAccountant(model_bits=gs.bits[0])
+        # architecture groups: one of everything below per distinct program
+        gs = build_group_state(clients, self.program, self.params, self.pack, seed, compression)
+        self.groups, self.group_of = gs.programs, gs.group_of
+        self.group_params, self.packs = gs.params, gs.packs
+        self._group_bits, self._uplink_bits = gs.bits, gs.uplink_bits
+        self._group_index = {p: g for g, p in enumerate(self.groups)}
+        n_groups = len(self.groups)
+        self._momentum = [ServerMomentum(server_momentum) for _ in range(n_groups)]
+        self.distill = distill if n_groups > 1 else None
+        self.public_store = None
+        if self.distill is not None:
+            check_public_shards(public_shards, np.asarray(assignment).shape[1])
+            check_distillable(self.groups)
+            self.public_store = DeviceShardStore.from_shards(public_shards, self.device)
+        self.accountant = CommAccountant(model_bits=tree_size_bytes(self.params) * 8)
         self.clock = WallClock(cost_latency) if cost_latency is not None else None
         self.track_divergence = track_divergence
         if track_divergence:
+            if n_groups > 1:
+                raise ValueError(
+                    "track_divergence is defined against ONE virtual central model; "
+                    "heterogeneous-model populations have no such reference"
+                )
             self.central_params = self.params
             self.central_data = pooled_dataset(clients, self.program.n_classes)
             self.central_batch = central_batch
         self.faults = faults
         self._round = 0
         self._er = 0  # edge round within the current cloud round
-        # fault-injected runs: the edges that aggregated an upload this
-        # cloud round, on the host and as a device mask
+        # fault-injected runs: per group, the edges that aggregated an upload
+        # this cloud round, on the host and as a device mask
         self._edge_got = None
         self._got_dev = None
         self._errors: Dict[int, torch.Tensor] = {}  # compression error feedback
@@ -188,17 +225,24 @@ class BatchedSyncEngine:
             self._ones_dev = torch.ones(self.assignment.shape[1], device=self.device)
 
     def _build_pair_structure(self, assignment) -> None:
-        """The (client, edge) membership pairs in client-major order and
-        the single-connectivity fast-path indices."""
+        """The (client, edge) membership pairs in client-major order, their
+        restriction to each architecture group (a group's segment launch
+        sees only its own clients' rows) and the single-connectivity
+        fast-path indices."""
         asn = np.asarray(assignment)
         self.assignment = asn
         pc, pe = np.nonzero(asn)
         self._pair_clients = pc.astype(np.int64)
         self._pair_edges = pe.astype(np.int64)
         dev = self.device
-        self._pair_clients_dev = torch.as_tensor(self._pair_clients, device=dev)
-        self._pair_edges_dev = torch.as_tensor(self._pair_edges, device=dev)
+        self._pair_clients_dev = upload(self._pair_clients, dev)
+        self._pair_edges_dev = upload(self._pair_edges, dev)
         self._pair_ones = torch.ones(len(pc), dtype=torch.float32, device=dev)
+        self._gpairs = []
+        for g in range(len(self.groups)):
+            gm = self.group_of[pc] == g
+            pe_g = self._pair_edges[gm]
+            self._gpairs.append((self._pair_clients[gm], pe_g, upload(pe_g, dev)))
         self._has_edge = asn.any(axis=1)
         # with single connectivity every start IS an edge row: one gather
         self._single_edge = bool((asn.sum(axis=1) <= 1).all())
@@ -235,12 +279,13 @@ class BatchedSyncEngine:
         return participating, failed
 
     def _cloud_mean(self, edge_mat: torch.Tensor, weights) -> torch.Tensor:
-        """Cloud FedAvg of the (E, D) edge matrix (paper eq. 9)."""
+        """Cloud FedAvg of one group's (E, D) edge matrix (paper eq. 9)."""
         return flat_mean(edge_mat, weights, backend=self.backend)
 
     def _client_starts(self, edge_mat: torch.Tensor) -> torch.Tensor:
         """(M, D) DCA start rows: each client's unweighted mean of its edges'
-        models, one segment call with segments = clients over the pairs."""
+        models, one segment call with segments = clients over the pairs
+        (the rows of clients outside ``edge_mat``'s group are never read)."""
         return flat_segment_mean(
             edge_mat[self._pair_edges_dev],
             self._pair_clients_dev,
@@ -250,92 +295,110 @@ class BatchedSyncEngine:
         )
 
     def _edge_account(self, participating: np.ndarray, failed) -> None:
-        """Charge one edge round.  A lost upload leaves the useful totals
-        and is charged as wasted bits; the straggler clock and the energy
-        debit still see every EU that attempted."""
+        """Charge one edge round: each group's EUs pay that group's uplink
+        and downlink (one masked ``on_edge_sync`` per group; the round
+        counts once).  A lost upload leaves the useful totals and is
+        charged as wasted bits; the straggler clock and the energy debit
+        still see every EU that attempted."""
         success = participating if failed is None else participating & ~failed
-        self.accountant.on_edge_sync(self.assignment * success[:, None], uplink_bits=self._uplink_bits)
+        n_groups = len(self.groups)
+        for g in range(n_groups):
+            mask = (self.group_of == g) & success
+            self.accountant.on_edge_sync(
+                self.assignment * mask[:, None],
+                uplink_bits=self._uplink_bits[g],
+                downlink_bits=None if n_groups == 1 else self._group_bits[g],
+                count_round=(g == 0),
+            )
         if failed is not None:
             mc = self.accountant.dca_multicast_overhead
             for i in np.nonzero(failed)[0]:
                 k = int(np.count_nonzero(self.assignment[i]))
                 if k:
                     self.accountant.on_wasted_upload(
-                        int(i), self._uplink_bits * (1.0 + (mc if k > 1 else 0.0)), kind="dropped"
+                        int(i), self._uplink_bits[self.group_of[i]] * (1.0 + (mc if k > 1 else 0.0)), kind="dropped"
                     )
         if self.faults is not None:
             self.faults.debit_round(self._round, participating, self.assignment)
         if self.clock is not None:
             self.clock.on_edge_sync(self.assignment, participating)
 
-    def _edge_round_device(self, edge_mat: torch.Tensor):
-        """One edge round; returns the new (E, D) edge matrix and the
-        per-cohort (C,) losses (still on the device)."""
+    def _edge_round_device(self, edge_mats: List[torch.Tensor]):
+        """One edge round; returns the new per-group (E, D_g) edge matrices
+        and the per-cohort (C,) losses (still on the device).  Every index
+        and weight goes to the card from pinned memory, so the host never
+        waits for it here."""
         m, n = self.assignment.shape
+        dev = self.device
         participating, failed = self._draw_participation(m)
         active = self._has_edge & participating
         # the plan's draw consumes the RNG in client order, like the reference
         groups, passthrough = self._plan.draw(self.rng, active, self.schedule.local_steps)
-        starts_full = None
+        starts_full: Dict[int, torch.Tensor] = {}
 
-        def starts_for(ids: np.ndarray) -> torch.Tensor:
-            nonlocal starts_full
+        def starts_for(ids: np.ndarray, g: int) -> torch.Tensor:
             if self._single_edge:
-                return edge_mat[torch.as_tensor(self._client_edge[ids], device=self.device)]
-            if starts_full is None:
-                starts_full = self._client_starts(edge_mat)
-            return starts_full[torch.as_tensor(ids, device=self.device)]
+                return edge_mats[g][upload(self._client_edge[ids], dev)]
+            if g not in starts_full:
+                starts_full[g] = self._client_starts(edge_mats[g])
+            return starts_full[g][upload(ids, dev)]
 
-        mats: List[torch.Tensor] = []
+        # cohorts and rows are kept per architecture group throughout
+        mats: List[List[torch.Tensor]] = [[] for _ in self.groups]
         loss_chunks: List[torch.Tensor] = []
         row_of = np.zeros(m, np.int64)
-        offset = 0
-        for g in groups:
-            flat = starts_for(g.members)
-            for e in range(g.epochs):
-                xb, yb = self.store.gather(g.members, g.idx[:, e])
-                flat, loss = _cohort_epoch_flat(
-                    flat, xb, yb, self.pack.spec, g.program, g.steps, g.lr
-                )
-            mats.append(flat)
+        offsets = [0] * len(self.groups)
+        for grp in groups:
+            gi = self._group_index[grp.program]
+            flat = starts_for(grp.members, gi)
+            for e in range(grp.epochs):
+                xb, yb = self.store.gather(grp.members, grp.idx[:, e])
+                flat, loss = _cohort_epoch_flat(flat, xb, yb, self.packs[gi].spec, grp.program, grp.steps, grp.lr)
+            mats[gi].append(flat)
             loss_chunks.append(loss)
-            row_of[g.members] = np.arange(offset, offset + len(g.members))
-            offset += len(g.members)
-        if len(passthrough):  # empty shards upload their start row untouched
-            mats.append(starts_for(passthrough))
-            loss_chunks.append(torch.zeros(len(passthrough), device=self.device))
-            row_of[passthrough] = np.arange(offset, offset + len(passthrough))
-            offset += len(passthrough)
-        if active.any():
-            upd_matrix = torch.cat(mats, dim=0) if len(mats) > 1 else mats[0]
-            compressing = self.compression is not None and self.compression.kind != "none"
-            if compressing or self.program.quantizes_upload:
-                job_cids = np.nonzero(active)[0]
-                trained = upd_matrix[torch.as_tensor(row_of[job_cids], device=self.device)]
+            row_of[grp.members] = np.arange(offsets[gi], offsets[gi] + len(grp.members))
+            offsets[gi] += len(grp.members)
+        for gi in range(len(self.groups)):  # empty shards upload their start row untouched
+            pt = passthrough[self.group_of[passthrough] == gi]
+            if len(pt):
+                mats[gi].append(starts_for(pt, gi))
+                loss_chunks.append(torch.zeros(len(pt), device=dev))
+                row_of[pt] = np.arange(offsets[gi], offsets[gi] + len(pt))
+                offsets[gi] += len(pt)
+        compressing = self.compression is not None and self.compression.kind != "none"
+        agg_mask = participating if failed is None else participating & ~failed
+        for gi, prog in enumerate(self.groups):
+            job_cids = np.nonzero(active & (self.group_of == gi))[0]
+            if not len(job_cids):
+                continue  # no member of this group trained this round
+            upd_matrix = torch.cat(mats[gi], dim=0) if len(mats[gi]) > 1 else mats[gi][0]
+            if compressing or prog.quantizes_upload:
+                trained = upd_matrix[upload(row_of[job_cids], dev)]
                 if compressing:
-                    upd_matrix = self._compress_rows(job_cids, starts_for(job_cids), trained, failed)
+                    upd_matrix = self._compress_rows(job_cids, starts_for(job_cids, gi), trained, failed)
                 else:
                     # the program's upload transform (FedSGD's fp16
                     # gradients): one batched op over the (C, D) rows
-                    upd_matrix = self.program.quantize_upload(starts_for(job_cids), trained)
+                    upd_matrix = prog.quantize_upload(starts_for(job_cids, gi), trained)
                 row_of[job_cids] = np.arange(len(job_cids))
-            pc, pe = self._pair_clients, self._pair_edges
-            part_pairs = (participating if failed is None else participating & ~failed)[pc]
-            take = row_of[pc]
+            # every edge's FedAvg of this group in ONE segment call
+            pc_g, pe_g, pe_g_dev = self._gpairs[gi]
+            part_pairs = agg_mask[pc_g]
+            take = row_of[pc_g]
             if len(take) == upd_matrix.shape[0] and np.array_equal(take, np.arange(len(take))):
                 upd = upd_matrix  # rows already in pair order: skip the gather
             else:
-                upd = upd_matrix[torch.as_tensor(take, device=self.device)]
-            # edges with no participant keep their previous model
-            has = np.bincount(pe, weights=part_pairs, minlength=n) > 0
-            w = torch.as_tensor(self._data_sizes[pc] * part_pairs, device=self.device)
-            has_dev = torch.as_tensor(has, device=self.device)
-            edge_mat = _segment_agg_keep(upd, self._pair_edges_dev, w, has_dev, edge_mat, n, self.backend)
+                upd = upd_matrix[upload(take, dev)]
+            # edges with no participant of this group keep its previous model
+            has = np.bincount(pe_g, weights=part_pairs, minlength=n) > 0
+            w = upload(self._data_sizes[pc_g] * part_pairs, dev)
+            has_dev = upload(has, dev)
+            edge_mats[gi] = _segment_agg_keep(upd, pe_g_dev, w, has_dev, edge_mats[gi], n, self.backend)
             if self._edge_got is not None:
-                self._edge_got |= has
-                self._got_dev |= has_dev
+                self._edge_got[gi] |= has
+                self._got_dev[gi] |= has_dev
         self._edge_account(participating, failed)
-        return edge_mat, loss_chunks
+        return edge_mats, loss_chunks
 
     def _compress_rows(self, job_cids: np.ndarray, starts: torch.Tensor, trained: torch.Tensor, failed):
         """The participants' (C, D) uploads under the compression, in one
@@ -346,13 +409,14 @@ class BatchedSyncEngine:
             return compress_flat_rows(self.compression, self._errors, job_cids.tolist(), starts, trained)
         if not keep.any():
             return trained
-        sel = torch.as_tensor(np.nonzero(keep)[0], device=self.device)
+        sel = upload(np.nonzero(keep)[0], self.device)
         rows = compress_flat_rows(self.compression, self._errors, job_cids[keep].tolist(), starts[sel], trained[sel])
         return trained.index_copy(0, sel, rows)
 
-    def _edge_round_host(self, edge_rows: List[torch.Tensor]) -> List[float]:
-        """One edge round, host pipeline; updates ``edge_rows`` (one (D,)
-        row per edge) in place and returns the participants' losses."""
+    def _edge_round_host(self, edge_rows: List[List[torch.Tensor]]) -> List[float]:
+        """One edge round, host pipeline; updates ``edge_rows`` (per group,
+        one (D_g,) row per edge) in place and returns the participants'
+        losses.  One ``flat_mean`` per (group, edge) cell with uploads."""
         m, n = self.assignment.shape
         participating, failed = self._draw_participation(m)
         # job prep consumes the RNG in client order, like the reference
@@ -361,40 +425,58 @@ class BatchedSyncEngine:
             edges = np.nonzero(self.assignment[i])[0]
             if len(edges) == 0 or not participating[i]:
                 continue
+            rows = edge_rows[self.group_of[i]]
             # a DCA client starts from the average of its edges' models
-            start = edge_rows[edges[0]] if len(edges) == 1 else flat_mean(
-                torch.stack([edge_rows[j] for j in edges]), self._ones_dev[: len(edges)], backend=self.backend
+            start = rows[edges[0]] if len(edges) == 1 else flat_mean(
+                torch.stack([rows[j] for j in edges]), self._ones_dev[: len(edges)], backend=self.backend
             )
             jobs.append(make_job(cl, start, self.rng, epochs=self.schedule.local_steps))
             job_edges.append(edges)
         trained = run_cohorts(jobs, self.program, self.pack, impl="xla")
         compressing = self.compression is not None and self.compression.kind != "none"
-        transforming = compressing or self.program.quantizes_upload
         losses: List[float] = []
-        uploads: Dict[int, List[int]] = {}
-        rows: Dict[int, List[torch.Tensor]] = {}
+        uploads: Dict[tuple, List[int]] = {}
+        rows: Dict[tuple, List[torch.Tensor]] = {}
         for job, edges in zip(jobs, job_edges):
             cid = job.client.cid
+            gi = self.group_of[cid]
             losses.append(trained.loss[cid])
             if failed is not None and failed[cid]:
                 continue  # trained, transmitted, lost: masked out of FedAvg
+            prog = job.client.program
+            transforming = compressing or prog.quantizes_upload
             if compressing:
                 row = compress_flat_upload(self.compression, self._errors, cid, job.start_flat, trained.row(cid))
             elif transforming:
-                row = self.program.quantize_upload(job.start_flat, trained.row(cid))
+                row = prog.quantize_upload(job.start_flat, trained.row(cid))
             for j in edges:
-                uploads.setdefault(j, []).append(cid)
+                uploads.setdefault((j, gi), []).append(cid)
                 if transforming:
-                    rows.setdefault(j, []).append(row)
-        for j, cids in uploads.items():
-            mat = torch.stack(rows[j]) if transforming else trained.gather(cids)
+                    rows.setdefault((j, gi), []).append(row)
+        for (j, gi), cids in uploads.items():
+            mat = torch.stack(rows[(j, gi)]) if (j, gi) in rows else trained.gather(cids)
             weights = torch.stack([self._sizes_dev[c] for c in cids])
-            edge_rows[j] = flat_mean(mat, weights, backend=self.backend)
+            edge_rows[gi][j] = flat_mean(mat, weights, backend=self.backend)
             if self._edge_got is not None:
-                self._edge_got[j] = True
-                self._got_dev[j] = True
+                self._edge_got[gi][j] = True
+                self._got_dev[gi][j] = True
         self._edge_account(participating, failed)
         return losses
+
+    def _kd_fuse_device(self, edge_mats: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Fuse every edge's group models on its public shard: the public
+        batches are drawn from the engine RNG and gathered from the public
+        store in one call."""
+        n = self.assignment.shape[1]
+        idx = draw_public_batches(self.rng, self.public_store.sizes, self.distill)
+        xb = self.public_store.gather(np.arange(n), idx)[0]  # (E, steps, B, *feat)
+        fused, _ = distill_fuse_flat(self.groups, [pk.spec for pk in self.packs], edge_mats, xb, self.distill)
+        return fused
+
+    def _kd_fuse_host(self, edge_rows: List[List[torch.Tensor]]) -> List[List[torch.Tensor]]:
+        """The host pipeline's fuse: the same flat fuse over stacked rows."""
+        fused = self._kd_fuse_device([torch.stack(rows) for rows in edge_rows])
+        return [list(mat.unbind(0)) for mat in fused]
 
     def _central_step(self) -> None:
         self.central_params = central_reference_step(
@@ -402,28 +484,31 @@ class BatchedSyncEngine:
             device=self.device,
         )
 
-    def _cloud_weights(self) -> torch.Tensor:
-        """The cloud FedAvg weights on the device: uploaded once per run
-        (and again after a reassignment), so that no cloud round's reduce
-        waits on a host-to-device copy."""
-        return torch.as_tensor(group_edge_sizes(self.clients, self.assignment, self.group_of)[0], device=self.device)
+    def _cloud_weights(self) -> List[torch.Tensor]:
+        """The cloud FedAvg weights of each group on the device: uploaded
+        once per run (and again after a reassignment), so that no cloud
+        round's reduce waits on a host-to-device copy."""
+        sizes = group_edge_sizes(self.clients, self.assignment, self.group_of)
+        return [torch.as_tensor(w, device=self.device) for w in sizes]
 
-    def _cloud_reduce(self, edge_mat: torch.Tensor, edge_sizes: torch.Tensor, global_row: torch.Tensor):
-        """The cloud FedAvg.  Under faults an edge that aggregated nothing
-        all cloud round weighs 0, through the device mask (no upload), and
-        when every edge starved the global row stands (the host mask
-        decides that)."""
+    def _cloud_reduce(self, edge_mat: torch.Tensor, edge_sizes: torch.Tensor, global_row: torch.Tensor, g: int):
+        """Group ``g``'s cloud FedAvg.  Under faults an edge that aggregated
+        nothing of the group all cloud round weighs 0, through the group's
+        device mask (no upload), and when every edge starved the group's
+        global row stands (the host mask decides that)."""
         if self.faults is None:
             return self._cloud_mean(edge_mat, edge_sizes)
-        if not self._edge_got.any():
+        if not self._edge_got[g].any():
             return global_row
-        return self._cloud_mean(edge_mat, edge_sizes * self._got_dev)
+        return self._cloud_mean(edge_mat, edge_sizes * self._got_dev[g])
 
     def run(self, cloud_rounds: int, eval_every: int = 1) -> SimResult:
         n = self.assignment.shape[1]
+        n_groups = len(self.groups)
         history: List[RoundMetrics] = []
-        global_row = self.pack.ravel(self.params)
+        global_rows = [pk.ravel(t) for pk, t in zip(self.packs, self.group_params)]
         edge_sizes = self._cloud_weights()
+        cloud_bits = None if n_groups == 1 else float(sum(self._group_bits))
         wall_accum = sim_accum = 0.0
         for b in range(1, cloud_rounds + 1):
             t_round = time.perf_counter()
@@ -432,30 +517,37 @@ class BatchedSyncEngine:
             if self.faults is not None:
                 if self._maybe_repair(b):
                     edge_sizes = self._cloud_weights()
-                self._edge_got = np.zeros(n, bool)
-                self._got_dev = torch.zeros(n, dtype=torch.bool, device=self.device)
+                self._edge_got = [np.zeros(n, bool) for _ in range(n_groups)]
+                self._got_dev = [torch.zeros(n, dtype=torch.bool, device=self.device) for _ in range(n_groups)]
                 if self.clock is not None:
                     # the straggler model reads the round's faded channel
                     self.clock.latency = self.faults.latency(b)
             if self.pipeline == "device":
                 chunks: List[torch.Tensor] = []
-                edge_mat = global_row[None, :].expand(n, -1)
+                edge_mats = [row[None, :].expand(n, -1) for row in global_rows]
                 for k in range(self.schedule.edge_per_cloud):
                     self._er = k + 1
-                    edge_mat, round_chunks = self._edge_round_device(edge_mat)
+                    edge_mats, round_chunks = self._edge_round_device(edge_mats)
                     chunks += round_chunks
-                new_row = self._cloud_reduce(edge_mat, edge_sizes, global_row)
+                if self.distill is not None:
+                    edge_mats = self._kd_fuse_device(edge_mats)
                 loss_host = _mean_loss(chunks)
             else:
                 losses: List[float] = []
-                edge_rows = [global_row] * n
+                edge_rows = [[row] * n for row in global_rows]
                 for k in range(self.schedule.edge_per_cloud):
                     self._er = k + 1
                     losses += self._edge_round_host(edge_rows)
-                new_row = self._cloud_reduce(torch.stack(edge_rows), edge_sizes, global_row)
+                if self.distill is not None:
+                    edge_rows = self._kd_fuse_host(edge_rows)
+                edge_mats = [torch.stack(rows) for rows in edge_rows]
                 loss_host = float(np.mean(losses)) if losses else 0.0
-            global_row = self._momentum(global_row, new_row)
-            self.accountant.on_cloud_sync(n)
+            # one cloud reduce per group, straight off its (E, D_g) matrix
+            global_rows = [
+                self._momentum[g](global_rows[g], self._cloud_reduce(edge_mats[g], edge_sizes[g], global_rows[g], g))
+                for g in range(n_groups)
+            ]
+            self.accountant.on_cloud_sync(n, bits=cloud_bits)
             if self.clock is not None:
                 self.clock.on_cloud_sync()
             div = 0.0
@@ -464,10 +556,12 @@ class BatchedSyncEngine:
                 # reference does
                 for _ in range(self.schedule.cloud_period):
                     self._central_step()
-                div = weight_divergence(self.pack.unravel(global_row), self.central_params)
+                div = weight_divergence(self.pack.unravel(global_rows[0]), self.central_params)
             acc = None
             if b % eval_every == 0 or b == cloud_rounds:
-                acc = evaluate(self.pack.unravel(global_row), self.program, self.test)
+                acc = float(np.mean([
+                    evaluate(self.packs[g].unravel(global_rows[g]), self.groups[g], self.test) for g in range(n_groups)
+                ]))
             wall_accum += time.perf_counter() - t_round
             sim_accum += (self.clock.seconds - sim0) if self.clock is not None else 0.0
             if acc is not None:
@@ -475,7 +569,8 @@ class BatchedSyncEngine:
                     RoundMetrics(b, acc, div, loss_host, wall_seconds=wall_accum, sim_seconds=sim_accum)
                 )
                 wall_accum = sim_accum = 0.0
-        self.params = self.pack.unravel(global_row)
+        trees = [pk.unravel(row) for pk, row in zip(self.packs, global_rows)]
+        self.params = trees[0] if n_groups == 1 else hetero_final_params(self.groups, trees)
         result = SimResult(history, self.accountant, self.params)
         if self.clock is not None:
             result.wall_seconds = self.clock.seconds

@@ -12,6 +12,7 @@ from repro_torch.federated.programs import (
 from repro_torch.federated.sampling import CohortSpec, pareto_weights
 from repro_torch.federated.scenario import Scenario, build_scenario
 from repro_torch.federated.simulation import (
+    HeteroHFLSimulation,
     HFLSimulation,
     RoundMetrics,
     SimResult,
@@ -33,6 +34,7 @@ __all__ = [
     "FLClient",
     "FedSGDProgram",
     "HFLSimulation",
+    "HeteroHFLSimulation",
     "LazyClientList",
     "MLPProgram",
     "PROGRAMS",

@@ -3,9 +3,10 @@
 A ``ClientProgram`` bundles what the HFL machinery needs to know about a
 workload: ``init`` (fresh parameters), ``apply`` (logits of one model),
 ``loss`` / ``metric``, the cohort form ``cohort_loss`` (per-client mean
-losses of C stacked models), the local optimizer (``make_optimizer``,
-``single_step``), the uplink payload and its transform (``uplink_bits``,
-``quantize_upload``) and the feature layout.  Programs are frozen
+losses of C stacked models), the distillation logits (``apply_logits``
+and its batched ``apply_logits_cohort``), the local optimizer
+(``make_optimizer``, ``single_step``), the uplink payload and its
+transform (``uplink_bits``, ``quantize_upload``) and the feature layout.  Programs are frozen
 dataclasses, so equal configs are equal programs.
 
 ``PROGRAMS`` (a ``utils.registry.Registry``) maps names to factories:
@@ -64,6 +65,17 @@ class ClientProgram:
         """Logits of C models at once: params stacked on a leading axis C,
         x: (C, B, *feat) -> (C, B, K)."""
         raise NotImplementedError
+
+    def apply_logits(self, params, x, *, impl: str | None = None):
+        """Logits for knowledge distillation (``engine.distill``), softened
+        over the last axis; programs fused at one edge must emit one logit
+        alphabet.  Defaults to the training forward."""
+        return self.apply(params, x, impl=impl)
+
+    def apply_logits_cohort(self, params, x):
+        """:meth:`apply_logits` of C stacked models at once (the flat fuse's
+        batched forward); defaults to :meth:`apply_cohort`."""
+        return self.apply_cohort(params, x)
 
     def loss(self, params, x, y, *, impl: str | None = None):
         """Mean training loss of a batch (classifier cross entropy)."""
@@ -231,6 +243,12 @@ class FedSGDProgram(ClientProgram):
 
     def apply_cohort(self, params, x):
         return self.base.apply_cohort(params, x)
+
+    def apply_logits(self, params, x, *, impl: str | None = None):
+        return self.base.apply_logits(params, x, impl=impl)
+
+    def apply_logits_cohort(self, params, x):
+        return self.base.apply_logits_cohort(params, x)
 
     def loss(self, params, x, y, *, impl: str | None = None):
         return self.base.loss(params, x, y, impl=impl)

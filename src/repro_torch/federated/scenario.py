@@ -5,6 +5,13 @@ over either):
   * Heartbeat: 5 classes, 5 edges, 18 EUs (Table 3 edge distribution)
   * Seizure:   3 classes, 3 edges, 13 EUs (Table 2 edge distribution)
 
+``model_mix=`` builds a heterogeneous-MODEL population instead: a mapping
+of program names to EU counts (``{"cnn": 12, "mlp": 6}``) gives each EU its
+program, one small PUBLIC shard per edge is drawn after the test set (so
+the private shards stay byte-equal to the homogeneous builder's), and the
+engines fuse the per-architecture edge models by logit distillation on it
+(``engine.distill``).
+
 The data come from the same numpy stream as the reference's, so the shards,
 test set and class counts are byte-equal to its ``build_scenario`` at the
 same seed and scale.  The topology and the initial parameters come from a
@@ -30,10 +37,12 @@ from repro_torch.data.partition import (
 )
 from repro_torch.data.synthetic_health import Dataset, heartbeat_like, seizure_like
 from repro_torch.device import resolve_device
+from repro_torch.engine.distill import DistillSpec
 from repro_torch.faults import FaultSpec, FaultState
 from repro_torch.federated.client import FLClient
 from repro_torch.federated.programs import ClientProgram, CNNProgram, FedSGDProgram, MLPProgram
 from repro_torch.federated.simulation import (
+    HeteroHFLSimulation,
     HFLSimulation,
     RoundMetrics,
     SimResult,
@@ -58,10 +67,20 @@ class Scenario:
     wp: WirelessParams
     model_bits: float
     init_edge: np.ndarray
+    # heterogeneous-model populations (model_mix=): one public Dataset per
+    # edge for the distillation fuse and the fuse's default DistillSpec;
+    # both None for a homogeneous population
+    public: Optional[List[Dataset]] = None
+    distill: object = None
     # default fault model (a ``repro_torch.faults.FaultSpec``); None is
     # fault-free.  Each simulate() call builds a fresh FaultState, so runs
     # never share energy balances or dispatch counters
     faults: object = None
+
+    @property
+    def is_hetero(self) -> bool:
+        """True when the population mixes client programs (architectures)."""
+        return len({c.program for c in self.clients}) > 1
 
     @property
     def n_edges(self) -> int:
@@ -116,7 +135,8 @@ class Scenario:
     ) -> SimResult:
         """Run the scenario through one of the simulation engines.
 
-        engine:   "reference" — the readable simulator (``HFLSimulation``);
+        engine:   "reference" — the readable simulator (``HFLSimulation``;
+                  ``HeteroHFLSimulation`` for a ``model_mix`` population);
                   "sync"      — the batched engine, same semantics;
                   "async"     — the event-driven engine
                   (``AsyncHFLEngine``: ``staleness_decay`` in [0, 1],
@@ -145,6 +165,13 @@ class Scenario:
                   ``upp=1.0``).
         server_momentum: cloud momentum on the aggregated model delta
                   (0.0: plain FedAvg).
+        distill:  an ``engine.distill.DistillSpec`` for the fuse of a
+                  heterogeneous-model population; None takes the
+                  scenario's default.  Ignored for a homogeneous one.  A
+                  heterogeneous population takes no ``cohort``,
+                  ``server_momentum``, ``track_divergence``, and, on the
+                  readable simulator, no ``wall_clock`` or faults
+                  (``ValueError``).
         track_divergence: the distance to a virtual centralized model
                   (eq. 17) in each round's ``divergence`` (not with
                   ``engine="async"``).
@@ -160,7 +187,13 @@ class Scenario:
             raise ValueError(f"unknown pipeline {pipeline!r} (device | host | mesh)")
         if pipeline == "mesh":
             raise not_ported("pipeline='mesh'")
-        refuse_unported(mesh=mesh, distill=distill, telemetry=telemetry, serve=serve)
+        refuse_unported(mesh=mesh, telemetry=telemetry, serve=serve)
+        distill = distill if distill is not None else self.distill
+        hetero = self.is_hetero
+        if hetero and (cohort is not None or server_momentum):
+            raise ValueError(
+                "cohort sampling / server momentum are not supported for heterogeneous-model populations"
+            )
         spec = self.faults if faults is None else (faults or None)
         fault_state = None
         if spec is not None:
@@ -170,6 +203,27 @@ class Scenario:
                 spec, self.topo, self.wp, self.model_bits, class_counts=self.class_counts, device=device
             )
         cost_latency = self.cost.latency if wall_clock else None
+        if engine == "reference" and hetero:
+            if track_divergence or wall_clock:
+                raise ValueError("track_divergence/wall_clock are not defined for heterogeneous-model populations")
+            if fault_state is not None:
+                raise ValueError(
+                    "the hetero reference simulator does not support fault injection; use engine='sync' "
+                    "or 'async' for heterogeneous-model populations under faults"
+                )
+            sim = HeteroHFLSimulation(
+                self.clients,
+                assignment,
+                self.test,
+                schedule=schedule,
+                seed=seed,
+                upp=upp,
+                public=self.public,
+                distill=distill,
+                compression=compression,
+                device=device,
+            )
+            return sim.run(cloud_rounds, eval_every=eval_every)
         if engine == "reference":
             sim = HFLSimulation(
                 self.clients,
@@ -206,6 +260,8 @@ class Scenario:
                 quorum=quorum,
                 backend=backend,
                 compression=compression,
+                public_shards=self.public,
+                distill=distill,
                 faults=fault_state,
                 cohort=cohort,
                 server_momentum=server_momentum,
@@ -227,6 +283,8 @@ class Scenario:
             backend=backend,
             compression=compression,
             pipeline=pipeline,
+            public_shards=self.public,
+            distill=distill,
             faults=fault_state,
             cohort=cohort,
             server_momentum=server_momentum,
@@ -266,11 +324,36 @@ def _hparam_kwargs(hparams: Optional[Sequence[Optional[Mapping]]], n_eus: int) -
     return out
 
 
+def _mix_programs(model_mix: Mapping[str, int], n_eus: int, allowed: Sequence[str], make) -> tuple:
+    """A ``model_mix`` mapping as one program per EU, and the distinct
+    programs.  The counts must each be >= 1 and sum to the population;
+    EUs take programs in mapping order (the first ``model_mix[a]`` EUs run
+    ``a``, the next block ``b``, ...), so the capability skew lands on a
+    deterministic slice of the population.  ``make`` builds the program of
+    one name."""
+    if not model_mix:
+        raise ValueError("model_mix must name at least one program")
+    unknown = set(model_mix) - set(allowed)
+    if unknown:
+        raise ValueError(f"model_mix programs {sorted(unknown)} not supported here; allowed: {sorted(allowed)}")
+    counts = {name: int(c) for name, c in model_mix.items()}
+    if any(c < 1 for c in counts.values()):
+        raise ValueError(f"model_mix counts must be >= 1, got {model_mix}")
+    if sum(counts.values()) != n_eus:
+        raise ValueError(f"model_mix counts must sum to the population size {n_eus}, got {sum(counts.values())}")
+    programs = {name: make(name) for name in counts}
+    per_eu: List[ClientProgram] = []
+    for name, c in counts.items():
+        per_eu += [programs[name]] * c
+    return per_eu, list(programs.values())
+
+
 def build_scenario(
     dataset: str = "heartbeat",
     *,
     model: str = "cnn",
     model_mix: Optional[Mapping[str, int]] = None,
+    public_per_edge: int = 16,
     fedsgd: bool = False,
     grad_bits: int = 32,
     hparams: Optional[Sequence[Optional[Mapping]]] = None,
@@ -298,6 +381,13 @@ def build_scenario(
     scenario's default fault model, which ``simulate`` applies unless told
     otherwise.
 
+    ``model_mix`` (instead of ``model``) builds a heterogeneous-MODEL
+    population: program names to EU counts summing to the population, e.g.
+    ``{"cnn": 12, "mlp": 6}``.  The scenario then carries one public shard
+    per edge (``public_per_edge // classes`` samples of each class) and a
+    default ``engine.distill.DistillSpec``; ``model_bits`` is the largest
+    architecture's.  A one-program mix is the homogeneous population.
+
     ``lazy=True`` builds a streaming population of ``n_eus`` clients over
     ``n_edges`` edges (default 8) instead: a ``federated.stream.
     StreamScenario`` whose shards are synthesized on demand, assigned by
@@ -306,7 +396,7 @@ def build_scenario(
     ``model_mix`` or ``hparams`` (per-client state, O(M)).
 
     The reference's other workloads (the sequence models and the "lm"
-    dataset, ``model_mix``) raise ``NotImplementedError``.
+    dataset, and a ``model_mix`` of them) raise ``NotImplementedError``.
     """
     resolve_device(device)
     if lazy:
@@ -329,7 +419,21 @@ def build_scenario(
         )
     if n_eus is not None or n_edges is not None:
         raise ValueError("n_eus/n_edges are lazy-mode knobs (pass lazy=True)")
-    refuse_unported(model_mix=model_mix)
+    if model_mix is not None:
+        if fedsgd:
+            raise ValueError("model_mix and fedsgd cannot combine (pick one)")
+        if model != "cnn":  # "cnn" is the unset default
+            raise ValueError(f"pass either model= or model_mix=, not both (got model={model!r})")
+        seq = set(model_mix) & set(SEQUENCE_MODELS)
+        if seq and seq != set(model_mix):
+            raise ValueError(
+                "model_mix cannot cross families: sequence programs "
+                f"{sorted(seq)} do not share a shard layout with {sorted(set(model_mix) - seq)}"
+            )
+        if not seq and dataset == "lm":
+            raise ValueError(f"dataset='lm' requires a sequence model_mix {SEQUENCE_MODELS}, got {sorted(model_mix)}")
+        if seq:
+            raise not_ported("model")
     if model in SEQUENCE_MODELS or dataset == "lm":
         raise not_ported("model")
     if model not in ("cnn", "mlp"):
@@ -348,23 +452,44 @@ def build_scenario(
     train = maker(rng, counts.sum(axis=0))
     shards = split_dataset_by_counts(rng, train, counts)
     test = maker(rng, np.full(k, n_test_per_class))
-    if model == "cnn":
-        program: ClientProgram = CNNProgram(cnn)
+
+    def make_health(name: str) -> ClientProgram:
+        if name == "cnn":
+            return CNNProgram(cnn)
+        return MLPProgram(feat=(cnn.seq_len, cnn.in_channels), classes=k)
+
+    public = distill = None
+    if model_mix is not None:
+        per_eu, distinct = _mix_programs(model_mix, n_eus, ("cnn", "mlp"), make_health)
+        program = per_eu[0]
+        if len(distinct) > 1:
+            # one small public pool per edge, drawn AFTER the private shards
+            # and the test set, so those stay byte-equal to the homogeneous
+            # builder's at the same seed
+            per_class = np.full(k, max(1, public_per_edge // k))
+            public = [maker(rng, per_class) for _ in range(n_edges)]
+            distill = DistillSpec()
     else:
-        program = MLPProgram(feat=(cnn.seq_len, cnn.in_channels), classes=k)
-    if fedsgd:
-        program = FedSGDProgram(base=program, grad_bits=grad_bits)
+        program = make_health(model)
+        if fedsgd:
+            program = FedSGDProgram(base=program, grad_bits=grad_bits)
+        per_eu, distinct = [program] * n_eus, [program]
     kw = _hparam_kwargs(hparams, n_eus)
-    clients = [FLClient(i, shards[i], program, **kw[i]) for i in range(n_eus)]
+    clients = [FLClient(i, shards[i], per_eu[i], **kw[i]) for i in range(n_eus)]
     wp = wp or WirelessParams()
     gen = torch.Generator().manual_seed(seed)
     topo = sample_topology(
         gen, n_eus, n_edges, mean_dist=mean_dist, dataset_sizes=counts.sum(axis=1)
     )
-    model_bits = tree_size_bytes(program.init(gen)) * 8
+    # a mixed fleet sizes EARA's airtime by its LARGEST architecture
+    model_bits = max(tree_size_bytes(p.init(gen)) * 8 for p in distinct)
     cost = build_cost_matrices(topo, model_bits, wp, device=device)
+    if len(distinct) > 1:
+        name = f"{dataset}-mix(" + "+".join(model_mix) + ")"
+    else:
+        name = dataset if program.name == "cnn" else f"{dataset}-{program.name}"
     return Scenario(
-        name=dataset if program.name == "cnn" else f"{dataset}-{program.name}",
+        name=name,
         program=program,
         clients=clients,
         test=test,
@@ -374,5 +499,7 @@ def build_scenario(
         wp=wp,
         model_bits=model_bits,
         init_edge=init_edge,
+        public=public,
+        distill=distill,
         faults=faults,
     )

@@ -14,6 +14,11 @@ Its FedAvg is plain PyTorch on whatever device the parameters live on
 CUDA kernel launches under it.  ``centralized_baseline`` is the paper's
 benchmark with every shard pooled at one server.
 
+``HeteroHFLSimulation`` is its counterpart for heterogeneous-model
+populations (clients of more than one program): per-architecture FedAvg at
+the edges and the cloud, and once per cloud round each edge's group models
+fused by ensemble distillation on its public shard (``engine.distill``).
+
 Also here: the round metrics and run results every engine returns, and
 ``evaluate``.
 """
@@ -21,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -38,15 +43,13 @@ from repro_torch.core.hfl import (
 from repro_torch.data.synthetic_health import Dataset
 from repro_torch.device import configure_numerics, resolve_device
 from repro_torch.federated.client import FLClient, _local_epoch
-from repro_torch.federated.programs import as_program
+from repro_torch.federated.programs import as_program, group_clients, group_edge_sizes
 from repro_torch.utils.tree import tree_add, tree_leaves, tree_map, tree_size_bytes, tree_sub
 
 # where each reference option not carried by this port is queued (ROADMAP.md)
 QUEUED = {
     "pipeline='mesh'": "Queue 1 item 12, mesh",
     "mesh": "Queue 1 item 12, mesh",
-    "distill": "Queue 1 item 8, heterogeneous models",
-    "model_mix": "Queue 1 item 8, heterogeneous models",
     "telemetry": "Queue 1 item 9, telemetry",
     "model": "Queue 1 item 10, sequence models",
     "serve": "Queue 1 item 11, serving",
@@ -386,6 +389,169 @@ class HFLSimulation:
         if self.clock is not None:
             result.wall_seconds = self.clock.seconds
         return result
+
+
+def hetero_final_params(programs, trees) -> Dict[str, dict]:
+    """One final parameter tree per architecture group, keyed by program
+    name; two groups that share a name (one architecture, two configs) get
+    a positional ``#g`` suffix, so no tree is dropped."""
+    out: Dict[str, dict] = {}
+    for g, (prog, tree) in enumerate(zip(programs, trees)):
+        out[prog.name if prog.name not in out else f"{prog.name}#{g}"] = tree
+    return out
+
+
+class HeteroHFLSimulation:
+    """The readable simulator for heterogeneous-MODEL hierarchical FL.
+
+    Clients may carry different programs: the population splits into
+    architecture groups (``group_clients``) and the two-level schedule runs
+    per group (per-edge FedAvg within each architecture, one cloud reduce
+    per group), with one stage the homogeneous simulator lacks: once per
+    cloud round, after the edge rounds and before the cloud reduce, each
+    edge fuses its G group models by ensemble logit distillation on its own
+    public shard (``engine.distill.distill_edge``).
+
+    It is the oracle of the engines' group-aware paths: it consumes the
+    numpy RNG stream in their order (the participation draw, each
+    participant's batch draws in client order, then the public batches per
+    edge in edge order), trains every client through ``local_update`` and
+    charges the accountant with the same per-group calls (each EU pays its
+    group's uplink and downlink; the round counts once; the cloud sync
+    carries the sum of the group bits).
+
+    ``public`` is one ``Dataset`` per edge; ``distill`` a ``DistillSpec``,
+    or None for groups that evolve apart (still a valid federation).
+    ``compression`` compresses each upload per leaf with per-EU error
+    feedback.  Every group starts from ``program.init`` with a generator
+    seeded from ``seed``.  The reference's ``telemetry`` raises
+    ``NotImplementedError``; ``device`` is "cuda" by default, raising
+    without CUDA unless "cpu".
+    """
+
+    def __init__(
+        self,
+        clients: List[FLClient],
+        assignment: np.ndarray,
+        test: Dataset,
+        schedule: HFLSchedule = HFLSchedule(1, 1),
+        seed: int = 0,
+        upp: float = 1.0,
+        public: Optional[List[Dataset]] = None,
+        distill=None,
+        compression=None,
+        telemetry=None,
+        device="cuda",
+    ):
+        from repro_torch.engine.distill import check_distillable, check_public_shards
+
+        refuse_unported(telemetry=telemetry)
+        self.device = resolve_device(device)
+        configure_numerics(self.device)
+        self.clients = clients
+        self.assignment = np.asarray(assignment)
+        self.test = test
+        self.schedule = schedule
+        self.rng = np.random.default_rng(seed)
+        self.upp = upp
+        self.programs, self.group_of = group_clients(clients)
+        self.group_params = [initial_params(p, seed, self.device) for p in self.programs]
+        self._group_bits = [tree_size_bytes(t) * 8 for t in self.group_params]
+        self.distill = distill if len(self.programs) > 1 else None
+        self.public = public
+        if self.distill is not None:
+            check_public_shards(public, self.assignment.shape[1])
+            check_distillable(self.programs)
+        self.accountant = CommAccountant(model_bits=self._group_bits[0])
+        self.compression = compression
+        self._comp_errors: dict = {}
+        if compression is not None and compression.kind != "none":
+            self._uplink_bits = [compression.bits(t) for t in self.group_params]
+        else:
+            self._uplink_bits = [p.uplink_bits(b) for p, b in zip(self.programs, self._group_bits)]
+
+    def _compress_upload(self, cid: int, start, trained):
+        if self.compression is None or self.compression.kind == "none":
+            return self.clients[cid].program.quantize_upload(start, trained)
+        sparse, err = self.compression.apply(tree_sub(trained, start), self._comp_errors.get(cid))
+        self._comp_errors[cid] = err
+        return tree_add(start, sparse)
+
+    def _edge_round(self, edge_params: List[List[dict]]) -> List[float]:
+        """One edge round; ``edge_params[g][j]`` is edge j's group-g model."""
+        m, n = self.assignment.shape
+        participating = self.rng.random(m) < self.upp
+        if not participating.any():
+            participating[self.rng.integers(0, m)] = True
+        losses = []
+        new_models: Dict[tuple, List[dict]] = {}
+        new_sizes: Dict[tuple, List[float]] = {}
+        for i, cl in enumerate(self.clients):
+            edges = np.nonzero(self.assignment[i])[0]
+            if len(edges) == 0 or not participating[i]:
+                continue
+            g = int(self.group_of[i])
+            rows = edge_params[g]
+            start = rows[edges[0]] if len(edges) == 1 else edge_aggregate([rows[j] for j in edges], [1.0] * len(edges))
+            upd, loss = cl.local_update(start, self.rng, epochs=self.schedule.local_steps)
+            losses.append(loss)
+            upd = self._compress_upload(cl.cid, start, upd)
+            for j in edges:
+                new_models.setdefault((g, j), []).append(upd)
+                new_sizes.setdefault((g, j), []).append(cl.data_size)
+        for (g, j), models in new_models.items():
+            edge_params[g][j] = edge_aggregate(models, new_sizes[(g, j)])
+        for g in range(len(self.programs)):
+            mask = (self.group_of == g) & participating
+            self.accountant.on_edge_sync(
+                self.assignment * mask[:, None],
+                uplink_bits=self._uplink_bits[g],
+                downlink_bits=None if len(self.programs) == 1 else self._group_bits[g],
+                count_round=(g == 0),
+            )
+        return losses
+
+    def _kd_fuse(self, edge_params: List[List[dict]]) -> List[List[dict]]:
+        from repro_torch.engine.distill import distill_edge, draw_public_batches
+
+        idx = draw_public_batches(self.rng, [len(s) for s in self.public], self.distill)
+        for j in range(self.assignment.shape[1]):
+            fused, _ = distill_edge(
+                self.programs, [rows[j] for rows in edge_params], self.public[j].x[idx[j]], self.distill
+            )
+            for g, tree in enumerate(fused):
+                edge_params[g][j] = tree
+        return edge_params
+
+    def run(self, cloud_rounds: int, eval_every: int = 1) -> SimResult:
+        n = self.assignment.shape[1]
+        n_groups = len(self.programs)
+        history: List[RoundMetrics] = []
+        group_params = self.group_params
+        edge_sizes = group_edge_sizes(self.clients, self.assignment, self.group_of)
+        cloud_bits = None if n_groups == 1 else float(sum(self._group_bits))
+        wall_accum = 0.0
+        for b in range(1, cloud_rounds + 1):
+            t_round = time.perf_counter()
+            edge_params = [[tree] * n for tree in group_params]
+            losses: List[float] = []
+            for _ in range(self.schedule.edge_per_cloud):
+                losses += self._edge_round(edge_params)
+            if self.distill is not None:
+                edge_params = self._kd_fuse(edge_params)
+            group_params = [cloud_aggregate(edge_params[g], edge_sizes[g]) for g in range(n_groups)]
+            self.accountant.on_cloud_sync(n, bits=cloud_bits)
+            acc = None
+            if b % eval_every == 0 or b == cloud_rounds:
+                acc = float(np.mean([evaluate(group_params[g], self.programs[g], self.test) for g in range(n_groups)]))
+            wall_accum += time.perf_counter() - t_round
+            if acc is not None:
+                loss = float(np.mean(losses)) if losses else 0.0
+                history.append(RoundMetrics(b, acc, 0.0, loss, wall_seconds=wall_accum))
+                wall_accum = 0.0
+        self.group_params = group_params
+        final = group_params[0] if n_groups == 1 else hetero_final_params(self.programs, group_params)
+        return SimResult(history, self.accountant, final)
 
 
 def centralized_baseline(

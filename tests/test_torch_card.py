@@ -395,11 +395,11 @@ def test_sync_device_pipeline_under_faults_on_card(cuda, monkeypatch):
     real_reduce, real_weights = BatchedSyncEngine._cloud_reduce, BatchedSyncEngine._cloud_weights
     reduces, uploads = [], []
 
-    def reduce_without_sync(self, edge_mat, edge_sizes, global_row):
+    def reduce_without_sync(self, edge_mat, edge_sizes, global_row, g):
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            out = real_reduce(self, edge_mat, edge_sizes, global_row)
+            out = real_reduce(self, edge_mat, edge_sizes, global_row, g)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         reduces.append(edge_sizes.device)
@@ -701,3 +701,104 @@ def test_stream_round_queues_no_host_sync_on_card(cuda, monkeypatch):
         else:
             assert not any(counts.values())
     _card_matches_cpu(*runs, len(sc.test))
+
+
+# -- heterogeneous-model federation ----------------------------------------------
+def _mix_scenario():
+    from repro_torch.federated import build_scenario
+
+    sc = build_scenario("heartbeat", model_mix={"cnn": 12, "mlp": 6}, scale=0.02, seed=0, n_test_per_class=20,
+                        device="cpu")
+    return sc, sc.assign("eara-sca", device="cpu").lam
+
+
+def test_hetero_device_round_queues_no_host_sync_on_card(cuda, monkeypatch):
+    """A mixed population (12 CNN EUs, 6 MLP EUs) on the device pipeline:
+    every edge round runs under sync-debug mode "error" (two groups'
+    cohorts, starts, uploads and segment launches, and no host wait), two
+    segment launches per edge round and two ``hier_aggregate`` launches per
+    cloud reduce, and the run is the CPU run at phase 4's tolerances."""
+    from repro_torch.core import HFLSchedule
+    from repro_torch.engine import BatchedSyncEngine
+
+    sc, lam = _mix_scenario()
+    real = BatchedSyncEngine._edge_round_device
+    calls = []
+
+    def round_without_sync(self, edge_mats):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(self, edge_mats)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        calls.append(len(edge_mats))
+        return out
+
+    hier_aggregate(torch.ones((2, 8), device=cuda), torch.ones(2, device=cuda))  # builds the library first
+    monkeypatch.setattr(BatchedSyncEngine, "_edge_round_device", round_without_sync)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    card = sc.simulate(lam, cloud_rounds=2, schedule=HFLSchedule(1, 2), engine="sync", device="cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert calls == [2] * 4
+    assert counts["hier_segment_aggregate"] == 2 * 4 and counts["hier_aggregate"] == 2 * 2
+    assert set(card.final_params) == {"cnn", "mlp"}
+    monkeypatch.undo()
+    cpu = sc.simulate(lam, cloud_rounds=2, schedule=HFLSchedule(1, 2), engine="sync", device="cpu")
+    _card_matches_cpu(card, cpu, len(sc.test))
+
+
+def test_distill_fuse_flat_on_card_matches_cpu(cuda):
+    """The flat fuse at the heartbeat widths (the CNN and the MLP, 5 edges,
+    the default spec's 4 steps of 16) on the card against the CPU within
+    1e-5, and its losses stay on the card."""
+    from repro_torch.engine import DistillSpec, distill_fuse_flat, pack_for
+    from repro_torch.federated import CNNProgram, MLPProgram
+
+    progs = [CNNProgram(), MLPProgram()]
+    packs = [pack_for(p) for p in progs]
+    rng = np.random.default_rng(0)
+    mats = [torch.as_tensor(rng.standard_normal((5, pk.dim)) * 0.05, dtype=torch.float32) for pk in packs]
+    spec = DistillSpec()
+    xb = torch.as_tensor(rng.standard_normal((5, spec.steps, spec.batch, 187, 1)), dtype=torch.float32)
+    outs = [distill_fuse_flat(progs, [pk.spec for pk in packs], [m.to(d) for m in mats], xb.to(d), spec)
+            for d in (cuda, torch.device("cpu"))]
+    (card, card_losses), (cpu, cpu_losses) = outs
+    assert all(loss.device.type == "cuda" for loss in card_losses)
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(_f32(a), _f32(b), atol=1e-5, rtol=0)
+    np.testing.assert_allclose([float(v) for v in card_losses], [float(v) for v in cpu_losses], rtol=1e-5)
+
+
+@pytest.mark.parametrize("engine", ["reference", "sync-host", "async"])
+def test_hetero_engines_on_card_match_cpu(cuda, engine):
+    """One cloud round of the mixed population on the card against the CPU:
+    the readable simulator (no kernel launch), the host pipeline (one
+    ``hier_aggregate`` per (group, edge) cell with uploads plus one reduce
+    per group) and async (its flushes plus one reduce per group)."""
+    from repro_torch.engine import AsyncHFLEngine
+
+    sc, lam = _mix_scenario()
+    kw = {"reference": {}, "sync-host": {"engine": "sync", "pipeline": "host"}, "async": {"engine": "async"}}[engine]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    if engine == "async":
+        eng = AsyncHFLEngine(sc.clients, lam, sc.program, sc.test, latency=sc.cost.latency,
+                             public_shards=sc.public, distill=sc.distill, device="cuda")
+        card = eng.run(1)
+    else:
+        card = sc.simulate(lam, cloud_rounds=1, device="cuda", **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    group = np.array([0] * 12 + [1] * 6)
+    cells = sum(int(((lam[group == g].sum(axis=0)) > 0).sum()) for g in range(2))
+    want = {"reference": 0, "sync-host": cells + 2, "async": None}[engine]
+    if engine == "async":
+        assert counts["hier_aggregate"] == sum(eng.aggregates.values()) == eng.aggregates["flush"] + 2
+    else:
+        assert counts["hier_aggregate"] == want
+    assert counts["hier_segment_aggregate"] == 0
+    cpu = sc.simulate(lam, cloud_rounds=1, device="cpu", **kw)
+    _card_matches_cpu(card, cpu, len(sc.test))

@@ -173,7 +173,6 @@ def test_cloud_weights_go_to_the_device_once_per_run(pair, lam, backend, monkeyp
         {"mesh": 4},
         {"telemetry": True},
         {"serve": object()},
-        {"distill": object()},
     ],
     ids=lambda kw: next(iter(kw)),
 )
@@ -192,10 +191,11 @@ def test_faults_must_be_a_fault_spec(pair, lam):
 
 
 @pytest.mark.parametrize(
-    "kw", [{"model_mix": {"cnn": 18}}],
+    "kw", [{"model_mix": {"lm": 12, "moe": 6}}],
     ids=lambda kw: next(iter(kw)),
 )
 def test_unported_scenarios_raise(kw):
+    """A ``model_mix`` of sequence programs waits for the sequence models."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_scenario("heartbeat", scale=0.02, device="cpu", **kw)
 

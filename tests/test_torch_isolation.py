@@ -58,7 +58,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.engine import AsyncHFLEngine, BatchedSyncEngine
     from repro_torch.faults import FaultSpec, FaultState
     from repro_torch.engine import StreamSyncEngine
-    from repro_torch.federated import CohortSpec, HFLSimulation, build_scenario, centralized_baseline
+    from repro_torch.federated import CohortSpec, HeteroHFLSimulation, HFLSimulation, build_scenario, centralized_baseline
     from repro_torch.federated.simulation import central_reference_step, pooled_dataset
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -76,6 +76,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         BatchedSyncEngine(sc.clients, lam, sc.program, sc.test)
     with pytest.raises(RuntimeError, match="device="):
         HFLSimulation(sc.clients, lam, sc.program, sc.test)
+    with pytest.raises(RuntimeError, match="device="):
+        HeteroHFLSimulation(sc.clients, lam, sc.test)
+    with pytest.raises(RuntimeError, match="device="):
+        build_scenario("heartbeat", model_mix={"cnn": 12, "mlp": 6}, scale=0.02, n_test_per_class=20)
     with pytest.raises(RuntimeError, match="device="):
         AsyncHFLEngine(sc.clients, lam, sc.program, sc.test, latency=sc.cost.latency)
     with pytest.raises(RuntimeError, match="device="):

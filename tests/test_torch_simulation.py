@@ -194,14 +194,23 @@ def test_run_cohorts_matches_local_update(pair):
 
 
 def test_run_cohorts_refuses_mixed_programs(pair):
+    """Jobs of two programs never share a matrix: each program's rows land
+    in a block of its own width, and a single-matrix view or a gather across
+    the blocks raises ``ValueError``."""
+    from repro_torch.engine import pack_for
     from repro_torch.federated import FLClient, MLPProgram
 
     _, sc = pair
     other = FLClient(99, sc.clients[0].shard, MLPProgram())
-    row = torch.zeros(FlatPack(sc.program.init(torch.Generator().manual_seed(0))).dim)
-    jobs = [make_job(sc.clients[0], row, np.random.default_rng(0), 1), make_job(other, row, np.random.default_rng(0), 1)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_cohorts(jobs, sc.program, FlatPack(sc.program.init(torch.Generator().manual_seed(0))))
+    pack = FlatPack(sc.program.init(torch.Generator().manual_seed(0)))
+    jobs = [make_job(sc.clients[0], torch.zeros(pack.dim), np.random.default_rng(0), 1),
+            make_job(other, torch.zeros(pack_for(other.program).dim), np.random.default_rng(0), 1)]
+    got = run_cohorts(jobs, sc.program, pack)
+    assert [b.shape for b in got.blocks] == [(1, pack.dim), (1, pack_for(other.program).dim)]
+    with pytest.raises(ValueError, match="program blocks"):
+        got.matrix
+    with pytest.raises(ValueError, match="span program blocks"):
+        got.gather([0, 99])
 
 
 def _trees(seed, n):

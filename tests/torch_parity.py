@@ -22,6 +22,7 @@ import pytest
 from repro.core.compression import CompressionSpec as RefCompressionSpec
 from repro.data.synthetic_health import Dataset as RefDataset
 from repro.engine.async_sim import AsyncHFLEngine as RefAsyncHFLEngine
+from repro.engine.distill import DistillSpec as RefDistillSpec
 from repro.engine.sync_sim import BatchedSyncEngine as RefBatchedSyncEngine
 from repro.faults import FaultSpec as RefFaultSpec
 from repro.faults import FaultState as RefFaultState
@@ -29,6 +30,7 @@ from repro.federated.client import FLClient as RefFLClient
 from repro.federated.programs import CNNProgram as RefCNNProgram
 from repro.federated.programs import FedSGDProgram as RefFedSGDProgram
 from repro.federated.programs import MLPProgram as RefMLPProgram
+from repro.federated.simulation import HeteroHFLSimulation as RefHeteroHFLSimulation
 from repro.federated.simulation import HFLSimulation as RefHFLSimulation
 from repro.federated.simulation import centralized_baseline as ref_centralized_baseline
 from repro.models.cnn1d import CNNConfig as RefCNNConfig
@@ -52,23 +54,33 @@ def reference_program(program):
     return RefMLPProgram(feat=tuple(program.feat), classes=program.classes, hidden=program.hidden)
 
 
+def _ref_dataset(d):
+    return RefDataset(d.x, d.y, d.n_classes)
+
+
 class ReferencePopulation:
-    """A port scenario's clients, program, test set and topology rebuilt in
-    the reference package (the same numpy shards and arrays), to run the
-    reference's engines on the port's inputs without building its
-    scenario.  ``cost`` is the reference's cost model of the port's
-    topology: give the port the same latency with
-    ``dataclasses.replace(sc, cost=ref.cost)``."""
+    """A port scenario's clients (each with the reference's program of its
+    own), test set, public shards and topology rebuilt in the reference
+    package (the same numpy shards and arrays), to run the reference's
+    engines on the port's inputs without building its scenario.  ``cost``
+    is the reference's cost model of the port's topology: give the port the
+    same latency with ``dataclasses.replace(sc, cost=ref.cost)``.  A
+    heterogeneous-model population runs the reference's
+    ``HeteroHFLSimulation`` as its readable simulator, and every engine
+    gets the public shards and the port's ``DistillSpec``."""
 
     def __init__(self, sc):
         self.program = reference_program(sc.program)
         self.clients = [
-            RefFLClient(c.cid, RefDataset(c.shard.x, c.shard.y, c.shard.n_classes), self.program, **{
+            RefFLClient(c.cid, _ref_dataset(c.shard), reference_program(c.program), **{
                 k: getattr(c, k) for k in ("batch_size", "lr", "max_steps", "local_epochs")
             })
             for c in sc.clients
         ]
-        self.test = RefDataset(sc.test.x, sc.test.y, sc.test.n_classes)
+        self.test = _ref_dataset(sc.test)
+        self.hetero = sc.is_hetero
+        self.public = [_ref_dataset(d) for d in sc.public] if sc.public is not None else None
+        self.distill = RefDistillSpec(**dataclasses.asdict(sc.distill)) if sc.distill is not None else None
         self.n_edges = sc.n_edges
         self.topo = RefTopology(**{f.name: getattr(sc.topo, f.name) for f in dataclasses.fields(sc.topo)})
         self.wp = RefWirelessParams(**dataclasses.asdict(sc.wp))
@@ -85,13 +97,19 @@ class ReferencePopulation:
         )
 
     def simulate(self, lam, cloud_rounds, engine="reference", pipeline="device", compression=None, faults=None, **kw):
-        """The reference's ``HFLSimulation``, ``BatchedSyncEngine`` or
-        ``AsyncHFLEngine`` run (the async engine takes ``latency=``), given
-        the port's ``CompressionSpec`` and ``FaultSpec``."""
+        """The reference's ``HFLSimulation`` (``HeteroHFLSimulation``),
+        ``BatchedSyncEngine`` or ``AsyncHFLEngine`` run (the async engine
+        takes ``latency=``), given the port's ``CompressionSpec`` and
+        ``FaultSpec``."""
         if compression is not None:
             kw["compression"] = RefCompressionSpec(**dataclasses.asdict(compression))
         if faults is not None:
             kw["faults"] = self.fault_state(faults)
+        if self.hetero and engine == "reference":
+            sim = RefHeteroHFLSimulation(self.clients, lam, self.test, public=self.public, distill=self.distill, **kw)
+            return sim.run(cloud_rounds)
+        if self.hetero:
+            kw.update(public_shards=self.public, distill=self.distill)
         if engine == "reference":
             sim = RefHFLSimulation(self.clients, lam, self.program, self.test, **kw)
         elif engine == "async":
