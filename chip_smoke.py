@@ -107,6 +107,23 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    timed by CUDA events inside every sync round, then alone on the card
    against the CPU (1e-5) and under ``torch.profiler`` (device ops); one
    device-pipeline round under ``torch.profiler`` (busy share);
+6f. telemetry at full size (every number printed with the card's name and
+   power limit): heartbeat EARA-SCA on the device pipeline with telemetry
+   on, off and on again in turns (1 warm-up and 2 timed rounds each; launch
+   counts zeroed just before each run and read just after): bit-equal
+   parameters and equal accuracies, the five artifacts (``trace.json``,
+   ``trace.jsonl``, ``rounds.jsonl``, ``metrics.json``, ``summary.txt``)
+   with the reference's span names, the ``cohort_epoch_flat`` FLOPs equal
+   to the count for the same shapes on the CPU, each round record's
+   ``kernel_launches`` equal to phase 5's (1 segment and 1 aggregate a
+   round), each round's span totals by name, the spans and metric updates
+   a round, seconds per round on against off, and the host seconds
+   ``jit_cost`` spends (the process's first count and a fresh count); one
+   telemetry-on device round under ``torch.cuda.set_sync_debug_mode(
+   "error")``; the mixed population for one round on the device pipeline
+   and on async (the ``kd_fuse`` span, ``kd_loss``, the async engine's
+   simulated-time track on pid 2); one 1M-client streaming round with the
+   page gauges;
 7. serve exactness on the card at qwen3-14b widths cut to 2 layers in
    fp32: a uniform batch gives the same tokens with ``use_flash`` on and
    off, and a ragged batch the same tokens as its requests served alone
@@ -125,7 +142,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 With ``--wrappers ROOT`` the script times only the launch floor and the
 segment, aggregate and top-k kernels and their wrappers' whole calls, for
 the port under ``ROOT/src``, and prints one JSON line: run it on two trees
-in turns to compare them on one card.
+in turns to compare them on one card.  With ``--paths ROOT`` it times only
+the heartbeat round (phase 6's, telemetry off) and the full-width serve
+(phase 8's uniform batch: prefill seconds, decode tokens per second) for
+the port under ``ROOT/src``, and prints one JSON line, for the same use.
 
 The last lines are a JSON ``kernels`` record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -1120,6 +1140,263 @@ def _mix_phase(sc, lam) -> dict:
     return out
 
 
+TELEMETRY_SPANS = ("assignment", "cohort_epoch", "edge_aggregate", "cloud_reduce", "eval", "cloud_round")
+TELEMETRY_ARTIFACTS = ("trace.json", "trace.jsonl", "rounds.jsonl", "metrics.json", "summary.txt")
+
+
+def _timed_telemetry(out_dir=None):
+    """A ``Telemetry`` that counts its metric updates (``metrics.updates``)
+    and the host seconds ``jit_cost`` spends counting each key
+    (``cost_seconds``)."""
+    from repro_torch.telemetry import Telemetry
+    from repro_torch.telemetry.metrics import MetricsRegistry
+
+    class CountingMetrics(MetricsRegistry):
+        updates = 0
+
+        def inc(self, name, v=1.0):
+            self.updates += 1
+            super().inc(name, v)
+
+        def set_gauge(self, name, v):
+            self.updates += 1
+            super().set_gauge(name, v)
+
+        def observe(self, name, v):
+            self.updates += 1
+            super().observe(name, v)
+
+    class TimedTelemetry(Telemetry):
+        def __init__(self, out_dir=None):
+            super().__init__(out_dir)
+            self.metrics = CountingMetrics()
+            self.cost_seconds = {}
+
+        def _analyze(self, key, fn, args, kwargs):
+            t0 = time.perf_counter()
+            out = super()._analyze(key, fn, args, kwargs)
+            self.cost_seconds[key] = self.cost_seconds.get(key, 0.0) + time.perf_counter() - t0
+            return out
+
+    return TimedTelemetry(out_dir)
+
+
+def _telemetry_phase(sc, lam, mix_sc, mix_lam, smi: str) -> dict:
+    """Phase 6f: telemetry at full size.  Heartbeat EARA-SCA on the device
+    pipeline with telemetry on, off and on again (1 warm-up and 2 timed
+    rounds each, launch counts zeroed just before each run and read just
+    after): bit-equal parameters, equal accuracies, the five artifacts with
+    the reference's span names, ``cohort_epoch_flat``'s FLOPs equal to the
+    CPU's count at the same shapes, 1 segment and 1 aggregate launch in
+    every round record (phase 5's count); one telemetry-on device round
+    under sync-debug "error"; the mixed population on the device pipeline
+    and async; one 1M-client streaming round.  Every line carries the
+    card's name and power limit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.engine import BatchedSyncEngine, FlatPack
+    from repro_torch.engine.cohort import _cohort_epoch_flat
+    from repro_torch.federated import CohortSpec, build_scenario
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.telemetry import Telemetry
+
+    t_phase = time.perf_counter()
+    card = f"[{smi}]"
+    # earlier phases may have imported PyTorch's compile stack, which the
+    # first meta pass of a process otherwise imports (``--paths`` times that)
+    stack = "already imported" if "torch._dynamo" in sys.modules else "not yet imported"
+    per_round = {"hier_segment_aggregate": 1, "hier_aggregate": 1, "flash_attention": 0, "topk_gating": 0}
+    out, runs = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, mode in enumerate(("on", "off", "on")):
+            tel = _timed_telemetry(Path(tmp) / f"run{i}") if mode == "on" else None
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            res = sc.simulate(lam, cloud_rounds=3, engine="sync", pipeline="device", telemetry=tel)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            runs.append(res)
+            print(f"telemetry: heartbeat device pipeline, telemetry {mode}: seconds per round "
+                  f"{[round(h.wall_seconds, 4) for h in res.history]} (round 1 warm-up), accuracy "
+                  f"{[h.test_acc for h in res.history]}, launches {json.dumps(counts)} {card}", flush=True)
+            _require(counts["hier_segment_aggregate"] == 3 and counts["hier_aggregate"] == 3,
+                     f"telemetry {mode}: launches {counts}, expected 1 segment and 1 aggregate a round")
+            if tel is None:
+                continue
+            _require(res.telemetry is tel, "simulate did not return its Telemetry")
+            which = f"this process's first counts, compile stack {stack}" if i == 0 else "a fresh Telemetry"
+            print(f"telemetry: jit_cost host seconds by key {json.dumps(tel.cost_seconds)} ({which}) {card}",
+                  flush=True)
+            for rec in tel.rounds:
+                totals = {k: round(v["total_s"], 6) for k, v in rec["spans"].items()}
+                n_spans = sum(v["count"] for v in rec["spans"].values())
+                print(f"telemetry: round {rec['round']} span seconds by name {json.dumps(totals)}, {n_spans} spans, "
+                      f"kernel launches {json.dumps(rec['kernel_launches'])} {card}", flush=True)
+                _require(rec["kernel_launches"] == per_round,
+                         f"round {rec['round']} record's launches {rec['kernel_launches']}, phase 5's are {per_round}")
+            print(f"telemetry: {tel.metrics.updates / len(tel.rounds):.1f} metric updates and "
+                  f"{len(tel.tracer.spans) / len(tel.rounds):.1f} spans a round {card}", flush=True)
+            for name in TELEMETRY_ARTIFACTS:
+                _require((tel.out_dir / name).exists(), f"telemetry: {name} not written")
+            doc = json.loads((tel.out_dir / "trace.json").read_text())
+            names = {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
+            _require(set(TELEMETRY_SPANS) <= names, f"telemetry: trace.json spans {sorted(names)}")
+            rounds = [json.loads(line) for line in (tel.out_dir / "rounds.jsonl").read_text().splitlines()]
+            _require([r["round"] for r in rounds] == [1, 2, 3], "telemetry: rounds.jsonl")
+            out.setdefault("spans_per_round", len(tel.tracer.spans) / len(tel.rounds))
+            out.setdefault("metric_updates_per_round", tel.metrics.updates / len(tel.rounds))
+            out.setdefault("jit_cost_first_s", sum(tel.cost_seconds.values()))
+            out["jit_cost_fresh_s"] = sum(tel.cost_seconds.values())
+    on, off, again = runs
+    for other, label in ((off, "off"), (again, "on again")):
+        _require([h.test_acc for h in on.history] == [h.test_acc for h in other.history],
+                 f"telemetry on vs {label}: accuracies differ")
+        _require(torch.equal(_flat_row(on.final_params), _flat_row(other.final_params)),
+                 f"telemetry on vs {label}: parameters are not bit-equal")
+    on_s = [h.wall_seconds for r in (on, again) for h in r.history[1:]]
+    off_s = [h.wall_seconds for h in off.history[1:]]
+    mean_on, mean_off = sum(on_s) / len(on_s), sum(off_s) / len(off_s)
+    print(f"telemetry: timed rounds on {[round(x, 4) for x in on_s]} off {[round(x, 4) for x in off_s]}: mean "
+          f"{mean_on:.4f}s on vs {mean_off:.4f}s off, {mean_on - mean_off:+.4f}s "
+          f"({(mean_on / mean_off - 1) * 100:+.2f}%) {card}", flush=True)
+    epoch = next(sp for sp in on.telemetry.tracer.spans if sp.name == "cohort_epoch")
+    c, steps, batch = epoch.attrs["clients"], epoch.attrs["steps"], epoch.attrs["batch"]
+    pack = FlatPack(sc.program.init(torch.Generator().manual_seed(0)))
+    cpu = Telemetry().jit_cost(
+        "cohort_epoch_flat", _cohort_epoch_flat, torch.zeros((c, pack.dim)),
+        torch.zeros((c, steps, batch, *sc.program.feat_shape)), torch.zeros((c, steps, batch), dtype=torch.int64),
+        pack.spec, sc.program, steps, sc.clients[0].lr,
+    )
+    print(f"telemetry: cohort_epoch_flat C {c} S {steps} B {batch}: {epoch.attrs['flops']:.0f} FLOPs, "
+          f"{epoch.attrs['bytes_moved']:.0f} bytes in the card's run; the CPU's count {cpu['flops']:.0f} FLOPs "
+          f"{card}", flush=True)
+    _require(epoch.attrs["flops"] == cpu["flops"], "telemetry: cohort_epoch_flat FLOPs differ from the CPU's count")
+    out.update(seconds_on=mean_on, seconds_off=mean_off, cohort_epoch_flops=epoch.attrs["flops"],
+               cohort_epoch_bytes=epoch.attrs["bytes_moved"])
+
+    # one telemetry-on device round under sync-debug "error"
+    eng = BatchedSyncEngine(sc.clients, lam, sc.program, sc.test, telemetry=Telemetry())
+    real, calls = eng._edge_round_device, []
+
+    def round_without_sync(edge_mats):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            result = real(edge_mats)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        calls.append(len(edge_mats))
+        return result
+
+    eng._edge_round_device = round_without_sync
+    res = eng.run(1)
+    _require(calls == [1] and len(eng.tel.rounds) == 1, "telemetry: the sync-debug round did not run")
+    print(f"telemetry: a telemetry-on device edge round (its jit_cost included) ran under sync-debug \"error\": "
+          f"acc {res.history[-1].test_acc:.6f} {card}", flush=True)
+
+    # the mixed population: the fuse's span and losses, async's simulated-time track
+    for engine in ("sync", "async"):
+        res = mix_sc.simulate(mix_lam, cloud_rounds=1, engine=engine, telemetry=True)
+        tel = res.telemetry
+        fuse = [sp for sp in tel.tracer.spans if sp.name == "kd_fuse"]
+        kd = tel.metrics.hists.get("kd_loss")
+        sim = [sp for sp in tel.tracer.spans if sp.track == "sim"]
+        _require(len(fuse) == 1 and kd is not None and kd.count == 2, f"mix {engine}: kd_fuse span or kd_loss missing")
+        print(f"telemetry: mix {engine}: kd_fuse {fuse[0].duration:.4f}s ({fuse[0].attrs.get('flops', 0):.0f} FLOPs), "
+              f"kd_loss {[round(v, 6) for v in kd.samples]}, simulated-time spans {len(sim)} {card}", flush=True)
+        if engine == "async":
+            with tempfile.TemporaryDirectory() as tmp:
+                doc = json.loads(tel.tracer.write_chrome_trace(Path(tmp) / "trace.json").read_text())
+            pid2 = [e for e in doc["traceEvents"] if e["ph"] == "X" and e["pid"] == 2]
+            _require(pid2 and any(e["name"] == "upload" for e in pid2), "mix async: no simulated-time track on pid 2")
+
+    # one 1M-client streaming round with the page gauges
+    ssc = build_scenario("heartbeat", lazy=True, n_eus=1_000_000, n_edges=STREAM_EDGES)
+    res = ssc.simulate(CohortSpec(size=STREAM_COHORT, seed=0), cloud_rounds=1, telemetry=True)
+    tel = res.telemetry
+    gauges = {k: tel.metrics.gauges[k] for k in ("participating", "page_hits", "page_misses", "page_evictions")}
+    totals = {k: round(v["total_s"], 6) for k, v in tel.rounds[0]["spans"].items()}
+    print(f"telemetry: stream M=1,000,000 round 1 {res.history[-1].wall_seconds:.4f}s, gauges {json.dumps(gauges)}, "
+          f"span seconds {json.dumps(totals)}, launches {json.dumps(tel.rounds[0]['kernel_launches'])} {card}",
+          flush=True)
+    _require(gauges["page_misses"] == STREAM_COHORT and set(TELEMETRY_SPANS) <= set(totals),
+             "stream: page gauges or spans missing")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"telemetry: phase 6f {out['phase_s']:.1f}s {card}", flush=True)
+    return out
+
+
+def _paths_only(root: Path) -> int:
+    """``--paths ROOT``: for the port under ``ROOT/src``, the heartbeat
+    device-pipeline round (phase 6's: a fresh engine, one warm-up round,
+    then 3 timed rounds, telemetry off) and the full-width serve (phase 8's
+    uniform batch of 4 x 2048 tokens + 32 new, after a warm-up), then
+    ``jit_cost`` of the heartbeat cohort epoch (C 18, S 128) twice (the
+    process's first count pays PyTorch's one-time imports, the second is a
+    fresh ``Telemetry``'s; a tree whose ``jit_cost`` counts nothing returns
+    ``None`` at once), then 3 more timed rounds of the same engine: prints
+    one JSON line.  Alternating two trees in one run compares them on one
+    card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(root / "src"))
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine import BatchedSyncEngine, FlatPack
+    from repro_torch.engine.cohort import _cohort_epoch_flat
+    from repro_torch.federated import CNNProgram, build_scenario
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.telemetry import Telemetry
+
+    _require(Path(repro_torch.__file__).resolve().is_relative_to(root), f"repro_torch not imported from {root}")
+    record = {"tree": str(root), "card": _smi()}
+    sc = build_scenario("heartbeat")
+    lam = sc.assign("eara-sca").lam
+    eng = BatchedSyncEngine(sc.clients, lam, sc.program, sc.test)
+    eng.run(1)
+
+    def rounds():
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run(1)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return secs
+
+    record["heartbeat_round_s"] = rounds()
+    cfg = dataclasses.replace(get_config("qwen3-14b"), use_flash=True)
+    tel = Telemetry()
+    engine = ServeEngine(cfg, max_seq=2080, seed=0, device="cuda", telemetry=tel)
+    rng = np.random.default_rng(0)
+    engine.run([Request(rng.integers(0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=2)])
+    prompts = rng.integers(0, cfg.vocab_size, (4, 2048)).astype(np.int32)
+    engine.run([Request(p, max_new_tokens=32) for p in prompts])
+    torch.cuda.synchronize()
+    pre = [sp for sp in tel.tracer.spans if sp.name == "prefill"][-1]
+    dec = [sp for sp in tel.tracer.spans if sp.name == "decode"][-1]
+    record.update(prefill_s=pre.duration, decode_tok_s=dec.attrs["tokens"] / dec.duration)
+    del engine
+    prog = CNNProgram()
+    pack = FlatPack(prog.init(torch.Generator().manual_seed(0)))
+    args = (torch.zeros((18, pack.dim)), torch.zeros((18, 128, 10, *prog.feat_shape)),
+            torch.zeros((18, 128, 10), dtype=torch.int64), pack.spec, prog, 128, 1e-3)
+    record["compile_stack_imported_before"] = "torch._dynamo" in sys.modules
+    for key in ("jit_cost_first_s", "jit_cost_fresh_s"):
+        t0 = time.perf_counter()
+        record["jit_cost"] = Telemetry().jit_cost("cohort_epoch_flat", _cohort_epoch_flat, *args)
+        record[key] = time.perf_counter() - t0
+    record["heartbeat_round_after_s"] = rounds()
+    print(json.dumps(record), flush=True)
+    return 0
+
+
 def _attention_work(b: int, s: int, hq: int, hkv: int, d: int, window, elt: int):
     """(operations, bytes) causal attention must do and move: 4 * d
     operations per visible (query, key) pair and head (q.k and p.v), and
@@ -1615,10 +1892,11 @@ def main(argv) -> int:
         print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
         return 1
     if argv:
-        if len(argv) != 2 or argv[0] != "--wrappers":
-            print("usage: python3 chip_smoke.py [--wrappers ROOT]", file=sys.stderr)
+        if len(argv) != 2 or argv[0] not in ("--wrappers", "--paths"):
+            print("usage: python3 chip_smoke.py [--wrappers ROOT | --paths ROOT]", file=sys.stderr)
             return 2
-        return _wrappers_only(Path(argv[1]).resolve())
+        only = _wrappers_only if argv[0] == "--wrappers" else _paths_only
+        return only(Path(argv[1]).resolve())
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (fails when the package is not beside the script)
     from repro_torch.kernels.build import build
@@ -1651,6 +1929,7 @@ def main(argv) -> int:
     async_run = _async_phase(sc, sca_lam)
     stream_run = _stream_phase()
     mix_run = _mix_phase(mix_sc, mix_lam)
+    _telemetry_phase(sc, sca_lam, mix_sc, mix_lam, smi)
     exact_variants = _serve_exactness()
     serve_counts, serve_variants = _serve_path()
     flash = kern["flash"]

@@ -36,6 +36,14 @@ quorum flushes (N 1-6 rows), the DCA start means and the cloud reduce
 flush uploads them (``weight_uploads`` counts every host-to-device weight
 copy); the DCA starts take a ones vector and the fault-free cloud reduce
 the edge sizes, both on the device once per run.
+
+``telemetry`` records the reference's wall spans (``cloud_round``,
+``assignment``, ``cohort_epoch``, ``edge_aggregate`` per flush,
+``kd_fuse``, ``cloud_reduce``, ``eval``) and its simulated-time track
+(pid 2 of the exported trace: each ``upload``, ``retry`` and ``abandon``
+on its edge's row, and each ``cloud_round`` from its first dispatch to the
+post-barrier backhaul), with ``async_staleness``, the fault counters and
+``group_clients/<program>``.
 """
 from __future__ import annotations
 
@@ -66,6 +74,8 @@ from repro_torch.federated.simulation import (
     initial_params,
     refuse_unported,
 )
+from repro_torch.telemetry import NULL_TELEMETRY, coerce_telemetry
+from repro_torch.telemetry.report import CommDelta
 from repro_torch.utils.tree import tree_size_bytes
 
 
@@ -105,9 +115,9 @@ class AsyncHFLEngine:
     momentum on the aggregated delta, one velocity per group),
     ``public_shards`` and ``distill`` (the cloud barrier's distillation
     fuse of a heterogeneous-model population; ignored for a homogeneous
-    one) and ``device`` (default "cuda"; raises without CUDA unless
-    "cpu").  The reference's ``telemetry`` and ``serve`` raise
-    ``NotImplementedError`` naming their queued item.
+    one), ``telemetry`` (see the module docstring) and ``device``
+    (default "cuda"; raises without CUDA unless "cpu").  The reference's
+    ``serve`` raises ``NotImplementedError`` naming its queued item.
 
     The engine counts its own weighted averages in ``aggregates``
     (``"flush"``, ``"dca_start"``, ``"cloud_reduce"``: one
@@ -140,7 +150,7 @@ class AsyncHFLEngine:
         serve=None,
         device="cuda",
     ):
-        refuse_unported(telemetry=telemetry, serve=serve)
+        refuse_unported(serve=serve)
         if not (0.0 < quorum <= 1.0):
             raise ValueError(f"quorum must be in (0, 1], got {quorum}")
         check_cohort(cohort, upp)
@@ -195,6 +205,11 @@ class AsyncHFLEngine:
         self.aggregates = {"flush": 0, "dca_start": 0, "cloud_reduce": 0}
         self.flush_rows: collections.Counter = collections.Counter()
         self.weight_uploads = 0
+        self.tel = coerce_telemetry(telemetry) or NULL_TELEMETRY
+        if self.tel.enabled:
+            counts = np.bincount(self.group_of, minlength=len(self.groups))
+            for g, prog in enumerate(self.groups):
+                self.tel.metrics.set_gauge(f"group_clients/{prog.name}", int(counts[g]))
 
     # -- weighted averages (one hier_aggregate launch each on the card) -------
     def _upload(self, weights) -> torch.Tensor:
@@ -238,6 +253,8 @@ class AsyncHFLEngine:
                     # waiting for it
                     for j in self._client_edges[i]:
                         edges[j].lost.add(i)
+                    if self.tel.enabled:
+                        self.tel.metrics.inc("faults_dead_skips")
             client_ids = live
         jobs: List[LocalJob] = []
         for i in client_ids:
@@ -245,7 +262,7 @@ class AsyncHFLEngine:
             js = self._client_edges[i]
             start = self._edge_mats[g][js[0]] if len(js) == 1 else self._start_mean(js, g)
             jobs.append(make_job(self.clients[i], start, self.rng, self.schedule.local_steps))
-        trained = run_cohorts(jobs, self.program, self.pack, store=self.store)
+        trained = run_cohorts(jobs, self.program, self.pack, store=self.store, telemetry=self.tel)
         compressing = self.compression is not None and self.compression.kind != "none"
         for i, job in zip(client_ids, jobs):
             g = int(self.group_of[i])
@@ -269,6 +286,13 @@ class AsyncHFLEngine:
                         self.queue.now + float(self._lat[i, j]), "upload",
                         client=i, edge=j, row=upd, birth=edges[j].version,
                     )
+                    if self.tel.enabled:
+                        # the simulated-time track: the upload holds the
+                        # event clock from dispatch until the edge hears it
+                        self.tel.sim_span(
+                            "upload", self.queue.now, self.queue.now + float(self._lat[i, j]),
+                            tid=j + 1, client=i, edge=j,
+                        )
             else:
                 self._transmit(i, js, upd, edges, bits * (1.0 + mc), bits)
 
@@ -288,12 +312,24 @@ class AsyncHFLEngine:
         delivered = 0
         for j in js:
             plan = self.faults.plan_upload(b, i, j, float(self._lat[i, j]))
+            if self.tel.enabled:
+                for (s, e, a) in plan.windows:
+                    self.tel.sim_span(
+                        "upload" if a == 0 else "retry", t0 + s, t0 + e, tid=j + 1, client=i, edge=j, attempt=a
+                    )
+                if plan.retries:
+                    self.tel.metrics.inc("faults_retries", plan.retries)
             for _ in range(plan.retries):
                 self.accountant.on_wasted_upload(i, unicast_bits, kind="retry")
             if plan.ok:
                 delivered += 1
                 self.queue.push(t0 + plan.t_end, "upload", client=i, edge=j, row=upd, birth=edges[j].version)
             else:
+                if self.tel.enabled:
+                    self.tel.sim_span(
+                        "abandon", t0 + plan.t_end, t0 + plan.t_end, tid=j + 1, client=i, edge=j, reason=plan.reason
+                    )
+                    self.tel.metrics.inc(f"faults_abandon_{plan.reason}")
                 self.queue.push(t0 + plan.t_end, "lost", client=i, edge=j, reason=plan.reason)
         if delivered:
             self.accountant.on_eu_exchange(i, up_bits=mcast_bits)
@@ -320,10 +356,14 @@ class AsyncHFLEngine:
             if edge.rounds_done >= self.schedule.edge_per_cloud:
                 continue
             if edge.buffer:
+                if self.tel.enabled:
+                    self.tel.metrics.inc("faults_degraded_flush")
                 self._dispatch(self._edge_aggregate(j, edge), edges)
             else:
                 edge.rounds_done = self.schedule.edge_per_cloud
                 edge.done_time = self.queue.now
+                if self.tel.enabled:
+                    self.tel.metrics.inc("faults_starved_edges")
 
     def _maybe_repair(self, b: int) -> bool:
         """Re-repair the assignment when channel drift invalidated
@@ -333,6 +373,8 @@ class AsyncHFLEngine:
         new_lam, changed = self.faults.repair(b, self.assignment)
         if len(changed):
             self.assignment = new_lam
+            if self.tel.enabled:
+                self.tel.metrics.inc("faults_reassigned", int(len(changed)))
         return bool(len(changed))
 
     def _edge_aggregate(self, j: int, edge: _EdgeState) -> List[int]:
@@ -343,27 +385,35 @@ class AsyncHFLEngine:
         upload keeps its model.  The anchor row goes first and the
         reporters follow by client id, so the kernel adds them in the
         reference's order."""
+        tel = self.tel
         all_reporters: List[int] = []
-        for g in range(len(self.groups)):
-            rows, weights, reporters = [], [], []
-            for i, row, size, birth in sorted(edge.buffer, key=lambda u: u[0]):
-                if int(self.group_of[i]) != g:
+        with tel.span(
+            "edge_aggregate", engine="async", edge=j, round=self._round, buffered=len(edge.buffer),
+            version=edge.version,
+        ):
+            for g in range(len(self.groups)):
+                rows, weights, reporters = [], [], []
+                for i, row, size, birth in sorted(edge.buffer, key=lambda u: u[0]):
+                    if int(self.group_of[i]) != g:
+                        continue
+                    staleness = edge.version - birth
+                    if tel.enabled:
+                        tel.metrics.observe("async_staleness", float(staleness))
+                    rows.append(row)
+                    weights.append(max(size, 1.0) * self.staleness_decay ** staleness)
+                    reporters.append(i)
+                if not rows:
                     continue
-                rows.append(row)
-                weights.append(max(size, 1.0) * self.staleness_decay ** (edge.version - birth))
-                reporters.append(i)
-            if not rows:
-                continue
-            reported = set(reporters)
-            anchor_w = float(sum(
-                max(self.clients[i].data_size, 1.0)
-                for i in edge.members if int(self.group_of[i]) == g and i not in reported
-            ))
-            if anchor_w > 0:
-                rows = [self._edge_mats[g][j]] + rows
-                weights = [anchor_w] + weights
-            self._edge_mats[g][j] = self._flush_mean(rows, weights)
-            all_reporters += reporters
+                reported = set(reporters)
+                anchor_w = float(sum(
+                    max(self.clients[i].data_size, 1.0)
+                    for i in edge.members if int(self.group_of[i]) == g and i not in reported
+                ))
+                if anchor_w > 0:
+                    rows = [self._edge_mats[g][j]] + rows
+                    weights = [anchor_w] + weights
+                self._edge_mats[g][j] = self._flush_mean(rows, weights)
+                all_reporters += reporters
         if edge.buffer:
             edge.got = True
         edge.version += 1
@@ -397,87 +447,132 @@ class AsyncHFLEngine:
         edge_sizes = group_edge_sizes(self.clients, self.assignment, self.group_of)
         edge_sizes_dev = [self._upload(w) for w in edge_sizes]
         cloud_bits = None if n_groups == 1 else float(sum(self._group_bits))
+        tel = self.tel
+        comm = CommDelta(self.accountant) if tel.enabled else None
         wall_accum = sim_accum = 0.0
         for b in range(1, cloud_rounds + 1):
             t_round = time.perf_counter()
             sim0 = self.queue.now
             self._round = b
-            self._losses = []
-            if self.faults is not None:
-                if self._maybe_repair(b):
-                    edge_sizes = group_edge_sizes(self.clients, self.assignment, self.group_of)
-                    edge_sizes_dev = [self._upload(w) for w in edge_sizes]
-                # retry deadlines and the event clock read the round's faded channel
-                self._lat = self.faults.latency(b)
-            if self.cohort is not None:
-                participating = self.cohort.mask(b, 1, assignment=self.assignment)
-            else:
-                participating = self.rng.random(m) < self.upp
-                if not participating.any():
-                    participating[self.rng.integers(0, m)] = True
-            if self.faults is not None:
-                participating &= self.faults.participation(b)
-            # every edge starts the cloud round from its group's global
-            # model, in matrices that own their rows (a flush writes one in
-            # place)
-            self._edge_mats = [row.repeat(n, 1) for row in global_rows]
-            edges = self._round_edges(participating)
-            client_ids = [i for i in range(m) if participating[i] and self.assignment[i].any()]
-            self._client_edges = {i: [int(j) for j in np.nonzero(self.assignment[i])[0]] for i in client_ids}
-            self._dispatch(client_ids, edges)
-            while any(e.rounds_done < self.schedule.edge_per_cloud for e in edges.values()):
-                if not self.queue:
-                    if self.faults is None:
-                        raise RuntimeError("async engine deadlock: no pending events")
-                    self._drain_starved(edges)
-                    continue
-                ev = self.queue.pop()
-                j = ev.payload["edge"]
-                edge = edges[j]
-                if edge.rounds_done >= self.schedule.edge_per_cloud:
-                    continue  # late straggler: the edge already reported
-                if ev.kind == "lost":
-                    # an abandoned upload shrinks the quorum population
-                    edge.lost.add(ev.payload["client"])
-                    self._settle(j, edge, edges)
-                    continue
-                cid = ev.payload["client"]
-                edge.buffer.append((cid, ev.payload["row"], float(self.clients[cid].data_size), ev.payload["birth"]))
-                edge.lost.discard(cid)
-                self._settle(j, edge, edges)
-            # cloud barrier: every edge reported; drop in-flight stragglers
-            self.queue.clear()
-            self.queue.now = max(e.done_time for e in edges.values()) + self.backhaul_s
-            if self.distill is not None:
-                # fuse each edge's group models on its public shard before
-                # the per-group cloud reduce (edge-local: no EU traffic)
-                idx = draw_public_batches(self.rng, self.public_store.sizes, self.distill)
-                xb = self.public_store.gather(np.arange(n), idx)[0]
-                self._edge_mats, _ = distill_fuse_flat(
-                    self.groups, [pk.spec for pk in self.packs], self._edge_mats, xb, self.distill
-                )
-            new_rows = list(global_rows)
-            if self.faults is not None:
-                # degraded reduce: starved edges weigh 0; a fully starved
-                # hierarchy keeps every group's global model
-                got = np.array([edges[j].got for j in range(n)], bool)
-                if got.any():
-                    new_rows = [self._cloud_mean(g, self._upload(edge_sizes[g] * got)) for g in range(n_groups)]
-            else:
-                new_rows = [self._cloud_mean(g, edge_sizes_dev[g]) for g in range(n_groups)]
-            global_rows = [self._momentum[g](global_rows[g], new_rows[g]) for g in range(n_groups)]
-            self.accountant.on_cloud_sync(n, bits=cloud_bits)
             acc = None
-            if b % eval_every == 0 or b == cloud_rounds:
-                acc = float(np.mean([
-                    evaluate(self.packs[g].unravel(global_rows[g]), self.groups[g], self.test) for g in range(n_groups)
-                ]))
-            wall_accum += time.perf_counter() - t_round
-            sim_accum += self.queue.now - sim0
+            with tel.span("cloud_round", engine="async", round=b):
+                self._losses = []
+                if self.faults is not None:
+                    if self._maybe_repair(b):
+                        edge_sizes = group_edge_sizes(self.clients, self.assignment, self.group_of)
+                        edge_sizes_dev = [self._upload(w) for w in edge_sizes]
+                    # retry deadlines and the event clock read the round's faded channel
+                    self._lat = self.faults.latency(b)
+                with tel.span("assignment", round=b) as sp:
+                    if self.cohort is not None:
+                        participating = self.cohort.mask(b, 1, assignment=self.assignment)
+                    else:
+                        participating = self.rng.random(m) < self.upp
+                        if not participating.any():
+                            participating[self.rng.integers(0, m)] = True
+                    if self.faults is not None:
+                        participating &= self.faults.participation(b)
+                    # every edge starts the cloud round from its group's
+                    # global model, in matrices that own their rows (a flush
+                    # writes one in place)
+                    self._edge_mats = [row.repeat(n, 1) for row in global_rows]
+                    edges = self._round_edges(participating)
+                    client_ids = [i for i in range(m) if participating[i] and self.assignment[i].any()]
+                    self._client_edges = {
+                        i: [int(j) for j in np.nonzero(self.assignment[i])[0]] for i in client_ids
+                    }
+                    sp.set(
+                        participating=int(participating.sum()),
+                        pairs=sum(len(v) for v in self._client_edges.values()),
+                    )
+                if tel.enabled:
+                    tel.metrics.set_gauge("participating", int(participating.sum()))
+                self._dispatch(client_ids, edges)
+                while any(e.rounds_done < self.schedule.edge_per_cloud for e in edges.values()):
+                    if not self.queue:
+                        if self.faults is None:
+                            raise RuntimeError("async engine deadlock: no pending events")
+                        self._drain_starved(edges)
+                        continue
+                    ev = self.queue.pop()
+                    j = ev.payload["edge"]
+                    edge = edges[j]
+                    if edge.rounds_done >= self.schedule.edge_per_cloud:
+                        continue  # late straggler: the edge already reported
+                    if ev.kind == "lost":
+                        # an abandoned upload shrinks the quorum population
+                        edge.lost.add(ev.payload["client"])
+                        self._settle(j, edge, edges)
+                        continue
+                    cid = ev.payload["client"]
+                    edge.buffer.append(
+                        (cid, ev.payload["row"], float(self.clients[cid].data_size), ev.payload["birth"])
+                    )
+                    edge.lost.discard(cid)
+                    self._settle(j, edge, edges)
+                if self.faults is not None:
+                    self.faults.record_gauges(tel)
+                # cloud barrier: every edge reported; drop in-flight stragglers
+                self.queue.clear()
+                self.queue.now = max(e.done_time for e in edges.values()) + self.backhaul_s
+                if tel.enabled:
+                    # the same cloud round on the simulated-time track
+                    tel.sim_span("cloud_round", sim0, self.queue.now, round=b)
+                if self.distill is not None:
+                    # fuse each edge's group models on its public shard before
+                    # the per-group cloud reduce (edge-local: no EU traffic)
+                    idx = draw_public_batches(self.rng, self.public_store.sizes, self.distill)
+                    xb = self.public_store.gather(np.arange(n), idx)[0]
+                    self._edge_mats, _ = distill_fuse_flat(
+                        self.groups, [pk.spec for pk in self.packs], self._edge_mats, xb, self.distill,
+                        telemetry=tel,
+                    )
+                with tel.span("cloud_reduce", round=b, edges=n, groups=n_groups) as sp:
+                    cost = tel.jit_cost(
+                        "cloud_reduce", lambda u, w: flat_mean(u, w, backend=self.backend),
+                        self._edge_mats[0], edge_sizes_dev[0],
+                    )
+                    if cost:
+                        sp.set(**cost)
+                    new_rows = list(global_rows)
+                    if self.faults is not None:
+                        # degraded reduce: starved edges weigh 0; a fully
+                        # starved hierarchy keeps every group's global model
+                        got = np.array([edges[j].got for j in range(n)], bool)
+                        if got.any():
+                            new_rows = [
+                                self._cloud_mean(g, self._upload(edge_sizes[g] * got)) for g in range(n_groups)
+                            ]
+                    else:
+                        new_rows = [self._cloud_mean(g, edge_sizes_dev[g]) for g in range(n_groups)]
+                    global_rows = [self._momentum[g](global_rows[g], new_rows[g]) for g in range(n_groups)]
+                self.accountant.on_cloud_sync(n, bits=cloud_bits)
+                if b % eval_every == 0 or b == cloud_rounds:
+                    with tel.span("eval", round=b) as sp:
+                        acc = float(np.mean([
+                            evaluate(self.packs[g].unravel(global_rows[g]), self.groups[g], self.test)
+                            for g in range(n_groups)
+                        ]))
+                        sp.set(acc=acc)
+            round_wall = time.perf_counter() - t_round
+            round_sim = self.queue.now - sim0
+            wall_accum += round_wall
+            sim_accum += round_sim
+            loss = float(np.mean(self._losses)) if self._losses else None
             if acc is not None:
-                loss = float(np.mean(self._losses)) if self._losses else 0.0
-                history.append(RoundMetrics(b, acc, 0.0, loss, wall_seconds=wall_accum, sim_seconds=sim_accum))
+                history.append(RoundMetrics(
+                    b, acc, 0.0, loss if loss is not None else 0.0, wall_seconds=wall_accum, sim_seconds=sim_accum
+                ))
                 wall_accum = sim_accum = 0.0
+            if tel.enabled:
+                if acc is not None:
+                    tel.metrics.set_gauge("eval_acc", acc)
+                tel.on_round(
+                    engine="async", round=b, acc=acc, loss=loss, wall_s=round_wall, sim_s=round_sim, **comm.take()
+                )
         trees = [pk.unravel(row) for pk, row in zip(self.packs, global_rows)]
         self.params = trees[0] if n_groups == 1 else hetero_final_params(self.groups, trees)
-        return SimResult(history, self.accountant, self.params, wall_seconds=self.queue.now)
+        return SimResult(
+            history, self.accountant, self.params, wall_seconds=self.queue.now,
+            telemetry=tel if tel.enabled else None,
+        )

@@ -35,6 +35,7 @@ from repro_torch.engine.flatten import FlatPack, ravel_batched, unravel_batched
 from repro_torch.federated.client import _BUCKETS, FLClient
 from repro_torch.federated.programs import ClientProgram, group_clients
 from repro_torch.federated.simulation import initial_params
+from repro_torch.telemetry import NULL_TELEMETRY, step_loop
 from repro_torch.utils.tree import TreeSpec, tree_leaves, tree_map, tree_size_bytes
 
 
@@ -139,6 +140,14 @@ def make_job(client: FLClient, start_flat, rng: np.random.Generator, epochs: int
     return LocalJob(client, start_flat, draw_batch_indices(rng, n, steps, client.batch_size, epochs), steps)
 
 
+def _epoch_steps(k: int, args, kwargs):
+    """``_cohort_epoch_flat``'s arguments cut to ``k`` steps (for
+    ``Telemetry.jit_cost``)."""
+    flat, xb, yb, spec, program, n_steps, *rest = args
+    return n_steps, (flat, xb[:, :k], yb[:, :k], spec, program, k, *rest), kwargs
+
+
+@step_loop(_epoch_steps)
 def _cohort_epoch_flat(
     flat: torch.Tensor,
     xb,
@@ -221,7 +230,12 @@ def _stack_starts(jobs: Sequence[LocalJob]) -> torch.Tensor:
 
 
 def run_cohorts(
-    jobs: Sequence[LocalJob], program: ClientProgram, pack: FlatPack, store=None, impl: str = "gemm"
+    jobs: Sequence[LocalJob],
+    program: ClientProgram,
+    pack: FlatPack,
+    store=None,
+    impl: str = "gemm",
+    telemetry=None,
 ) -> CohortResult:
     """Train every job, same-shape jobs of one program together as one
     cohort.
@@ -234,7 +248,12 @@ def run_cohorts(
     the device), or, with no store, stacked from the clients' numpy shards
     on the host and uploaded: the same samples either way, so the result
     does not depend on the route.  The cohort's rows carry across epochs.
+    ``telemetry`` (a ``Telemetry``) records one ``cohort_epoch`` span per
+    cohort, with the analytic cost of its first epoch (key
+    ``"cohort_epoch"``), and observes ``cohort_size`` and
+    ``cohort_padding_waste``.
     """
+    tel = telemetry if telemetry is not None else NULL_TELEMETRY
     device = jobs[0].start_flat.device if jobs else torch.device("cpu")
 
     def pack_of(prog):
@@ -253,16 +272,30 @@ def run_cohorts(
     offsets: Dict[ClientProgram, int] = {p: 0 for p in block_of}
     index: Dict[int, Tuple[int, int]] = {}
     loss_of: Dict[int, float] = {}
-    for (prog, steps, epochs, _, lr), members in groups.items():
-        flat = _stack_starts(members)
-        cids = [j.client.cid for j in members]
-        for e in range(epochs):
-            if store is not None:
-                xb, yb = store.gather(cids, np.stack([j.idx[e] for j in members]))
-            else:
-                xb = torch.as_tensor(np.stack([j.client.shard.x[j.idx[e]] for j in members]), device=device)
-                yb = torch.as_tensor(np.stack([j.client.shard.y[j.idx[e]] for j in members]), device=device)
-            flat, loss = _cohort_epoch_flat(flat, xb, yb, pack_of(prog).spec, prog, steps, lr, impl=impl)
+    for (prog, steps, epochs, batch, lr), members in groups.items():
+        with tel.span(
+            "cohort_epoch", program=prog.name, clients=len(members), epochs=epochs, steps=steps, batch=batch,
+        ) as sp:
+            if tel.enabled:
+                tel.metrics.observe("cohort_size", len(members))
+                need = float(steps * batch)
+                occ = [min(len(j.client.shard), need) / need for j in members]
+                tel.metrics.observe("cohort_padding_waste", 1.0 - sum(occ) / len(occ))
+            flat = _stack_starts(members)
+            cids = [j.client.cid for j in members]
+            for e in range(epochs):
+                if store is not None:
+                    xb, yb = store.gather(cids, np.stack([j.idx[e] for j in members]))
+                else:
+                    xb = torch.as_tensor(np.stack([j.client.shard.x[j.idx[e]] for j in members]), device=device)
+                    yb = torch.as_tensor(np.stack([j.client.shard.y[j.idx[e]] for j in members]), device=device)
+                if e == 0:
+                    cost = tel.jit_cost(
+                        "cohort_epoch", _cohort_epoch_flat, flat, xb, yb, pack_of(prog).spec, prog, steps, lr, impl
+                    )
+                    if cost:
+                        sp.set(**cost)
+                flat, loss = _cohort_epoch_flat(flat, xb, yb, pack_of(prog).spec, prog, steps, lr, impl)
         mats[prog].append(flat)
         loss = loss.cpu().numpy()
         for c, job in enumerate(members):

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.engine.flatten import unravel_batched
+from repro_torch.telemetry import NULL_TELEMETRY, step_loop
 from repro_torch.utils.tree import TreeSpec, tree_leaves, tree_map, tree_paths, tree_unflatten
 
 
@@ -135,6 +136,20 @@ def distill_edge(programs: Sequence, params_list: Sequence, xb, spec: DistillSpe
 # ---------------------------------------------------------------------------
 # flat form: every edge of a group in one batched pass
 # ---------------------------------------------------------------------------
+def _targets_steps(k: int, args, kwargs):
+    """``_kd_targets_all``'s arguments cut to ``k`` steps (for
+    ``Telemetry.jit_cost``)."""
+    mats, xb, programs, specs, dspec = args
+    return dspec.steps, (mats, xb[:k], programs, specs, dataclasses.replace(dspec, steps=k)), kwargs
+
+
+def _fuse_steps(k: int, args, kwargs):
+    """``_distill_fuse_one``'s arguments cut to ``k`` steps."""
+    flat, xb, targets, prog, spec, dspec = args
+    return dspec.steps, (flat, xb[:k], targets[:k], prog, spec, dataclasses.replace(dspec, steps=k)), kwargs
+
+
+@step_loop(_targets_steps)
 def _kd_targets_all(mats, xb, programs, specs, dspec: DistillSpec) -> torch.Tensor:
     """The ensemble teacher targets for every step at once, (steps, E,
     B..., K), computed ONCE per fuse from the pre-fuse matrices and
@@ -152,6 +167,7 @@ def _kd_targets_all(mats, xb, programs, specs, dspec: DistillSpec) -> torch.Tens
         return torch.stack(out)
 
 
+@step_loop(_fuse_steps)
 def _distill_fuse_one(flat, xb, targets, prog, spec: TreeSpec, dspec: DistillSpec):
     """One group's students on every edge: (E, D_g) in, (E, D_g) out, and
     the mean KD loss over steps and edges (a 0-d tensor)."""
@@ -170,7 +186,12 @@ def _distill_fuse_one(flat, xb, targets, prog, spec: TreeSpec, dspec: DistillSpe
 
 
 def distill_fuse_flat(
-    programs: Sequence, specs: Sequence[TreeSpec], mats: Sequence[torch.Tensor], xb: torch.Tensor, spec: DistillSpec
+    programs: Sequence,
+    specs: Sequence[TreeSpec],
+    mats: Sequence[torch.Tensor],
+    xb: torch.Tensor,
+    spec: DistillSpec,
+    telemetry=None,
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Fuse every edge's per-group models, one batched pass per group.
 
@@ -179,14 +200,29 @@ def distill_fuse_flat(
     on the matrices' device.  Returns the post-fuse matrices and each
     group's mean KD loss over steps and edges, a 0-d tensor on the device
     (the fuse makes the host wait for nothing; ``float()`` reads it).
+    ``telemetry`` records the ``kd_fuse`` span with the summed analytic
+    cost of the teachers (``"kd_targets"``) and every group's students
+    (``"kd_fuse_one"``), and observes each loss into ``kd_loss`` after the
+    round's eval (``Telemetry.observe_later``).
     """
-    xb = xb.movedim(0, 1)  # (steps, E, B, *feat)
-    targets = _kd_targets_all(mats, xb, programs, specs, spec)
-    out, losses = [], []
-    for prog, pspec, mat in zip(programs, specs, mats):
-        fused, loss = _distill_fuse_one(mat, xb, targets, prog, pspec, spec)
-        out.append(fused)
-        losses.append(loss)
+    tel = telemetry if telemetry is not None else NULL_TELEMETRY
+    with tel.span("kd_fuse", groups=len(programs), steps=spec.steps) as span:
+        xb = xb.movedim(0, 1)  # (steps, E, B, *feat)
+        programs, specs, mats = tuple(programs), tuple(specs), tuple(mats)
+        cost = tel.jit_cost("kd_targets", _kd_targets_all, mats, xb, programs, specs, spec)
+        targets = _kd_targets_all(mats, xb, programs, specs, spec)
+        out, losses = [], []
+        for prog, pspec, mat in zip(programs, specs, mats):
+            c = tel.jit_cost("kd_fuse_one", _distill_fuse_one, mat, xb, targets, prog, pspec, spec)
+            if c:
+                cost = {k: cost.get(k, 0.0) + v for k, v in c.items()} if cost else c
+            fused, loss = _distill_fuse_one(mat, xb, targets, prog, pspec, spec)
+            out.append(fused)
+            losses.append(loss)
+        if cost:
+            span.set(**cost)
+        for loss in losses:
+            tel.observe_later("kd_loss", loss)
     return out, losses
 
 

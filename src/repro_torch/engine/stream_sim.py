@@ -37,6 +37,15 @@ faults.  RNG: the cohort comes from the spec's keyed side channel, and the
 batch indices consume the engine RNG per member in ascending client id,
 draw for draw what ``BatchedSyncEngine(cohort=...)`` consumes for the same
 members, so the two engines train on the same batches.
+
+``telemetry`` records the reference's spans (``cloud_round``,
+``assignment``, ``cohort_epoch`` per step-bucket group, ``edge_aggregate``,
+``cloud_reduce``, ``eval``), the ``participating`` gauge and the paged
+store's ``page_hits``, ``page_misses`` and ``page_evictions``.  The span
+sequence is the reference's; the round's paging (one batched write of the
+misses, before the first group) falls inside ``cloud_round`` but in none
+of its child spans, where the reference pages each group inside its
+``cohort_epoch``.
 """
 from __future__ import annotations
 
@@ -55,7 +64,9 @@ from repro_torch.engine.store import PagedShardStore
 from repro_torch.engine.sync_sim import _mean_loss, _segment_agg_keep
 from repro_torch.federated.programs import as_program
 from repro_torch.federated.sampling import CohortSpec
-from repro_torch.federated.simulation import RoundMetrics, SimResult, evaluate, initial_params, refuse_unported
+from repro_torch.federated.simulation import RoundMetrics, SimResult, evaluate, initial_params
+from repro_torch.telemetry import NULL_TELEMETRY, coerce_telemetry
+from repro_torch.telemetry.report import CommDelta
 from repro_torch.utils.tree import tree_size_bytes
 
 _CHUNK = 1 << 16
@@ -72,8 +83,9 @@ class StreamSyncEngine:
     cohort, at least the cohort); ``server_momentum`` applies cloud
     momentum to the aggregated delta; ``backend`` is "kernel" (the CUDA
     kernels on the card, their plain versions on the CPU) or "reference";
-    ``device`` is "cuda" by default, raising without CUDA unless "cpu".
-    The reference's ``telemetry`` raises ``NotImplementedError``.
+    ``telemetry`` (True, a directory or a ``Telemetry``) records the
+    spans and gauges of the module docstring; ``device`` is "cuda" by
+    default, raising without CUDA unless "cpu".
     """
 
     def __init__(
@@ -95,7 +107,6 @@ class StreamSyncEngine:
         telemetry=None,
         device="cuda",
     ):
-        refuse_unported(telemetry=telemetry)
         if not isinstance(cohort, CohortSpec):
             raise ValueError("StreamSyncEngine requires a CohortSpec cohort")
         if backend not in BACKENDS:
@@ -141,13 +152,17 @@ class StreamSyncEngine:
         self.accountant = CommAccountant(model_bits=model_bits)
         self._uplink_bits = self.program.uplink_bits(model_bits)
         self._momentum = ServerMomentum(server_momentum)
+        self.tel = coerce_telemetry(telemetry) or NULL_TELEMETRY
 
     def _edge_round(self, edge_mat: torch.Tensor, b: int, er: int):
         """One edge round over the sampled cohort; returns the new (E, D)
         edge matrix and the members' (C,) losses, still on the device."""
-        dev, n = self.device, self.n_edges
-        members = self.cohort.draw(b, er, eligible=self.eligible, edge_of=self.edge_of, m=self.m)
-        groups, passthrough = self.plan.draw(self.rng, members, self.schedule.local_steps)
+        dev, n, tel = self.device, self.n_edges, self.tel
+        with tel.span("assignment", round=b, engine="sync-stream"):
+            members = self.cohort.draw(b, er, eligible=self.eligible, edge_of=self.edge_of, m=self.m)
+            groups, passthrough = self.plan.draw(self.rng, members, self.schedule.local_steps)
+            if tel.enabled:
+                tel.metrics.set_gauge("participating", len(members))
         trained = np.concatenate([g.members for g in groups]) if groups else np.zeros(0, np.int64)
         # the round's misses are paged in by one batched write
         slots = upload(self.store.ensure(trained), dev)
@@ -156,15 +171,19 @@ class StreamSyncEngine:
         losses: List[torch.Tensor] = []
         off = 0
         for g in groups:
-            rows_g = slice(off, off + len(g.members))
-            off = rows_g.stop
-            idx = upload(g.idx.astype(np.int64), dev)  # (C, epochs, steps, batch)
-            flat = starts[rows_g]
-            for e in range(g.epochs):
-                xb, yb = self.store.gather_slots(slots[rows_g], idx[:, e])
-                flat, loss = _cohort_epoch_flat(flat, xb, yb, self.pack.spec, g.program, g.steps, g.lr)
-            if self.program.quantizes_upload:
-                flat = self.program.quantize_upload(starts[rows_g], flat)
+            with tel.span(
+                "cohort_epoch", round=b, program=g.program.name, clients=len(g.members), epochs=g.epochs,
+                steps=g.steps, batch=g.batch,
+            ):
+                rows_g = slice(off, off + len(g.members))
+                off = rows_g.stop
+                idx = upload(g.idx.astype(np.int64), dev)  # (C, epochs, steps, batch)
+                flat = starts[rows_g]
+                for e in range(g.epochs):
+                    xb, yb = self.store.gather_slots(slots[rows_g], idx[:, e])
+                    flat, loss = _cohort_epoch_flat(flat, xb, yb, self.pack.spec, g.program, g.steps, g.lr)
+                if self.program.quantizes_upload:
+                    flat = self.program.quantize_upload(starts[rows_g], flat)
             rows.append(flat)
             losses.append(loss)
         if len(passthrough):
@@ -173,20 +192,21 @@ class StreamSyncEngine:
             losses.append(torch.zeros(len(passthrough), device=dev))
         cids = np.concatenate([trained, passthrough])
         seg = self.edge_of[cids]
-        has = np.bincount(seg, minlength=n) > 0
-        # the sampled members' FedAvg, every edge in one call: the weights
-        # renormalize over the cohort, and an edge with no sampled member
-        # keeps its model
-        upd = torch.cat(rows) if len(rows) > 1 else (rows[0] if rows else edge_mat[:0])
-        edge_mat = _segment_agg_keep(
-            upd,
-            upload(self.edge_of[trained].astype(np.int64), dev),
-            upload(self._sizes[trained].astype(np.float32), dev),
-            upload(has, dev),
-            edge_mat,
-            n,
-            self.backend,
-        )
+        with tel.span("edge_aggregate", round=b, clients=len(cids), edges=n):
+            has = np.bincount(seg, minlength=n) > 0
+            # the sampled members' FedAvg, every edge in one call: the
+            # weights renormalize over the cohort, and an edge with no
+            # sampled member keeps its model
+            upd = torch.cat(rows) if len(rows) > 1 else (rows[0] if rows else edge_mat[:0])
+            edge_mat = _segment_agg_keep(
+                upd,
+                upload(self.edge_of[trained].astype(np.int64), dev),
+                upload(self._sizes[trained].astype(np.float32), dev),
+                upload(has, dev),
+                edge_mat,
+                n,
+                self.backend,
+            )
         # the cohort's compact accounting, with the true client ids
         lam = np.zeros((len(cids), n), np.int8)
         lam[np.arange(len(cids)), seg] = 1
@@ -198,25 +218,41 @@ class StreamSyncEngine:
         history: List[RoundMetrics] = []
         global_row = self.pack.ravel(self.params)
         edge_sizes = torch.as_tensor(self._edge_sizes, device=self.device)  # once per run
+        comm = CommDelta(self.accountant) if self.tel.enabled else None
         wall_accum = 0.0
         for b in range(1, cloud_rounds + 1):
             t_round = time.perf_counter()
-            # every edge starts from the global model, in a matrix that owns
-            # its rows
-            edge_mat = global_row.repeat(n, 1)
-            chunks: List[torch.Tensor] = []
-            for k in range(self.schedule.edge_per_cloud):
-                edge_mat, round_chunks = self._edge_round(edge_mat, b, k + 1)
-                chunks += round_chunks
-            global_row = self._momentum(global_row, flat_mean(edge_mat, edge_sizes, backend=self.backend))
-            self.accountant.on_cloud_sync(n)
             acc = None
-            if b % eval_every == 0 or b == cloud_rounds:
-                acc = evaluate(self.pack.unravel(global_row), self.program, self.test)
+            with self.tel.span("cloud_round", round=b, engine="sync-stream"):
+                # every edge starts from the global model, in a matrix that
+                # owns its rows
+                edge_mat = global_row.repeat(n, 1)
+                chunks: List[torch.Tensor] = []
+                for k in range(self.schedule.edge_per_cloud):
+                    edge_mat, round_chunks = self._edge_round(edge_mat, b, k + 1)
+                    chunks += round_chunks
+                with self.tel.span("cloud_reduce", round=b, edges=n):
+                    global_row = self._momentum(global_row, flat_mean(edge_mat, edge_sizes, backend=self.backend))
+                self.accountant.on_cloud_sync(n)
+                if b % eval_every == 0 or b == cloud_rounds:
+                    with self.tel.span("eval", round=b) as sp:
+                        acc = evaluate(self.pack.unravel(global_row), self.program, self.test)
+                        sp.set(acc=acc)
             loss = _mean_loss(chunks)
-            wall_accum += time.perf_counter() - t_round
+            round_wall = time.perf_counter() - t_round
+            wall_accum += round_wall
             if acc is not None:
                 history.append(RoundMetrics(b, acc, 0.0, loss, wall_seconds=wall_accum))
                 wall_accum = 0.0
+            if self.tel.enabled:
+                if acc is not None:
+                    self.tel.metrics.set_gauge("eval_acc", acc)
+                self.tel.metrics.set_gauge("page_hits", self.store.hits)
+                self.tel.metrics.set_gauge("page_misses", self.store.misses)
+                self.tel.metrics.set_gauge("page_evictions", self.store.evictions)
+                self.tel.on_round(
+                    engine="sync-stream", round=b, acc=acc, loss=loss if chunks else None, wall_s=round_wall,
+                    sim_s=None, **comm.take(),
+                )
         self.params = self.pack.unravel(global_row)
-        return SimResult(history, self.accountant, self.params)
+        return SimResult(history, self.accountant, self.params, telemetry=self.tel if self.tel.enabled else None)

@@ -58,6 +58,16 @@ distillation on its public shard (``engine.distill``; ``distill=`` and
 the same code, so its runs are those of the single-program engine.
 Inside a device-pipeline edge round the host uploads from pinned memory
 and never waits for the card.
+
+``telemetry`` records the reference's spans: ``cloud_round`` around each
+cloud round, ``assignment`` (the participation and batch draws),
+``cohort_epoch`` per cohort (with the analytic cost of its first epoch),
+``edge_aggregate`` around each group's segment launch (device pipeline) or
+the per-edge ``flat_mean`` loop (host pipeline), ``kd_fuse``,
+``cloud_reduce`` and ``eval``; the ``participating`` gauge, the cohort and
+fault metrics, and one record per cloud round.  Spans time the host's
+dispatch and never synchronise; a telemetry-on device round still makes
+the host wait for nothing.
 """
 from __future__ import annotations
 
@@ -99,6 +109,8 @@ from repro_torch.federated.simulation import (
     initial_params,
     pooled_dataset,
 )
+from repro_torch.telemetry import NULL_TELEMETRY, coerce_telemetry
+from repro_torch.telemetry.report import CommDelta
 from repro_torch.utils.tree import tree_size_bytes
 
 PIPELINES = ("device", "host")
@@ -124,8 +136,9 @@ class BatchedSyncEngine:
     ``server_momentum`` (see the module docstring; a cohort needs
     ``upp=1.0``), ``public_shards`` and ``distill`` (the distillation fuse
     of a heterogeneous-model population: one public ``Dataset`` per edge
-    and a ``DistillSpec``; ignored for a homogeneous one), and ``device``
-    (default "cuda"; raises without CUDA unless "cpu").
+    and a ``DistillSpec``; ignored for a homogeneous one), ``telemetry``
+    (True, a directory or a ``Telemetry``; see the module docstring) and
+    ``device`` (default "cuda"; raises without CUDA unless "cpu").
 
     ``program`` is the engine's own program; the clients may carry others,
     and the population then splits into one group per program (the
@@ -154,6 +167,7 @@ class BatchedSyncEngine:
         faults=None,
         cohort=None,
         server_momentum: float = 0.0,
+        telemetry=None,
         device="cuda",
     ):
         if pipeline not in PIPELINES:
@@ -166,6 +180,7 @@ class BatchedSyncEngine:
         check_cohort(cohort, upp)
         self.device = resolve_device(device)
         configure_numerics(self.device)
+        self.tel = coerce_telemetry(telemetry) or NULL_TELEMETRY
         self.clients = clients
         self.program = as_program(program)
         self.test = test
@@ -223,6 +238,9 @@ class BatchedSyncEngine:
             # call uploads from the host or waits for the card
             self._sizes_dev = torch.as_tensor(self._data_sizes, device=self.device)
             self._ones_dev = torch.ones(self.assignment.shape[1], device=self.device)
+        if self.tel.enabled:
+            for g, prog in enumerate(self.groups):
+                self.tel.metrics.set_gauge(f"group_clients/{prog.name}", int((self.group_of == g).sum()))
 
     def _build_pair_structure(self, assignment) -> None:
         """The (client, edge) membership pairs in client-major order, their
@@ -256,6 +274,8 @@ class BatchedSyncEngine:
         new_lam, changed = self.faults.repair(b, self.assignment)
         if len(changed):
             self._build_pair_structure(new_lam)
+            if self.tel.enabled:
+                self.tel.metrics.inc("faults_reassigned", int(len(changed)))
         return bool(len(changed))
 
     def _draw_participation(self, m: int):
@@ -276,6 +296,8 @@ class BatchedSyncEngine:
             # streams only: the engine RNG above is untouched.
             participating &= self.faults.participation(self._round)
             failed = self.faults.failed_uploads(self._round, self._er) & participating & self._has_edge
+            if self.tel.enabled:
+                self.tel.metrics.inc("faults_dropped", int(failed.sum()))
         return participating, failed
 
     def _cloud_mean(self, edge_mat: torch.Tensor, weights) -> torch.Tensor:
@@ -320,6 +342,7 @@ class BatchedSyncEngine:
                     )
         if self.faults is not None:
             self.faults.debit_round(self._round, participating, self.assignment)
+            self.faults.record_gauges(self.tel)
         if self.clock is not None:
             self.clock.on_edge_sync(self.assignment, participating)
 
@@ -329,11 +352,19 @@ class BatchedSyncEngine:
         and weight goes to the card from pinned memory, so the host never
         waits for it here."""
         m, n = self.assignment.shape
-        dev = self.device
-        participating, failed = self._draw_participation(m)
-        active = self._has_edge & participating
-        # the plan's draw consumes the RNG in client order, like the reference
-        groups, passthrough = self._plan.draw(self.rng, active, self.schedule.local_steps)
+        dev, tel = self.device, self.tel
+        with tel.span("assignment", round=self._round, engine="sync-device"):
+            participating, failed = self._draw_participation(m)
+            active = self._has_edge & participating
+            # the plan's draw consumes the RNG in client order, like the reference
+            groups, passthrough = self._plan.draw(self.rng, active, self.schedule.local_steps)
+            if tel.enabled:
+                tel.metrics.set_gauge("participating", int(active.sum()))
+                for grp in groups:
+                    tel.metrics.observe("cohort_size", len(grp.members))
+                    need = float(grp.steps * grp.batch)
+                    occ = np.minimum(self._plan.sizes[grp.members], need) / need
+                    tel.metrics.observe("cohort_padding_waste", float(1.0 - occ.mean()))
         starts_full: Dict[int, torch.Tensor] = {}
 
         def starts_for(ids: np.ndarray, g: int) -> torch.Tensor:
@@ -350,10 +381,21 @@ class BatchedSyncEngine:
         offsets = [0] * len(self.groups)
         for grp in groups:
             gi = self._group_index[grp.program]
-            flat = starts_for(grp.members, gi)
-            for e in range(grp.epochs):
-                xb, yb = self.store.gather(grp.members, grp.idx[:, e])
-                flat, loss = _cohort_epoch_flat(flat, xb, yb, self.packs[gi].spec, grp.program, grp.steps, grp.lr)
+            with tel.span(
+                "cohort_epoch", round=self._round, program=grp.program.name, clients=len(grp.members),
+                epochs=grp.epochs, steps=grp.steps, batch=grp.batch,
+            ) as sp:
+                flat = starts_for(grp.members, gi)
+                spec = self.packs[gi].spec
+                for e in range(grp.epochs):
+                    xb, yb = self.store.gather(grp.members, grp.idx[:, e])
+                    if e == 0:
+                        cost = tel.jit_cost(
+                            "cohort_epoch_flat", _cohort_epoch_flat, flat, xb, yb, spec, grp.program, grp.steps, grp.lr
+                        )
+                        if cost:
+                            sp.set(**cost)
+                    flat, loss = _cohort_epoch_flat(flat, xb, yb, spec, grp.program, grp.steps, grp.lr)
             mats[gi].append(flat)
             loss_chunks.append(loss)
             row_of[grp.members] = np.arange(offsets[gi], offsets[gi] + len(grp.members))
@@ -382,21 +424,29 @@ class BatchedSyncEngine:
                     upd_matrix = prog.quantize_upload(starts_for(job_cids, gi), trained)
                 row_of[job_cids] = np.arange(len(job_cids))
             # every edge's FedAvg of this group in ONE segment call
-            pc_g, pe_g, pe_g_dev = self._gpairs[gi]
-            part_pairs = agg_mask[pc_g]
-            take = row_of[pc_g]
-            if len(take) == upd_matrix.shape[0] and np.array_equal(take, np.arange(len(take))):
-                upd = upd_matrix  # rows already in pair order: skip the gather
-            else:
-                upd = upd_matrix[upload(take, dev)]
-            # edges with no participant of this group keep its previous model
-            has = np.bincount(pe_g, weights=part_pairs, minlength=n) > 0
-            w = upload(self._data_sizes[pc_g] * part_pairs, dev)
-            has_dev = upload(has, dev)
-            edge_mats[gi] = _segment_agg_keep(upd, pe_g_dev, w, has_dev, edge_mats[gi], n, self.backend)
-            if self._edge_got is not None:
-                self._edge_got[gi] |= has
-                self._got_dev[gi] |= has_dev
+            with tel.span(
+                "edge_aggregate", round=self._round, group=prog.name, clients=len(job_cids), edges=n,
+            ) as sp:
+                pc_g, pe_g, pe_g_dev = self._gpairs[gi]
+                part_pairs = agg_mask[pc_g]
+                take = row_of[pc_g]
+                if len(take) == upd_matrix.shape[0] and np.array_equal(take, np.arange(len(take))):
+                    upd = upd_matrix  # rows already in pair order: skip the gather
+                else:
+                    upd = upd_matrix[upload(take, dev)]
+                # edges with no participant of this group keep its previous model
+                has = np.bincount(pe_g, weights=part_pairs, minlength=n) > 0
+                w = upload(self._data_sizes[pc_g] * part_pairs, dev)
+                has_dev = upload(has, dev)
+                cost = tel.jit_cost(
+                    "segment_agg_keep", _segment_agg_keep, upd, pe_g_dev, w, has_dev, edge_mats[gi], n, self.backend
+                )
+                if cost:
+                    sp.set(**cost)
+                edge_mats[gi] = _segment_agg_keep(upd, pe_g_dev, w, has_dev, edge_mats[gi], n, self.backend)
+                if self._edge_got is not None:
+                    self._edge_got[gi] |= has
+                    self._got_dev[gi] |= has_dev
         self._edge_account(participating, failed)
         return edge_mats, loss_chunks
 
@@ -418,21 +468,22 @@ class BatchedSyncEngine:
         one (D_g,) row per edge) in place and returns the participants'
         losses.  One ``flat_mean`` per (group, edge) cell with uploads."""
         m, n = self.assignment.shape
-        participating, failed = self._draw_participation(m)
-        # job prep consumes the RNG in client order, like the reference
-        jobs, job_edges = [], []
-        for i, cl in enumerate(self.clients):
-            edges = np.nonzero(self.assignment[i])[0]
-            if len(edges) == 0 or not participating[i]:
-                continue
-            rows = edge_rows[self.group_of[i]]
-            # a DCA client starts from the average of its edges' models
-            start = rows[edges[0]] if len(edges) == 1 else flat_mean(
-                torch.stack([rows[j] for j in edges]), self._ones_dev[: len(edges)], backend=self.backend
-            )
-            jobs.append(make_job(cl, start, self.rng, epochs=self.schedule.local_steps))
-            job_edges.append(edges)
-        trained = run_cohorts(jobs, self.program, self.pack, impl="xla")
+        with self.tel.span("assignment", round=self._round, engine="sync-host"):
+            participating, failed = self._draw_participation(m)
+            # job prep consumes the RNG in client order, like the reference
+            jobs, job_edges = [], []
+            for i, cl in enumerate(self.clients):
+                edges = np.nonzero(self.assignment[i])[0]
+                if len(edges) == 0 or not participating[i]:
+                    continue
+                rows = edge_rows[self.group_of[i]]
+                # a DCA client starts from the average of its edges' models
+                start = rows[edges[0]] if len(edges) == 1 else flat_mean(
+                    torch.stack([rows[j] for j in edges]), self._ones_dev[: len(edges)], backend=self.backend
+                )
+                jobs.append(make_job(cl, start, self.rng, epochs=self.schedule.local_steps))
+                job_edges.append(edges)
+        trained = run_cohorts(jobs, self.program, self.pack, impl="xla", telemetry=self.tel)
         compressing = self.compression is not None and self.compression.kind != "none"
         losses: List[float] = []
         uploads: Dict[tuple, List[int]] = {}
@@ -453,13 +504,14 @@ class BatchedSyncEngine:
                 uploads.setdefault((j, gi), []).append(cid)
                 if transforming:
                     rows.setdefault((j, gi), []).append(row)
-        for (j, gi), cids in uploads.items():
-            mat = torch.stack(rows[(j, gi)]) if (j, gi) in rows else trained.gather(cids)
-            weights = torch.stack([self._sizes_dev[c] for c in cids])
-            edge_rows[gi][j] = flat_mean(mat, weights, backend=self.backend)
-            if self._edge_got is not None:
-                self._edge_got[gi][j] = True
-                self._got_dev[gi][j] = True
+        with self.tel.span("edge_aggregate", round=self._round, engine="sync-host", edges=len(uploads)):
+            for (j, gi), cids in uploads.items():
+                mat = torch.stack(rows[(j, gi)]) if (j, gi) in rows else trained.gather(cids)
+                weights = torch.stack([self._sizes_dev[c] for c in cids])
+                edge_rows[gi][j] = flat_mean(mat, weights, backend=self.backend)
+                if self._edge_got is not None:
+                    self._edge_got[gi][j] = True
+                    self._got_dev[gi][j] = True
         self._edge_account(participating, failed)
         return losses
 
@@ -470,7 +522,9 @@ class BatchedSyncEngine:
         n = self.assignment.shape[1]
         idx = draw_public_batches(self.rng, self.public_store.sizes, self.distill)
         xb = self.public_store.gather(np.arange(n), idx)[0]  # (E, steps, B, *feat)
-        fused, _ = distill_fuse_flat(self.groups, [pk.spec for pk in self.packs], edge_mats, xb, self.distill)
+        fused, _ = distill_fuse_flat(
+            self.groups, [pk.spec for pk in self.packs], edge_mats, xb, self.distill, telemetry=self.tel
+        )
         return fused
 
     def _kd_fuse_host(self, edge_rows: List[List[torch.Tensor]]) -> List[List[torch.Tensor]]:
@@ -509,69 +563,94 @@ class BatchedSyncEngine:
         global_rows = [pk.ravel(t) for pk, t in zip(self.packs, self.group_params)]
         edge_sizes = self._cloud_weights()
         cloud_bits = None if n_groups == 1 else float(sum(self._group_bits))
+        engine_name = f"sync-{self.pipeline}"
+        comm = CommDelta(self.accountant) if self.tel.enabled else None
         wall_accum = sim_accum = 0.0
         for b in range(1, cloud_rounds + 1):
             t_round = time.perf_counter()
             sim0 = self.clock.seconds if self.clock is not None else 0.0
             self._round = b
-            if self.faults is not None:
-                if self._maybe_repair(b):
-                    edge_sizes = self._cloud_weights()
-                self._edge_got = [np.zeros(n, bool) for _ in range(n_groups)]
-                self._got_dev = [torch.zeros(n, dtype=torch.bool, device=self.device) for _ in range(n_groups)]
-                if self.clock is not None:
-                    # the straggler model reads the round's faded channel
-                    self.clock.latency = self.faults.latency(b)
-            if self.pipeline == "device":
-                chunks: List[torch.Tensor] = []
-                edge_mats = [row[None, :].expand(n, -1) for row in global_rows]
-                for k in range(self.schedule.edge_per_cloud):
-                    self._er = k + 1
-                    edge_mats, round_chunks = self._edge_round_device(edge_mats)
-                    chunks += round_chunks
-                if self.distill is not None:
-                    edge_mats = self._kd_fuse_device(edge_mats)
-                loss_host = _mean_loss(chunks)
-            else:
-                losses: List[float] = []
-                edge_rows = [[row] * n for row in global_rows]
-                for k in range(self.schedule.edge_per_cloud):
-                    self._er = k + 1
-                    losses += self._edge_round_host(edge_rows)
-                if self.distill is not None:
-                    edge_rows = self._kd_fuse_host(edge_rows)
-                edge_mats = [torch.stack(rows) for rows in edge_rows]
-                loss_host = float(np.mean(losses)) if losses else 0.0
-            # one cloud reduce per group, straight off its (E, D_g) matrix
-            global_rows = [
-                self._momentum[g](global_rows[g], self._cloud_reduce(edge_mats[g], edge_sizes[g], global_rows[g], g))
-                for g in range(n_groups)
-            ]
-            self.accountant.on_cloud_sync(n, bits=cloud_bits)
-            if self.clock is not None:
-                self.clock.on_cloud_sync()
-            div = 0.0
-            if self.track_divergence:
-                # drawn from the engine RNG after the cloud reduce, as the
-                # reference does
-                for _ in range(self.schedule.cloud_period):
-                    self._central_step()
-                div = weight_divergence(self.pack.unravel(global_rows[0]), self.central_params)
             acc = None
-            if b % eval_every == 0 or b == cloud_rounds:
-                acc = float(np.mean([
-                    evaluate(self.packs[g].unravel(global_rows[g]), self.groups[g], self.test) for g in range(n_groups)
-                ]))
-            wall_accum += time.perf_counter() - t_round
-            sim_accum += (self.clock.seconds - sim0) if self.clock is not None else 0.0
+            with self.tel.span("cloud_round", round=b, engine=engine_name):
+                if self.faults is not None:
+                    if self._maybe_repair(b):
+                        edge_sizes = self._cloud_weights()
+                    self._edge_got = [np.zeros(n, bool) for _ in range(n_groups)]
+                    self._got_dev = [torch.zeros(n, dtype=torch.bool, device=self.device) for _ in range(n_groups)]
+                    if self.clock is not None:
+                        # the straggler model reads the round's faded channel
+                        self.clock.latency = self.faults.latency(b)
+                chunks: List[torch.Tensor] = []
+                losses: List[float] = []
+                if self.pipeline == "device":
+                    edge_mats = [row[None, :].expand(n, -1) for row in global_rows]
+                    for k in range(self.schedule.edge_per_cloud):
+                        self._er = k + 1
+                        edge_mats, round_chunks = self._edge_round_device(edge_mats)
+                        chunks += round_chunks
+                    if self.distill is not None:
+                        edge_mats = self._kd_fuse_device(edge_mats)
+                else:
+                    edge_rows = [[row] * n for row in global_rows]
+                    for k in range(self.schedule.edge_per_cloud):
+                        self._er = k + 1
+                        losses += self._edge_round_host(edge_rows)
+                    if self.distill is not None:
+                        edge_rows = self._kd_fuse_host(edge_rows)
+                # one cloud reduce per group, straight off its (E, D_g) matrix
+                with self.tel.span("cloud_reduce", round=b, groups=n_groups, edges=n) as sp:
+                    if self.pipeline == "device":
+                        cost = self.tel.jit_cost("cloud_reduce", self._cloud_mean, edge_mats[0], edge_sizes[0])
+                        if cost:
+                            sp.set(**cost)
+                    else:
+                        edge_mats = [torch.stack(rows) for rows in edge_rows]
+                    global_rows = [
+                        self._momentum[g](
+                            global_rows[g], self._cloud_reduce(edge_mats[g], edge_sizes[g], global_rows[g], g)
+                        )
+                        for g in range(n_groups)
+                    ]
+                if self.pipeline == "device":
+                    loss_host = _mean_loss(chunks)
+                else:
+                    loss_host = float(np.mean(losses)) if losses else 0.0
+                self.accountant.on_cloud_sync(n, bits=cloud_bits)
+                if self.clock is not None:
+                    self.clock.on_cloud_sync()
+                div = 0.0
+                if self.track_divergence:
+                    # drawn from the engine RNG after the cloud reduce, as the
+                    # reference does
+                    for _ in range(self.schedule.cloud_period):
+                        self._central_step()
+                    div = weight_divergence(self.pack.unravel(global_rows[0]), self.central_params)
+                if b % eval_every == 0 or b == cloud_rounds:
+                    with self.tel.span("eval", round=b) as sp:
+                        acc = float(np.mean([
+                            evaluate(self.packs[g].unravel(global_rows[g]), self.groups[g], self.test)
+                            for g in range(n_groups)
+                        ]))
+                        sp.set(acc=acc)
+            round_wall = time.perf_counter() - t_round
+            round_sim = (self.clock.seconds - sim0) if self.clock is not None else 0.0
+            wall_accum += round_wall
+            sim_accum += round_sim
             if acc is not None:
                 history.append(
                     RoundMetrics(b, acc, div, loss_host, wall_seconds=wall_accum, sim_seconds=sim_accum)
                 )
                 wall_accum = sim_accum = 0.0
+            if self.tel.enabled:
+                if acc is not None:
+                    self.tel.metrics.set_gauge("eval_acc", acc)
+                self.tel.on_round(
+                    engine=engine_name, round=b, acc=acc, loss=loss_host if chunks or losses else None,
+                    wall_s=round_wall, sim_s=round_sim if self.clock is not None else None, **comm.take(),
+                )
         trees = [pk.unravel(row) for pk, row in zip(self.packs, global_rows)]
         self.params = trees[0] if n_groups == 1 else hetero_final_params(self.groups, trees)
-        result = SimResult(history, self.accountant, self.params)
+        result = SimResult(history, self.accountant, self.params, telemetry=self.tel if self.tel.enabled else None)
         if self.clock is not None:
             result.wall_seconds = self.clock.seconds
         return result

@@ -322,3 +322,15 @@ class FaultState:
         if self.class_counts is None:
             raise ValueError("repair needs class_counts (see FaultState.__init__)")
         return repair_assignment(assignment, self.class_counts, self.feasible(b))
+
+    # -- telemetry -------------------------------------------------------------
+    def record_gauges(self, tel) -> None:
+        """Energy-remaining / live-population gauges (any engine, any round)."""
+        if not tel.enabled:
+            return
+        tel.metrics.set_gauge("faults_live", int(self.alive().sum()))
+        finite = np.isfinite(self.energy_remaining)
+        if finite.any():
+            tel.metrics.set_gauge(
+                "faults_energy_remaining_j", float(self.energy_remaining[finite].sum())
+            )

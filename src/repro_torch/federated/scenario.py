@@ -52,6 +52,7 @@ from repro_torch.federated.simulation import (
 )
 from repro_torch.federated.stream import SEQUENCE_MODELS, build_stream_scenario
 from repro_torch.models.cnn1d import HEARTBEAT_CNN, SEIZURE_CNN
+from repro_torch.telemetry import coerce_telemetry
 from repro_torch.utils.tree import tree_size_bytes
 from repro_torch.wireless.channel import WirelessParams, build_cost_matrices, sample_topology
 
@@ -175,6 +176,12 @@ class Scenario:
         track_divergence: the distance to a virtual centralized model
                   (eq. 17) in each round's ``divergence`` (not with
                   ``engine="async"``).
+        telemetry: the observability knob: None/False — off; True — record
+                  in memory (``SimResult.telemetry``); a path — record and
+                  write ``trace.json``, ``trace.jsonl``, ``rounds.jsonl``,
+                  ``metrics.json`` and ``summary.txt`` there when the run
+                  ends (also when it raises); a
+                  ``repro_torch.telemetry.Telemetry`` — record into it.
         device:   where the engine runs; "cuda" by default, raising without
                   CUDA unless "cpu" is asked for.
 
@@ -187,7 +194,7 @@ class Scenario:
             raise ValueError(f"unknown pipeline {pipeline!r} (device | host | mesh)")
         if pipeline == "mesh":
             raise not_ported("pipeline='mesh'")
-        refuse_unported(mesh=mesh, telemetry=telemetry, serve=serve)
+        refuse_unported(mesh=mesh, serve=serve)
         distill = distill if distill is not None else self.distill
         hetero = self.is_hetero
         if hetero and (cohort is not None or server_momentum):
@@ -202,6 +209,23 @@ class Scenario:
             fault_state = FaultState(
                 spec, self.topo, self.wp, self.model_bits, class_counts=self.class_counts, device=device
             )
+        tel = coerce_telemetry(telemetry)
+        try:
+            sim = self._engine(
+                assignment, schedule, seed, upp, track_divergence, wall_clock, engine, backend, compression,
+                staleness_decay, quorum, pipeline, distill, fault_state, tel, cohort, server_momentum, device,
+            )
+            return sim.run(cloud_rounds, eval_every=eval_every)
+        finally:
+            if tel is not None and tel.out_dir is not None:
+                tel.flush()
+
+    def _engine(
+        self, assignment, schedule, seed, upp, track_divergence, wall_clock, engine, backend, compression,
+        staleness_decay, quorum, pipeline, distill, fault_state, tel, cohort, server_momentum, device,
+    ):
+        """The engine ``simulate`` runs, built from its checked options."""
+        hetero = self.is_hetero
         cost_latency = self.cost.latency if wall_clock else None
         if engine == "reference" and hetero:
             if track_divergence or wall_clock:
@@ -211,7 +235,7 @@ class Scenario:
                     "the hetero reference simulator does not support fault injection; use engine='sync' "
                     "or 'async' for heterogeneous-model populations under faults"
                 )
-            sim = HeteroHFLSimulation(
+            return HeteroHFLSimulation(
                 self.clients,
                 assignment,
                 self.test,
@@ -221,11 +245,11 @@ class Scenario:
                 public=self.public,
                 distill=distill,
                 compression=compression,
+                telemetry=tel,
                 device=device,
             )
-            return sim.run(cloud_rounds, eval_every=eval_every)
         if engine == "reference":
-            sim = HFLSimulation(
+            return HFLSimulation(
                 self.clients,
                 assignment,
                 self.program,
@@ -237,17 +261,17 @@ class Scenario:
                 cost_latency=cost_latency,
                 compression=compression,
                 faults=fault_state,
+                telemetry=tel,
                 cohort=cohort,
                 server_momentum=server_momentum,
                 device=device,
             )
-            return sim.run(cloud_rounds, eval_every=eval_every)
         if engine == "async":
             from repro_torch.engine.async_sim import AsyncHFLEngine
 
             if track_divergence:
                 raise ValueError("engine='async' does not support track_divergence; use engine='reference' or 'sync'")
-            sim = AsyncHFLEngine(
+            return AsyncHFLEngine(
                 self.clients,
                 assignment,
                 self.program,
@@ -263,14 +287,14 @@ class Scenario:
                 public_shards=self.public,
                 distill=distill,
                 faults=fault_state,
+                telemetry=tel,
                 cohort=cohort,
                 server_momentum=server_momentum,
                 device=device,
             )
-            return sim.run(cloud_rounds, eval_every=eval_every)
         from repro_torch.engine.sync_sim import BatchedSyncEngine
 
-        sim = BatchedSyncEngine(
+        return BatchedSyncEngine(
             self.clients,
             assignment,
             self.program,
@@ -288,9 +312,9 @@ class Scenario:
             faults=fault_state,
             cohort=cohort,
             server_momentum=server_momentum,
+            telemetry=tel,
             device=device,
         )
-        return sim.run(cloud_rounds, eval_every=eval_every)
 
     def centralized(self, rounds: int, seed: int = 0, eval_every: int = 1, device="cuda") -> List[RoundMetrics]:
         """The centralized baseline at the paper's batch: the local batch

@@ -44,13 +44,14 @@ from repro_torch.data.synthetic_health import Dataset
 from repro_torch.device import configure_numerics, resolve_device
 from repro_torch.federated.client import FLClient, _local_epoch
 from repro_torch.federated.programs import as_program, group_clients, group_edge_sizes
+from repro_torch.telemetry import NULL_TELEMETRY, coerce_telemetry
+from repro_torch.telemetry.report import CommDelta
 from repro_torch.utils.tree import tree_add, tree_leaves, tree_map, tree_size_bytes, tree_sub
 
 # where each reference option not carried by this port is queued (ROADMAP.md)
 QUEUED = {
     "pipeline='mesh'": "Queue 1 item 12, mesh",
     "mesh": "Queue 1 item 12, mesh",
-    "telemetry": "Queue 1 item 9, telemetry",
     "model": "Queue 1 item 10, sequence models",
     "serve": "Queue 1 item 11, serving",
 }
@@ -97,6 +98,9 @@ class SimResult:
     accountant: CommAccountant
     final_params: dict
     wall_seconds: float = 0.0
+    # the run's Telemetry (None when telemetry was off): ``.summary()`` is
+    # the end-of-run table, ``.rounds`` the per-round records
+    telemetry: object = None
 
     def rounds_to_accuracy(self, target: float) -> Optional[int]:
         for m in self.history:
@@ -181,9 +185,12 @@ class HFLSimulation:
     trains only the spec's sampled members each edge round, drawn from its
     keyed side channel in place of the UPP draw (the engine RNG is not
     consumed).  ``server_momentum`` applies cloud momentum to the
-    aggregated delta (``core.hfl.ServerMomentum``).  The reference's
-    ``telemetry`` and ``serve`` raise ``NotImplementedError`` naming their
-    queued item.  ``device``: "cuda" by default, raising without CUDA
+    aggregated delta (``core.hfl.ServerMomentum``).  ``telemetry`` (True,
+    a directory or a ``Telemetry``) records the reference's spans
+    (``assignment``, ``local_train``, ``edge_aggregate``, ``cloud_reduce``,
+    ``eval``, ``cloud_round``), its fault counters and one record per cloud
+    round.  The reference's ``serve`` raises ``NotImplementedError`` naming
+    its queued item.  ``device``: "cuda" by default, raising without CUDA
     unless "cpu".
     """
 
@@ -207,7 +214,7 @@ class HFLSimulation:
         serve=None,
         device="cuda",
     ):
-        refuse_unported(telemetry=telemetry, serve=serve)
+        refuse_unported(serve=serve)
         check_cohort(cohort, upp)
         self.device = resolve_device(device)
         configure_numerics(self.device)
@@ -220,6 +227,7 @@ class HFLSimulation:
         self.upp = upp
         self.cohort = cohort
         self._momentum = ServerMomentum(server_momentum)
+        self.tel = coerce_telemetry(telemetry) or NULL_TELEMETRY
         self.params = initial_params(self.program, seed, self.device)
         self.track_divergence = track_divergence
         if track_divergence:
@@ -255,12 +263,13 @@ class HFLSimulation:
         """One edge round: participation draw, every participant's local
         update in client order, then each edge's FedAvg of its uploads."""
         m, n = self.assignment.shape
-        if self.cohort is not None:
-            participating = self.cohort.mask(self._round, self._er, assignment=self.assignment)
-        else:
-            participating = self.rng.random(m) < self.upp
-            if not participating.any():
-                participating[self.rng.integers(0, m)] = True
+        with self.tel.span("assignment", round=self._round, engine="reference"):
+            if self.cohort is not None:
+                participating = self.cohort.mask(self._round, self._er, assignment=self.assignment)
+            else:
+                participating = self.rng.random(m) < self.upp
+                if not participating.any():
+                    participating[self.rng.integers(0, m)] = True
         failed = None
         if self.faults is not None:
             # churned-out and battery-dead EUs sit the round out; of the
@@ -271,30 +280,34 @@ class HFLSimulation:
             failed = (
                 self.faults.failed_uploads(self._round, self._er) & participating & self.assignment.any(axis=1)
             )
+            if self.tel.enabled:
+                self.tel.metrics.inc("faults_dropped", int(failed.sum()))
         losses = []
         new_models: List[List[dict]] = [[] for _ in range(n)]
         new_sizes: List[List[float]] = [[] for _ in range(n)]
-        for i, cl in enumerate(self.clients):
-            edges = np.nonzero(self.assignment[i])[0]
-            if len(edges) == 0 or not participating[i]:
-                continue
-            # a DCA client starts from the average of its edges' models
-            start = edge_params[edges[0]] if len(edges) == 1 else edge_aggregate(
-                [edge_params[j] for j in edges], [1.0] * len(edges)
-            )
-            upd, loss = cl.local_update(start, self.rng, epochs=self.schedule.local_steps)
-            losses.append(loss)
-            if failed is not None and failed[i]:
-                continue  # trained, transmitted, lost: no edge averages it
-            upd = self._compress_upload(cl.cid, start, upd)
-            for j in edges:
-                new_models[j].append(upd)
-                new_sizes[j].append(cl.data_size)
-        for j in range(n):
-            if new_models[j]:
-                edge_params[j] = edge_aggregate(new_models[j], new_sizes[j])
-                if self._edge_got is not None:
-                    self._edge_got[j] = True
+        with self.tel.span("local_train", round=self._round, clients=int(participating.sum())):
+            for i, cl in enumerate(self.clients):
+                edges = np.nonzero(self.assignment[i])[0]
+                if len(edges) == 0 or not participating[i]:
+                    continue
+                # a DCA client starts from the average of its edges' models
+                start = edge_params[edges[0]] if len(edges) == 1 else edge_aggregate(
+                    [edge_params[j] for j in edges], [1.0] * len(edges)
+                )
+                upd, loss = cl.local_update(start, self.rng, epochs=self.schedule.local_steps)
+                losses.append(loss)
+                if failed is not None and failed[i]:
+                    continue  # trained, transmitted, lost: no edge averages it
+                upd = self._compress_upload(cl.cid, start, upd)
+                for j in edges:
+                    new_models[j].append(upd)
+                    new_sizes[j].append(cl.data_size)
+        with self.tel.span("edge_aggregate", round=self._round, edges=n):
+            for j in range(n):
+                if new_models[j]:
+                    edge_params[j] = edge_aggregate(new_models[j], new_sizes[j])
+                    if self._edge_got is not None:
+                        self._edge_got[j] = True
         success = participating if failed is None else participating & ~failed
         self.accountant.on_edge_sync(self.assignment * success[:, None], uplink_bits=self._uplink_bits)
         if self.faults is not None:
@@ -306,6 +319,7 @@ class HFLSimulation:
                         int(i), self._uplink_bits * (1.0 + (mc if k > 1 else 0.0)), kind="dropped"
                     )
             self.faults.debit_round(self._round, participating, self.assignment)
+            self.faults.record_gauges(self.tel)
         if self.clock is not None:
             self.clock.on_edge_sync(self.assignment, participating)
         return losses
@@ -330,62 +344,77 @@ class HFLSimulation:
         new_lam, changed = self.faults.repair(b, self.assignment)
         if len(changed):
             self.assignment = new_lam
+            if self.tel.enabled:
+                self.tel.metrics.inc("faults_reassigned", int(len(changed)))
 
     def run(self, cloud_rounds: int, eval_every: int = 1) -> SimResult:
         n = self.assignment.shape[1]
         history: List[RoundMetrics] = []
         global_params = self.params
         edge_sizes = self._edge_data_sizes()
+        comm = CommDelta(self.accountant) if self.tel.enabled else None
         wall_accum = sim_accum = 0.0
         for b in range(1, cloud_rounds + 1):
             t_round = time.perf_counter()
             sim0 = self.clock.seconds if self.clock is not None else 0.0
             self._round = b
-            if self.faults is not None:
-                self._maybe_repair(b)
-                if self.faults.spec.reassign:
-                    edge_sizes = self._edge_data_sizes()
-                self._edge_got = np.zeros(n, bool)
-                if self.clock is not None:
-                    # the straggler model reads the round's faded channel
-                    self.clock.latency = self.faults.latency(b)
-            edge_params = [global_params] * n
-            losses: List[float] = []
-            for k in range(self.schedule.edge_per_cloud):
-                self._er = k + 1
-                losses += self._edge_round(edge_params)
-            if self.faults is not None:
-                # degraded reduce: an edge that received no upload all cloud
-                # round holds the stale global model and weighs 0; when every
-                # edge starved, the global model stands
-                w = [s if self._edge_got[j] else 0.0 for j, s in enumerate(edge_sizes)]
-                if any(w):
-                    global_params = self._momentum(global_params, cloud_aggregate(edge_params, w))
-            else:
-                global_params = self._momentum(
-                    global_params, cloud_aggregate(edge_params, [max(s, 1) for s in edge_sizes])
-                )
-            self.accountant.on_cloud_sync(n)
-            if self.clock is not None:
-                self.clock.on_cloud_sync()
-            div = 0.0
-            if self.track_divergence:
-                for _ in range(self.schedule.cloud_period):
-                    self._central_step()
-                div = weight_divergence(global_params, self.central_params)
             acc = None
-            if b % eval_every == 0 or b == cloud_rounds:
-                acc = evaluate(global_params, self.program, self.test)
-            wall_accum += time.perf_counter() - t_round
-            sim_accum += (self.clock.seconds - sim0) if self.clock is not None else 0.0
+            with self.tel.span("cloud_round", round=b, engine="reference"):
+                if self.faults is not None:
+                    self._maybe_repair(b)
+                    if self.faults.spec.reassign:
+                        edge_sizes = self._edge_data_sizes()
+                    self._edge_got = np.zeros(n, bool)
+                    if self.clock is not None:
+                        # the straggler model reads the round's faded channel
+                        self.clock.latency = self.faults.latency(b)
+                edge_params = [global_params] * n
+                losses: List[float] = []
+                for k in range(self.schedule.edge_per_cloud):
+                    self._er = k + 1
+                    losses += self._edge_round(edge_params)
+                with self.tel.span("cloud_reduce", round=b, edges=n):
+                    if self.faults is not None:
+                        # degraded reduce: an edge that received no upload
+                        # all cloud round holds the stale global model and
+                        # weighs 0; when every edge starved, the global
+                        # model stands
+                        w = [s if self._edge_got[j] else 0.0 for j, s in enumerate(edge_sizes)]
+                        if any(w):
+                            global_params = self._momentum(global_params, cloud_aggregate(edge_params, w))
+                    else:
+                        global_params = self._momentum(
+                            global_params, cloud_aggregate(edge_params, [max(s, 1) for s in edge_sizes])
+                        )
+                self.accountant.on_cloud_sync(n)
+                if self.clock is not None:
+                    self.clock.on_cloud_sync()
+                div = 0.0
+                if self.track_divergence:
+                    for _ in range(self.schedule.cloud_period):
+                        self._central_step()
+                    div = weight_divergence(global_params, self.central_params)
+                if b % eval_every == 0 or b == cloud_rounds:
+                    with self.tel.span("eval", round=b) as sp:
+                        acc = evaluate(global_params, self.program, self.test)
+                        sp.set(acc=acc)
+            round_wall = time.perf_counter() - t_round
+            round_sim = (self.clock.seconds - sim0) if self.clock is not None else 0.0
+            wall_accum += round_wall
+            sim_accum += round_sim
+            loss = float(np.mean(losses)) if losses else 0.0
             if acc is not None:
-                loss = float(np.mean(losses)) if losses else 0.0
-                history.append(
-                    RoundMetrics(b, acc, div, loss, wall_seconds=wall_accum, sim_seconds=sim_accum)
-                )
+                history.append(RoundMetrics(b, acc, div, loss, wall_seconds=wall_accum, sim_seconds=sim_accum))
                 wall_accum = sim_accum = 0.0
+            if self.tel.enabled:
+                if acc is not None:
+                    self.tel.metrics.set_gauge("eval_acc", acc)
+                self.tel.on_round(
+                    engine="reference", round=b, acc=acc, loss=loss, wall_s=round_wall,
+                    sim_s=round_sim if self.clock is not None else None, **comm.take(),
+                )
         self.params = global_params
-        result = SimResult(history, self.accountant, global_params)
+        result = SimResult(history, self.accountant, global_params, telemetry=self.tel if self.tel.enabled else None)
         if self.clock is not None:
             result.wall_seconds = self.clock.seconds
         return result
@@ -424,9 +453,11 @@ class HeteroHFLSimulation:
     or None for groups that evolve apart (still a valid federation).
     ``compression`` compresses each upload per leaf with per-EU error
     feedback.  Every group starts from ``program.init`` with a generator
-    seeded from ``seed``.  The reference's ``telemetry`` raises
-    ``NotImplementedError``; ``device`` is "cuda" by default, raising
-    without CUDA unless "cpu".
+    seeded from ``seed``.  ``telemetry`` records the reference's spans
+    (``assignment``, ``local_train``, ``edge_aggregate``, ``kd_fuse``,
+    ``cloud_reduce``, ``eval``, ``cloud_round``), ``kd_loss`` and one record
+    per cloud round; ``device`` is "cuda" by default, raising without CUDA
+    unless "cpu".
     """
 
     def __init__(
@@ -445,7 +476,6 @@ class HeteroHFLSimulation:
     ):
         from repro_torch.engine.distill import check_distillable, check_public_shards
 
-        refuse_unported(telemetry=telemetry)
         self.device = resolve_device(device)
         configure_numerics(self.device)
         self.clients = clients
@@ -454,6 +484,8 @@ class HeteroHFLSimulation:
         self.schedule = schedule
         self.rng = np.random.default_rng(seed)
         self.upp = upp
+        self.tel = coerce_telemetry(telemetry) or NULL_TELEMETRY
+        self._round = 0
         self.programs, self.group_of = group_clients(clients)
         self.group_params = [initial_params(p, seed, self.device) for p in self.programs]
         self._group_bits = [tree_size_bytes(t) * 8 for t in self.group_params]
@@ -480,27 +512,32 @@ class HeteroHFLSimulation:
     def _edge_round(self, edge_params: List[List[dict]]) -> List[float]:
         """One edge round; ``edge_params[g][j]`` is edge j's group-g model."""
         m, n = self.assignment.shape
-        participating = self.rng.random(m) < self.upp
-        if not participating.any():
-            participating[self.rng.integers(0, m)] = True
+        with self.tel.span("assignment", round=self._round, engine="reference-hetero"):
+            participating = self.rng.random(m) < self.upp
+            if not participating.any():
+                participating[self.rng.integers(0, m)] = True
         losses = []
         new_models: Dict[tuple, List[dict]] = {}
         new_sizes: Dict[tuple, List[float]] = {}
-        for i, cl in enumerate(self.clients):
-            edges = np.nonzero(self.assignment[i])[0]
-            if len(edges) == 0 or not participating[i]:
-                continue
-            g = int(self.group_of[i])
-            rows = edge_params[g]
-            start = rows[edges[0]] if len(edges) == 1 else edge_aggregate([rows[j] for j in edges], [1.0] * len(edges))
-            upd, loss = cl.local_update(start, self.rng, epochs=self.schedule.local_steps)
-            losses.append(loss)
-            upd = self._compress_upload(cl.cid, start, upd)
-            for j in edges:
-                new_models.setdefault((g, j), []).append(upd)
-                new_sizes.setdefault((g, j), []).append(cl.data_size)
-        for (g, j), models in new_models.items():
-            edge_params[g][j] = edge_aggregate(models, new_sizes[(g, j)])
+        with self.tel.span("local_train", round=self._round, clients=int(participating.sum())):
+            for i, cl in enumerate(self.clients):
+                edges = np.nonzero(self.assignment[i])[0]
+                if len(edges) == 0 or not participating[i]:
+                    continue
+                g = int(self.group_of[i])
+                rows = edge_params[g]
+                start = rows[edges[0]] if len(edges) == 1 else edge_aggregate(
+                    [rows[j] for j in edges], [1.0] * len(edges)
+                )
+                upd, loss = cl.local_update(start, self.rng, epochs=self.schedule.local_steps)
+                losses.append(loss)
+                upd = self._compress_upload(cl.cid, start, upd)
+                for j in edges:
+                    new_models.setdefault((g, j), []).append(upd)
+                    new_sizes.setdefault((g, j), []).append(cl.data_size)
+        with self.tel.span("edge_aggregate", round=self._round, edges=n):
+            for (g, j), models in new_models.items():
+                edge_params[g][j] = edge_aggregate(models, new_sizes[(g, j)])
         for g in range(len(self.programs)):
             mask = (self.group_of == g) & participating
             self.accountant.on_edge_sync(
@@ -514,13 +551,18 @@ class HeteroHFLSimulation:
     def _kd_fuse(self, edge_params: List[List[dict]]) -> List[List[dict]]:
         from repro_torch.engine.distill import distill_edge, draw_public_batches
 
-        idx = draw_public_batches(self.rng, [len(s) for s in self.public], self.distill)
-        for j in range(self.assignment.shape[1]):
-            fused, _ = distill_edge(
-                self.programs, [rows[j] for rows in edge_params], self.public[j].x[idx[j]], self.distill
-            )
-            for g, tree in enumerate(fused):
-                edge_params[g][j] = tree
+        n = self.assignment.shape[1]
+        with self.tel.span("kd_fuse", round=self._round, edges=n, groups=len(self.programs)):
+            idx = draw_public_batches(self.rng, [len(s) for s in self.public], self.distill)
+            for j in range(n):
+                fused, kd_losses = distill_edge(
+                    self.programs, [rows[j] for rows in edge_params], self.public[j].x[idx[j]], self.distill
+                )
+                if self.tel.enabled:
+                    for loss in kd_losses:
+                        self.tel.metrics.observe("kd_loss", loss)
+                for g, tree in enumerate(fused):
+                    edge_params[g][j] = tree
         return edge_params
 
     def run(self, cloud_rounds: int, eval_every: int = 1) -> SimResult:
@@ -530,28 +572,44 @@ class HeteroHFLSimulation:
         group_params = self.group_params
         edge_sizes = group_edge_sizes(self.clients, self.assignment, self.group_of)
         cloud_bits = None if n_groups == 1 else float(sum(self._group_bits))
+        comm = CommDelta(self.accountant) if self.tel.enabled else None
         wall_accum = 0.0
         for b in range(1, cloud_rounds + 1):
             t_round = time.perf_counter()
-            edge_params = [[tree] * n for tree in group_params]
-            losses: List[float] = []
-            for _ in range(self.schedule.edge_per_cloud):
-                losses += self._edge_round(edge_params)
-            if self.distill is not None:
-                edge_params = self._kd_fuse(edge_params)
-            group_params = [cloud_aggregate(edge_params[g], edge_sizes[g]) for g in range(n_groups)]
-            self.accountant.on_cloud_sync(n, bits=cloud_bits)
+            self._round = b
             acc = None
-            if b % eval_every == 0 or b == cloud_rounds:
-                acc = float(np.mean([evaluate(group_params[g], self.programs[g], self.test) for g in range(n_groups)]))
-            wall_accum += time.perf_counter() - t_round
+            with self.tel.span("cloud_round", round=b, engine="reference-hetero"):
+                edge_params = [[tree] * n for tree in group_params]
+                losses: List[float] = []
+                for _ in range(self.schedule.edge_per_cloud):
+                    losses += self._edge_round(edge_params)
+                if self.distill is not None:
+                    edge_params = self._kd_fuse(edge_params)
+                with self.tel.span("cloud_reduce", round=b, groups=n_groups):
+                    group_params = [cloud_aggregate(edge_params[g], edge_sizes[g]) for g in range(n_groups)]
+                self.accountant.on_cloud_sync(n, bits=cloud_bits)
+                if b % eval_every == 0 or b == cloud_rounds:
+                    with self.tel.span("eval", round=b) as sp:
+                        acc = float(np.mean([
+                            evaluate(group_params[g], self.programs[g], self.test) for g in range(n_groups)
+                        ]))
+                        sp.set(acc=acc)
+            round_wall = time.perf_counter() - t_round
+            wall_accum += round_wall
+            loss = float(np.mean(losses)) if losses else 0.0
             if acc is not None:
-                loss = float(np.mean(losses)) if losses else 0.0
                 history.append(RoundMetrics(b, acc, 0.0, loss, wall_seconds=wall_accum))
                 wall_accum = 0.0
+            if self.tel.enabled:
+                if acc is not None:
+                    self.tel.metrics.set_gauge("eval_acc", acc)
+                self.tel.on_round(
+                    engine="reference-hetero", round=b, acc=acc, loss=loss, wall_s=round_wall, sim_s=None,
+                    **comm.take(),
+                )
         self.group_params = group_params
         final = group_params[0] if n_groups == 1 else hetero_final_params(self.programs, group_params)
-        return SimResult(history, self.accountant, final)
+        return SimResult(history, self.accountant, final, telemetry=self.tel if self.tel.enabled else None)
 
 
 def centralized_baseline(

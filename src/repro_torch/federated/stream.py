@@ -35,8 +35,9 @@ from repro_torch.data.synthetic_health import Dataset, make_dataset
 from repro_torch.federated.client import FLClient
 from repro_torch.federated.programs import CNNProgram, FedSGDProgram, MLPProgram, as_program
 from repro_torch.federated.sampling import CohortSpec
-from repro_torch.federated.simulation import SimResult, not_ported, refuse_unported
+from repro_torch.federated.simulation import SimResult, not_ported
 from repro_torch.models.cnn1d import HEARTBEAT_CNN, SEIZURE_CNN
+from repro_torch.telemetry import coerce_telemetry
 from repro_torch.utils.seedhash import keyed_randint
 from repro_torch.utils.tree import tree_size_bytes
 
@@ -173,18 +174,24 @@ class StreamScenario:
         device="cuda",
     ) -> SimResult:
         """Run ``StreamSyncEngine`` on this population (``device``: "cuda"
-        by default, raising without CUDA unless "cpu")."""
+        by default, raising without CUDA unless "cpu").  ``telemetry`` is
+        ``Scenario.simulate``'s knob: a directory gets the artifacts when
+        the run ends, also when it raises."""
         from repro_torch.engine.stream_sim import StreamSyncEngine
 
-        refuse_unported(telemetry=telemetry)
-        eng = StreamSyncEngine(
-            self.source, self.edge_of, self.program, self.test,
-            cohort=cohort, n_edges=self.n_edges, schedule=schedule, seed=seed,
-            backend=backend, page_slots=page_slots,
-            batch_size=self.batch_size, lr=self.lr, max_steps=self.max_steps,
-            server_momentum=server_momentum, device=device,
-        )
-        return eng.run(cloud_rounds, eval_every=eval_every)
+        tel = coerce_telemetry(telemetry)
+        try:
+            eng = StreamSyncEngine(
+                self.source, self.edge_of, self.program, self.test,
+                cohort=cohort, n_edges=self.n_edges, schedule=schedule, seed=seed,
+                backend=backend, page_slots=page_slots,
+                batch_size=self.batch_size, lr=self.lr, max_steps=self.max_steps,
+                server_momentum=server_momentum, telemetry=tel, device=device,
+            )
+            return eng.run(cloud_rounds, eval_every=eval_every)
+        finally:
+            if tel is not None and tel.out_dir is not None:
+                tel.flush()
 
 
 def build_stream_scenario(

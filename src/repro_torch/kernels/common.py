@@ -6,6 +6,10 @@ import ctypes
 import torch
 
 UPDATE_DTYPES = (torch.float32, torch.bfloat16)
+# the devices whose tensors take a kernel's plain version: the CPU, and
+# meta (shapes without storage), on which ``Telemetry.jit_cost`` counts a
+# program's FLOPs and bytes; a CUDA tensor never does
+PLAIN_DEVICES = ("cpu", "meta")
 
 
 def check_updates(updates, name: str) -> None:
@@ -18,8 +22,8 @@ def check_updates(updates, name: str) -> None:
         raise TypeError(f"{name}: updates must be float32 or bfloat16, got {updates.dtype}")
     if not updates.is_contiguous():
         raise ValueError(f"{name}: updates must be contiguous")
-    if updates.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: updates must lie on the CPU or a CUDA device, got {updates.device}")
+    if updates.device.type not in PLAIN_DEVICES + ("cuda",):
+        raise ValueError(f"{name}: updates must lie on the CPU, a CUDA device or meta, got {updates.device}")
 
 
 def check_rows(vec, n: int, device: torch.device, what: str, name: str, *, integer: bool) -> None:

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.common import (
+    PLAIN_DEVICES,
     check_launch,
     check_rows,
     check_updates,
@@ -62,15 +63,15 @@ def hier_aggregate(updates, weights) -> torch.Tensor:
     """updates: (N, D) fp32/bf16; weights: (N,).  Returns the (D,) weighted
     average in the input dtype.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (one
-    launch, counted in ``hier_aggregate.launches``, and nothing that waits
-    for the card) or raise.
+    CPU and meta tensors take the plain version; CUDA tensors launch the
+    kernel (one launch, counted in ``hier_aggregate.launches``, and nothing
+    that waits for the card) or raise.
     """
     name = "hier_aggregate"
     check_updates(updates, name)
     n, d = updates.shape
     check_rows(weights, n, updates.device, "weights", name, integer=False)
-    if updates.device.type == "cpu":
+    if updates.device.type in PLAIN_DEVICES:
         return hier_aggregate_ref(updates, weights)
     if n == 0 or d == 0:
         return torch.zeros((d,), dtype=updates.dtype, device=updates.device)

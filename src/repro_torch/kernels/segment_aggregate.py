@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.common import (
+    PLAIN_DEVICES,
     check_launch,
     check_rows,
     check_updates,
@@ -91,8 +92,8 @@ def hier_segment_aggregate(updates, seg_ids, weights, n_segments: int) -> torch.
     single-member segment is exactly its row.
 
     An id outside [0, n_segments) belongs to no segment and adds nothing,
-    as in the TPU kernel, on both routes.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (one launch, counted in
+    as in the TPU kernel, on both routes.  CPU and meta tensors take the
+    plain version; CUDA tensors launch the kernel (one launch, counted in
     ``hier_segment_aggregate.launches``) or raise, and the wrapper never
     waits for the card to check the ids.
     """
@@ -104,7 +105,7 @@ def hier_segment_aggregate(updates, seg_ids, weights, n_segments: int) -> torch.
     if int(n_segments) != n_segments or n_segments < 0:
         raise ValueError(f"{name}: n_segments must be a non-negative int, got {n_segments!r}")
     n_segments = int(n_segments)
-    if updates.device.type == "cpu":
+    if updates.device.type in PLAIN_DEVICES:
         return hier_segment_aggregate_ref(updates, seg_ids, weights, n_segments)
     if n == 0 or d == 0 or n_segments == 0:
         return torch.zeros((n_segments, d), dtype=updates.dtype, device=updates.device)

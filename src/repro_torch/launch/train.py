@@ -1,0 +1,130 @@
+"""Training launcher: the paper's hierarchical-FL healthcare experiment.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --paper --rounds 4
+  PYTHONPATH=src python -m repro_torch.launch.train --paper --device cpu --telemetry out/
+
+The port of ``repro.launch.train``'s ``--paper`` mode, with the same flags
+plus ``--device`` (default ``cuda``; without CUDA it raises unless
+``--device cpu`` is given).  ``--telemetry DIR`` records the run's spans,
+metrics and round records and writes ``trace.json``, ``trace.jsonl``,
+``rounds.jsonl``, ``metrics.json`` and ``summary.txt`` there;
+``--engine`` picks the simulation engine; ``--faults chaos`` runs under
+the fault-injection preset (client churn, mid-round upload losses with
+async retries, finite energy budgets, time-varying channels);
+``--cohort N`` trains a sampled N-client cohort a round, and with
+``--lazy-eus M`` over a lazy M-client population on the streaming engine.
+
+The reference's ``--arch`` mode (LM training of a sequence model) waits for
+ROADMAP.md Queue 1 items 10 and 13, and ``--serve`` (evaluation under
+traffic) for item 11: both raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import argparse
+
+# fault-injection presets for --faults (FaultSpec kwargs; "chaos": >= 20%
+# churn, lossy uplinks, finite batteries, fading drift)
+FAULT_PRESETS = {
+    "chaos": dict(
+        p_drop=0.25, p_rejoin=0.5, p_fail=0.2, max_retries=2, backoff_s=0.1,
+        energy_uploads=6.0, refade_rounds=1, drift_rate=0.05,
+    ),
+}
+
+
+def run_paper(args) -> None:
+    from repro_torch.core import HFLSchedule
+    from repro_torch.federated import CohortSpec, build_scenario
+
+    schedule = HFLSchedule(args.local_steps, args.edge_per_cloud)
+    telemetry = args.telemetry or None
+    cohort = None
+    if args.cohort:
+        cohort = CohortSpec(size=args.cohort, strategy=args.cohort_strategy, seed=args.seed)
+    if args.lazy_eus:
+        # streaming mode: lazy shard synthesis, striped assignment and the
+        # cohort-sampled StreamSyncEngine; nothing O(M) is materialized
+        if cohort is None:
+            raise SystemExit("--lazy-eus requires --cohort N")
+        sc = build_scenario(args.dataset, lazy=True, n_eus=args.lazy_eus, n_edges=args.lazy_edges, seed=args.seed,
+                            device=args.device)
+        print(f"streaming M={sc.n_clients} N={sc.n_edges} KLD={sc.kld_total():.3f}")
+        res = sc.simulate(cohort, cloud_rounds=args.rounds, schedule=schedule, seed=args.seed,
+                          server_momentum=args.server_momentum, telemetry=telemetry, device=args.device)
+        for m in res.history:
+            print(f"round {m.cloud_round}: acc={m.test_acc:.3f} wall={m.wall_seconds:.2f}s")
+        if res.telemetry is not None:
+            print(res.telemetry.summary())
+        return
+    faults = None
+    if args.faults:
+        from repro_torch.faults import FaultSpec
+
+        faults = FaultSpec(seed=args.seed, **FAULT_PRESETS[args.faults])
+    sc = build_scenario(args.dataset, scale=args.scale, seed=args.seed, device=args.device)
+    a = sc.assign(args.strategy, device=args.device)
+    print(f"strategy={args.strategy} KLD={a.kld_total:.3f}")
+    res = sc.simulate(
+        a.lam, cloud_rounds=args.rounds, schedule=schedule, seed=args.seed, engine=args.engine, faults=faults,
+        cohort=cohort, server_momentum=args.server_momentum, telemetry=telemetry, device=args.device,
+    )
+    for m in res.history:
+        extra = f" wall={m.wall_seconds:.2f}s"
+        if m.sim_seconds:
+            extra += f" sim={m.sim_seconds:.2f}s"
+        print(f"round {m.cloud_round}: acc={m.test_acc:.3f}{extra}")
+    if faults is not None:
+        t = res.accountant.totals()
+        print(
+            f"faults: wasted={t['wasted_bits'] / 1e6:.2f}Mb dropped={t['dropped_uploads']:.0f} "
+            f"retried={t['retried_uploads']:.0f} abandoned={t['abandoned_uploads']:.0f}"
+        )
+    if res.telemetry is not None:
+        print(res.telemetry.summary())
+        if args.telemetry:
+            print("telemetry artifacts in", args.telemetry)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--paper", action="store_true")
+    ap.add_argument("--dataset", default="heartbeat")
+    ap.add_argument("--strategy", default="eara-sca")
+    ap.add_argument("--engine", default="reference", choices=("reference", "sync", "async"))
+    ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--local-steps", type=int, default=1)
+    ap.add_argument("--edge-per-cloud", type=int, default=1)
+    ap.add_argument("--scale", type=float, default=0.05)
+    ap.add_argument("--faults", default="", choices=("", *FAULT_PRESETS),
+                    help="fault-injection preset for the paper experiment")
+    ap.add_argument("--cohort", type=int, default=0, metavar="N",
+                    help="sample an N-client cohort per edge round instead of full participation")
+    ap.add_argument("--cohort-strategy", default="uniform", choices=("uniform", "prate", "per_edge"))
+    ap.add_argument("--server-momentum", type=float, default=0.0,
+                    help="cloud-side momentum on the aggregated update")
+    ap.add_argument("--lazy-eus", type=int, default=0, metavar="M",
+                    help="streaming mode: a lazy M-client population (needs --cohort)")
+    ap.add_argument("--lazy-edges", type=int, default=8)
+    ap.add_argument("--serve", type=int, default=0, metavar="Q",
+                    help="evaluation under traffic (not ported: ROADMAP.md Queue 1 item 11)")
+    ap.add_argument("--arch", default="",
+                    help="LM training of a sequence model (not ported: ROADMAP.md Queue 1 items 10 and 13)")
+    ap.add_argument("--telemetry", default="", metavar="DIR", help="record telemetry; write artifacts to DIR")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.arch and not args.paper:
+        raise NotImplementedError(
+            "--arch (LM training of a sequence model) is not ported to repro_torch yet; it is queued in "
+            "ROADMAP.md (Queue 1 item 10, sequence models, and item 13, the training step and launchers)"
+        )
+    if args.serve:
+        raise NotImplementedError(
+            "--serve (evaluation under traffic) is not ported to repro_torch yet; it is queued in "
+            "ROADMAP.md (Queue 1 item 11, serving)"
+        )
+    run_paper(args)
+
+
+if __name__ == "__main__":
+    main()

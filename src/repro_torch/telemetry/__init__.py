@@ -6,15 +6,27 @@ The port's copy of the reference's facade (``src/repro/telemetry``):
   thread-safe) around the hot paths.
 * ``tel.sim_span(...)`` — spans on a *simulated-time* track.
 * ``tel.metrics`` — counters/gauges/histograms.
-* ``tel.jit_cost(key, fn, *args)`` — the reference lowers a jitted program
-  to HLO and counts its FLOPs and bytes; PyTorch runs eagerly and has no
-  HLO, so here it returns ``None`` (ROADMAP.md Queue 1 item 9), and callers
-  omit the cost, as the reference does when no cost is found.
+* ``tel.jit_cost(key, fn, *args)`` — analytic FLOPs and bytes of one
+  program, cached per (key, argument shapes): the reference lowers a jitted
+  program to HLO; an eager program has no HLO, so here ``fn`` runs once on
+  ``meta`` copies of its tensor arguments (shapes only: no data, no
+  kernel launch, no generator draw) under ``torch.utils.flop_counter``,
+  with a byte counter beside it (see :meth:`Telemetry.jit_cost`).
 * ``tel.on_round(...)`` — one record per round, exported as JSONL plus an
-  end-of-run summary table.
+  end-of-run summary table.  Beside the reference's fields each record
+  carries ``kernel_launches``: the launches of each CUDA kernel of the port
+  since the previous record (also the gauges ``kernel_launches/<kernel>``),
+  the port's reading of what a round put on the card.
 
 Disabled telemetry is the :data:`NULL_TELEMETRY` singleton — every call
-resolves to a shared no-op object.
+resolves to a shared no-op object, so instrumented code pays one attribute
+lookup and nothing else.  Telemetry never makes the host wait for the card:
+a device scalar is observed through :meth:`Telemetry.observe_later`, which
+reads it at the next ``on_round``, after the round's eval.
+
+User-facing knob: ``simulate(telemetry=...)`` accepts ``True``
+(in-memory), a directory path (artifacts written on flush), or a
+:class:`Telemetry` instance.
 """
 from __future__ import annotations
 
@@ -33,6 +45,134 @@ from repro_torch.telemetry.report import CommDelta, summary_table, write_rounds_
 from repro_torch.telemetry.trace import NULL_SPAN, NULL_TRACER, Tracer
 
 
+def _arg_key(a):
+    """Hashable cache key for one ``jit_cost`` argument: tensors (and numpy
+    arrays) collapse to (shape, dtype), what the reference's jit caches on."""
+    if hasattr(a, "shape") and hasattr(a, "dtype"):
+        return ("arr", tuple(a.shape), str(a.dtype))
+    if isinstance(a, (tuple, list)):
+        return ("seq", tuple(_arg_key(x) for x in a))
+    if isinstance(a, dict):
+        return ("map", tuple(sorted((str(k), _arg_key(v)) for k, v in a.items())))
+    try:
+        hash(a)
+        return a
+    except TypeError:
+        return ("type", type(a).__name__)
+
+
+def step_loop(resize):
+    """Declare a function a loop of identical steps, for ``jit_cost``.
+
+    ``resize(k, args, kwargs) -> (n, args_k, kwargs_k)`` returns the call's
+    own step count ``n`` and its arguments cut to ``k`` steps.  ``jit_cost``
+    then counts the 1- and 2-step programs and extrapolates to ``n``
+    (exact for a program whose cost is affine in its steps), where the
+    reference's lowered ``scan`` counts its body once times its trip
+    count: counting all ``n`` steps of a 128-step epoch would cost seconds
+    of host time.
+    """
+
+    def mark(fn):
+        fn.cost_steps = resize
+        return fn
+
+    return mark
+
+
+def _to_meta(a):
+    """``a`` with every tensor in it replaced by a ``meta`` tensor of the
+    same shape, strides and dtype (tuples, lists and dicts walked)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.empty_strided(a.size(), a.stride(), dtype=a.dtype, device="meta")
+    if isinstance(a, (tuple, list)):
+        return type(a)(_to_meta(x) for x in a)
+    if isinstance(a, dict):
+        return {k: _to_meta(v) for k, v in a.items()}
+    return a
+
+
+def _has_tensor(a) -> bool:
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return True
+    if isinstance(a, (tuple, list)):
+        return any(_has_tensor(x) for x in a)
+    if isinstance(a, dict):
+        return any(_has_tensor(v) for v in a.values())
+    return False
+
+
+def _byte_counter():
+    """A dispatch mode that adds up the bytes every operation writes (each
+    output of an operation that is not a view), the eager stand-in for
+    ``hlo_stats``' bytes of materializing ops."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class ByteCounter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.total = 0
+            self._views = {}
+
+        def _is_view(self, func) -> bool:
+            v = self._views.get(func)
+            if v is None:
+                v = self._views[func] = any(
+                    r.alias_info is not None and not r.alias_info.is_write for r in func._schema.returns
+                )
+            return v
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not self._is_view(func):
+                for t in tree_flatten(out)[0]:
+                    if hasattr(t, "element_size"):
+                        self.total += t.numel() * t.element_size()
+            return out
+
+    return ByteCounter()
+
+
+def _count(fn, args, kwargs) -> dict:
+    """FLOPs (``FlopCounterMode``: matrix products and convolutions, forward
+    and backward) and bytes written of one call on meta tensors."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    nbytes = _byte_counter()
+    flops = FlopCounterMode(display=False)
+    # the flop counter innermost: it sees each call first and decomposes
+    # what it has no formula for, so the byte counter sees what would run
+    with nbytes, flops:
+        fn(*args, **kwargs)
+    return {"flops": float(flops.get_total_flops()), "bytes_moved": float(nbytes.total)}
+
+
+def analytic_cost(fn, args, kwargs) -> dict:
+    """The analytic cost of ``fn(*args, **kwargs)`` counted on meta copies
+    of its tensors; a ``step_loop`` function is counted at 1 and 2 steps
+    and extrapolated to its own step count."""
+    args, kwargs = _to_meta(tuple(args)), _to_meta(dict(kwargs))
+    resize = getattr(fn, "cost_steps", None)
+    if resize is not None:
+        n, a1, k1 = resize(1, args, kwargs)
+        if n > 2:
+            _, a2, k2 = resize(2, args, kwargs)
+            c1, c2 = _count(fn, a1, k1), _count(fn, a2, k2)
+            return {k: c1[k] + (n - 1) * (c2[k] - c1[k]) for k in c1}
+    return _count(fn, args, kwargs)
+
+
+def _launch_counts() -> Dict[str, int]:
+    from repro_torch.kernels import launch_counts
+
+    return launch_counts()
+
+
 class Telemetry:
     """Live telemetry sink: tracer + metrics + per-round records."""
 
@@ -43,7 +183,10 @@ class Telemetry:
         self.metrics = MetricsRegistry()
         self.rounds: List[dict] = []
         self.out_dir: Optional[Path] = Path(out_dir) if out_dir else None
+        self._cost_cache: Dict[tuple, dict] = {}
         self._span_mark = 0
+        self._later: List[tuple] = []
+        self._launch_mark = _launch_counts()
 
     # -- tracing -------------------------------------------------------
     def span(self, name: str, **attrs):
@@ -57,13 +200,51 @@ class Telemetry:
 
     # -- analytic cost -------------------------------------------------
     def jit_cost(self, key: str, fn, *args, **kwargs) -> Optional[dict]:
-        """Analytic FLOPs/bytes of ``fn(*args, **kwargs)``: not available.
+        """FLOPs/bytes_moved of ``fn(*args, **kwargs)``, counted without
+        running it on the data.
 
-        The reference reads them from the program's lowered HLO; an eager
-        PyTorch program has none, so this returns ``None`` until the port
-        counts them another way (ROADMAP.md Queue 1 item 9).
+        ``fn`` runs once on ``meta`` copies of its tensor arguments (a meta
+        tensor has a shape and no storage: the kernels' wrappers send it to
+        their plain versions, so nothing is launched, counted as a launch
+        or drawn from a generator) under ``FlopCounterMode`` and a byte
+        counter.  FLOPs are those of the matrix products and convolutions,
+        forward and backward, as the reference's ``hlo_stats`` counts its
+        dots; ``bytes_moved`` adds up every operation's output, where the
+        reference counts only what XLA's fusion leaves in memory, so it is
+        larger (eager execution materializes every intermediate).  A
+        ``step_loop`` function is counted at 1 and 2 steps and extrapolated.
+
+        Results are cached on (key, argument shapes/dtypes, other
+        arguments), so later calls are dict lookups, and set the gauges
+        ``analytic_flops/<key>`` and ``analytic_bytes/<key>``.  Returns
+        ``None`` when the program cannot be analysed: it raises on meta
+        tensors, or it is given no tensor to count on (the serving engine's
+        ``serve_prefill`` and ``serve_decode_step`` calls, which pass none).
         """
-        return None
+        ck = (key, tuple(_arg_key(a) for a in args),
+              tuple(sorted((k, _arg_key(v)) for k, v in kwargs.items())))
+        hit = self._cost_cache.get(ck)
+        if hit is None:
+            hit = self._analyze(key, fn, args, kwargs)
+            self._cost_cache[ck] = hit
+        return hit or None
+
+    def _analyze(self, key: str, fn, args, kwargs) -> dict:
+        if not _has_tensor((args, kwargs)):
+            return {}
+        try:
+            cost = analytic_cost(fn, args, kwargs)
+        except Exception:
+            return {}
+        self.metrics.set_gauge(f"analytic_flops/{key}", cost["flops"])
+        self.metrics.set_gauge(f"analytic_bytes/{key}", cost["bytes_moved"])
+        return cost
+
+    def observe_later(self, name: str, value) -> None:
+        """Observe ``value`` (a 0-d device tensor) into histogram ``name``
+        at the next :meth:`on_round`, after the round's eval, where the
+        host waits for the card anyway, instead of making it wait now."""
+        self._later.append((name, value))
 
     # -- round reporting ----------------------------------------------
     def _span_aggregate(self) -> dict:
@@ -80,10 +261,24 @@ class Telemetry:
             a["total_s"] += s.duration
         return agg
 
+    def _launches(self) -> Dict[str, int]:
+        """Each kernel's launches since the previous call (a counter reset
+        in between counts from zero)."""
+        cur = _launch_counts()
+        mark = self._launch_mark
+        self._launch_mark = cur
+        return {k: v - mark.get(k, 0) if v >= mark.get(k, 0) else v for k, v in cur.items()}
+
     def on_round(self, **fields) -> dict:
+        for name, value in self._later:
+            self.metrics.observe(name, float(value))
+        self._later = []
         rec = dict(fields)
         rec["spans"] = self._span_aggregate()
         rec["jit_cache_sizes"] = jit_cache_sizes()
+        rec["kernel_launches"] = self._launches()
+        for k, v in rec["kernel_launches"].items():
+            self.metrics.set_gauge(f"kernel_launches/{k}", v)
         self.rounds.append(rec)
         return rec
 
@@ -135,6 +330,9 @@ class _NullTelemetry:
     def jit_cost(self, key: str, fn, *args, **kwargs) -> None:
         return None
 
+    def observe_later(self, name: str, value) -> None:
+        pass
+
     def on_round(self, **fields) -> dict:
         return {}
 
@@ -178,6 +376,7 @@ __all__ = [
     "register_jit",
     "jit_cache_sizes",
     "registered_jits",
+    "step_loop",
     "summary_table",
     "write_rounds_jsonl",
 ]

@@ -14,8 +14,11 @@ regression guard in ``tests/test_telemetry.py`` pins these deltas to lock
 in the tiny-N ``flat_mean`` recompile fix.
 
 (A stdlib-only copy of the reference's ``telemetry/metrics.py``.  The port
-runs eagerly and registers no jitted function, so its
-:func:`jit_cache_sizes` is empty.)
+runs eagerly and compiles nothing per shape, so no module registers a
+function and :func:`jit_cache_sizes` is empty; every round record still
+carries it, as the reference's consumers expect.  The port's reading of
+the same question, what a round put on the device, is the per-round
+``kernel_launches`` of ``Telemetry.on_round``.)
 """
 from __future__ import annotations
 

@@ -802,3 +802,69 @@ def test_hetero_engines_on_card_match_cpu(cuda, engine):
     assert counts["hier_segment_aggregate"] == 0
     cpu = sc.simulate(lam, cloud_rounds=1, device="cpu", **kw)
     _card_matches_cpu(card, cpu, len(sc.test))
+
+
+# -- telemetry ---------------------------------------------------------------------
+def test_telemetry_device_round_queues_no_host_sync_on_card(cuda, monkeypatch):
+    """A telemetry-on device pipeline on the card: every edge round, its
+    spans, metrics and first ``jit_cost`` (a pass on meta tensors) included,
+    runs under sync-debug mode "error"; each round record counts 1 segment
+    and 1 ``hier_aggregate`` launch; the spans are the CPU run's and the
+    run is the CPU run at phase 4's tolerances."""
+    from repro_torch.engine import BatchedSyncEngine
+    from repro_torch.federated import build_scenario
+
+    sc = build_scenario("heartbeat", scale=0.02, seed=0, n_test_per_class=20, device="cpu")
+    lam = sc.assign("eara-sca", device="cpu").lam
+    real = BatchedSyncEngine._edge_round_device
+    calls = []
+
+    def round_without_sync(self, edge_mats):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(self, edge_mats)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        calls.append(len(edge_mats))
+        return out
+
+    hier_aggregate(torch.ones((2, 8), device=cuda), torch.ones(2, device=cuda))  # builds the library first
+    monkeypatch.setattr(BatchedSyncEngine, "_edge_round_device", round_without_sync)
+    card = sc.simulate(lam, cloud_rounds=2, seed=0, engine="sync", device="cuda", telemetry=True)
+    assert calls == [1, 1]
+    per_round = {"hier_segment_aggregate": 1, "hier_aggregate": 1, "flash_attention": 0, "topk_gating": 0}
+    assert [r["kernel_launches"] for r in card.telemetry.rounds] == [per_round] * 2
+    monkeypatch.undo()
+    cpu = sc.simulate(lam, cloud_rounds=2, seed=0, engine="sync", device="cpu", telemetry=True)
+    spans = lambda t: [(s.name, {k: v for k, v in s.attrs.items() if k not in ("acc", "flops", "bytes_moved")})  # noqa: E731
+                       for s in t.tracer.spans]
+    assert spans(card.telemetry) == spans(cpu.telemetry)
+    flops = lambda t: {k: v for k, v in t.metrics.gauges.items() if k.startswith("analytic_flops/")}  # noqa: E731
+    assert flops(card.telemetry) == flops(cpu.telemetry)
+    _card_matches_cpu(card, cpu, len(sc.test))
+
+
+def test_wrappers_never_take_the_plain_version_on_card(cuda, monkeypatch):
+    """CUDA tensors launch the FedAvg kernels and never reach the plain
+    versions (a meta tensor does, and launches nothing)."""
+    import importlib
+
+    x, w = _inputs(6, 4097)
+    u, wt = torch.as_tensor(x, device=cuda), torch.as_tensor(w, device=cuda)
+    seg = torch.as_tensor([0, 1, 1, 2, 0, 2], device=cuda)
+    want_agg, want_seg = hier_aggregate_ref(u, wt), hier_segment_aggregate_ref(u, seg, wt, 3)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor took the plain version")
+
+    for mod, name in (("hier_aggregate", "hier_aggregate_ref"), ("segment_aggregate", "hier_segment_aggregate_ref")):
+        monkeypatch.setattr(importlib.import_module(f"repro_torch.kernels.{mod}"), name, refuse)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    np.testing.assert_allclose(_f32(hier_aggregate(u, wt)), _f32(want_agg), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(_f32(hier_segment_aggregate(u, seg, wt, 3)), _f32(want_seg), atol=1e-5, rtol=0)
+    assert launch_counts()["hier_aggregate"] == 1 and launch_counts()["hier_segment_aggregate"] == 1
+    monkeypatch.undo()
+    meta = hier_aggregate(u.to("meta"), wt.to("meta"))
+    assert meta.device.type == "meta" and launch_counts()["hier_aggregate"] == 1

@@ -465,15 +465,15 @@ SIM_ERRORS = {
     "wall-clock": (dict(wall_clock=True), ValueError),
     "faults": (dict(faults=FaultSpec(seed=1)), ValueError),
     "serve": (dict(serve=object(), cohort=object()), NotImplementedError),
-    "telemetry": (dict(telemetry=True, server_momentum=0.9), NotImplementedError),
+    "telemetry": (dict(telemetry=True, server_momentum=0.9), ValueError),
 }
 
 
 @pytest.mark.parametrize("case", list(SIM_ERRORS))
 def test_simulate_hetero_errors(pair, case):
     """What the reference refuses for a hetero population raises
-    ``ValueError``; the queued ``serve=`` and ``telemetry=`` raise
-    ``NotImplementedError`` first."""
+    ``ValueError`` (with ``telemetry=`` on too, as in the reference); the
+    queued ``serve=`` raises ``NotImplementedError`` first."""
     _, sc, lam = pair
     kw, exc = SIM_ERRORS[case]
     with pytest.raises(exc):

@@ -171,7 +171,6 @@ def test_cloud_weights_go_to_the_device_once_per_run(pair, lam, backend, monkeyp
     [
         {"pipeline": "mesh"},
         {"mesh": 4},
-        {"telemetry": True},
         {"serve": object()},
     ],
     ids=lambda kw: next(iter(kw)),
@@ -180,6 +179,21 @@ def test_unported_options_raise(pair, lam, kw):
     _, sc = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sc.simulate(lam, cloud_rounds=1, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("pipeline", ["device", "host"])
+def test_sync_engine_records_telemetry(pair, lam, pipeline):
+    """``telemetry=True`` on the sync engine (ported in place of its
+    refusal): the run's ``Telemetry`` on the result, one record per cloud
+    round and the reference's spans; ``tests/test_torch_telemetry.py`` holds
+    them to the JAX package."""
+    _, sc = pair
+    res = sc.simulate(lam, cloud_rounds=1, engine="sync", pipeline=pipeline, device="cpu", telemetry=True)
+    tel = res.telemetry
+    assert [r["round"] for r in tel.rounds] == [1] and tel.rounds[0]["engine"] == f"sync-{pipeline}"
+    assert {"assignment", "cohort_epoch", "edge_aggregate", "cloud_reduce", "eval", "cloud_round"} <= {
+        s.name for s in tel.tracer.spans
+    }
 
 
 def test_faults_must_be_a_fault_spec(pair, lam):

@@ -114,7 +114,7 @@ def test_sync_engine_matches_readable_simulator(pair, sim_runs, case, pipeline):
 
 @pytest.mark.parametrize(
     "option,value",
-    [("telemetry", True), ("serve", object())],
+    [("serve", object())],
 )
 def test_readable_simulator_refuses_unported_options(pair, option, value):
     """The reference simulator's options that are not ported raise and name
@@ -123,6 +123,23 @@ def test_readable_simulator_refuses_unported_options(pair, option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md .Queue 1 item"):
         HFLSimulation(sc.clients, sc.assign("dba", device="cpu").lam, sc.program, sc.test, device="cpu",
                       **{option: value})
+
+
+def test_readable_simulator_records_telemetry(pair, tmp_path):
+    """``telemetry=`` on ``HFLSimulation`` (ported in place of its
+    refusal): the reference's spans and one record per cloud round, written
+    to a directory; ``tests/test_torch_telemetry.py`` holds them to the JAX
+    package."""
+    _, sc = pair
+    out = tmp_path / "sim"
+    sim = HFLSimulation(sc.clients, sc.assign("dba", device="cpu").lam, sc.program, sc.test, device="cpu",
+                        telemetry=str(out))
+    res = sim.run(1)
+    assert res.telemetry is sim.tel and [r["engine"] for r in res.telemetry.rounds] == ["reference"]
+    assert {s.name for s in res.telemetry.tracer.spans} == {
+        "assignment", "local_train", "edge_aggregate", "cloud_reduce", "eval", "cloud_round"
+    }
+    assert res.telemetry.flush()["rounds"] == out / "rounds.jsonl"
 
 
 def test_simulate_defaults_to_the_readable_simulator():

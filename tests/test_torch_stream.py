@@ -354,16 +354,23 @@ def test_server_momentum_matches_centralized_sgd_oracle():
     np.testing.assert_allclose(flat(res.final_params), flat(params), rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("option", ["telemetry", "model"])
+@pytest.mark.parametrize("option", ["model"])
 def test_stream_unported_options_raise(scenarios, spec, option):
-    """The lazy scenario's options that are not ported yet raise and name
-    their queued item: ``telemetry=`` and the token-stream population."""
-    _, sc = scenarios
+    """The lazy scenario's option that is not ported yet raises and names
+    its queued item: the token-stream population."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md .Queue 1 item"):
-        if option == "telemetry":
-            sc.simulate(spec, cloud_rounds=1, telemetry=True, device="cpu")
-        else:
-            build_scenario("heartbeat", lazy=True, n_eus=M, model="lm", device="cpu")
+        build_scenario("heartbeat", lazy=True, n_eus=M, model="lm", device="cpu")
+
+
+def test_stream_simulate_records_telemetry(scenarios, spec):
+    """``telemetry=True`` on the lazy scenario (ported in place of its
+    refusal): the page gauges and one record per cloud round;
+    ``tests/test_torch_telemetry.py`` holds them to the JAX package."""
+    _, sc = scenarios
+    res = sc.simulate(spec, cloud_rounds=1, telemetry=True, device="cpu")
+    tel = res.telemetry
+    assert [r["engine"] for r in tel.rounds] == ["sync-stream"]
+    assert tel.metrics.gauges["page_misses"] > 0 and tel.metrics.gauges["participating"] == spec.size
 
 
 # -- the reference's refusals, with the reference's error types ---------------
