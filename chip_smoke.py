@@ -124,6 +124,24 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    and on async (the ``kd_fuse`` span, ``kd_loss``, the async engine's
    simulated-time track on pid 2); one 1M-client streaming round with the
    page gauges;
+6g. serving under traffic and the LM population (every number printed
+   with the card's name and power limit): heartbeat EARA-SCA on the device
+   pipeline for 3 rounds with ``serve=TrafficSpec(queries=1024,
+   batch=128)`` and without (bit-equal parameters and history, staleness 0,
+   each round's ``serve_acc`` within 2/1024 of the same model served on
+   the CPU; seconds a round on and off, ``serve_qps``), again with
+   ``swap_every=2`` (staleness 0, 1, 0), one async round at its defaults
+   serving; ``build_scenario("lm")`` at ``scale=1.0`` under EARA-SCA on
+   the device pipeline for 3 rounds serving ``TrafficSpec(queries=256,
+   batch=64)`` (launch counts zeroed just before and read just after: 1
+   segment and 1 ``hier_aggregate`` a round; seconds a round), the same on
+   the CPU (parameters within 5e-3, next-token accuracy within 1e-3), a
+   telemetry-on run (span seconds of round 2) and a round under
+   ``torch.profiler`` (busy share, top kernels), one host-pipeline round
+   (``_expected_aggregates`` launches), and both
+   FedAvg kernels at its shapes (segment N 12 into E 4, aggregate N 4,
+   D 20,640 fp32) against their plain versions (1e-5), timed beside them
+   and ``wmat @ x`` / ``wn @ x``;
 7. serve exactness on the card at qwen3-14b widths cut to 2 layers in
    fp32: a uniform batch gives the same tokens with ``use_flash`` on and
    off, and a ragged batch the same tokens as its requests served alone
@@ -1328,6 +1346,206 @@ def _telemetry_phase(sc, lam, mix_sc, mix_lam, smi: str) -> dict:
     return out
 
 
+# phase 6g: serving under traffic on the heartbeat path, and the LM population
+HEARTBEAT_TRAFFIC = dict(queries=1024, batch=128, seed=0)
+LM_TRAFFIC = dict(queries=256, batch=64, seed=0)
+
+
+def _served_params():
+    """A patch of ``ServeTraffic.on_round`` that keeps a CPU copy of the
+    model each round swaps in (``params_fn``'s tree), by round, outside the
+    ``serve_qps`` timer; returns (the copies, a function that undoes the
+    patch)."""
+    from repro_torch.serving import ServeTraffic
+    from repro_torch.utils.tree import tree_map
+
+    real, kept = ServeTraffic.on_round, {}
+
+    def on_round(self, cloud_round, params_fn):
+        def keep():
+            params = params_fn()
+            kept[cloud_round] = tree_map(lambda t: t.detach().cpu(), params)
+            return params
+
+        return real(self, cloud_round, keep)
+
+    ServeTraffic.on_round = on_round
+    return kept, lambda: setattr(ServeTraffic, "on_round", real)
+
+
+def _lm_kernels(lm_sc, lm_lam, rate: float, smi: str) -> dict:
+    """Both FedAvg kernels at the LM population's shapes (the edge FedAvg of
+    its EARA-SCA pairs, N 12 into E 4, and the cloud reduce N 4, D 20,640
+    fp32), each against its plain version (1e-5) and timed beside it and the
+    library call (``wmat @ x``, ``wn @ x``) in this call."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import (
+        hier_aggregate,
+        hier_aggregate_ref,
+        hier_segment_aggregate,
+        hier_segment_aggregate_ref,
+    )
+    from repro_torch.utils.tree import tree_num_params
+
+    agg_mod = importlib.import_module("repro_torch.kernels.hier_aggregate")
+    seg_mod = importlib.import_module("repro_torch.kernels.segment_aggregate")
+    dev = torch.device("cuda")
+    d = tree_num_params(lm_sc.program.init(torch.Generator().manual_seed(0)))
+    pc, pe = np.nonzero(lm_lam)
+    n, e = len(pc), lm_lam.shape[1]
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((n, d)), dtype=torch.float32, device=dev)
+    seg = torch.as_tensor(pe, dtype=torch.int32, device=dev)
+    w = torch.as_tensor([lm_sc.clients[i].data_size for i in pc], dtype=torch.float32, device=dev)
+    err = _close(hier_segment_aggregate(x, seg, w, e), hier_segment_aggregate_ref(x, seg, w, e), TOL["float32"])
+    wmat = hier_segment_aggregate_ref(torch.eye(n, device=dev), seg, w, e)
+    seg_t = {"N": n, "E": e, "D": d, "max_abs_err": err, **_timings(
+        kernel=lambda: seg_mod._launch(x, seg, w, e), wrapper=lambda: hier_segment_aggregate(x, seg, w, e),
+        plain=lambda: hier_segment_aggregate_ref(x, seg, w, e), library=lambda: wmat @ x,
+        nbytes=(n + e) * d * 4 + n * 8, rate=rate)}
+    xa = torch.as_tensor(rng.standard_normal((e, d)), dtype=torch.float32, device=dev)
+    wa = torch.as_tensor(lm_lam.T.astype(np.float32) @ np.asarray([c.data_size for c in lm_sc.clients], np.float32),
+                         device=dev)
+    err = _close(hier_aggregate(xa, wa), hier_aggregate_ref(xa, wa), TOL["float32"])
+    wn = wa / wa.sum().clamp_min(1e-30)
+    agg_t = {"N": e, "D": d, "max_abs_err": err, **_timings(
+        kernel=lambda: agg_mod._launch(xa, wa), wrapper=lambda: hier_aggregate(xa, wa),
+        plain=lambda: hier_aggregate_ref(xa, wa), library=lambda: wn @ xa, nbytes=(e + 1) * d * 4 + e * 4, rate=rate)}
+    for label, t in (("hier_segment_aggregate", seg_t), ("hier_aggregate", agg_t)):
+        print(f"lm: kernel {label} at the LM shape {_fmt(t)} [{smi}]", flush=True)
+    return {"hier_segment_aggregate": seg_t, "hier_aggregate": agg_t}
+
+
+def _serve_lm_phase(sc, lam, rate: float, smi: str) -> dict:
+    """Phase 6g: serving under traffic, and the LM population.
+
+    Heartbeat EARA-SCA at full size on the device pipeline, 3 cloud rounds
+    with ``serve=TrafficSpec(queries=1024, batch=128)`` and without:
+    bit-equal parameters and history, staleness 0 every round, each
+    round's ``serve_acc`` within 2/1024 of the same model served on the CPU;
+    then ``swap_every=2`` (staleness 0, 1, 0) and one async round at its
+    defaults, serving.  The LM population (``build_scenario("lm")`` at
+    ``scale=1.0``, EARA-SCA): 3 device-pipeline rounds serving
+    ``TrafficSpec(queries=256, batch=64)`` (launch counts zeroed just before
+    and read just after: 1 segment and 1 ``hier_aggregate`` a round), the
+    same on the CPU (parameters within 5e-3, next-token accuracy within
+    1e-3), a telemetry-on run (round 2's span seconds) and a round under
+    ``torch.profiler`` (the card's busy share), one host-pipeline round
+    (``_expected_aggregates`` launches), and both kernels at its shapes.
+    Every line carries the card's name and power limit."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine import BatchedSyncEngine
+    from repro_torch.federated import build_scenario
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import ServeTraffic, TrafficSpec
+
+    t_phase = time.perf_counter()
+    card = f"[{smi}]"
+    out = {}
+
+    # heartbeat: serve on and off, 3 device rounds each
+    kept, restore = _served_params()
+    try:
+        on = sc.simulate(lam, cloud_rounds=3, engine="sync", pipeline="device", serve=TrafficSpec(**HEARTBEAT_TRAFFIC))
+    finally:
+        restore()
+    off = sc.simulate(lam, cloud_rounds=3, engine="sync", pipeline="device")
+    _require(torch.equal(_flat_row(on.final_params), _flat_row(off.final_params)),
+             "serve: parameters with serve on and off are not bit-equal")
+    _require([(h.test_acc, h.mean_local_loss) for h in on.history] == [
+        (h.test_acc, h.mean_local_loss) for h in off.history], "serve: histories with serve on and off differ")
+    _require([r["serve_staleness_rounds"] for r in on.serve_history] == [0.0] * 3, "serve: staleness is not 0")
+    cpu = ServeTraffic(TrafficSpec(**HEARTBEAT_TRAFFIC), sc.clients, sc.program, device="cpu")
+    gaps = []
+    for rec in on.serve_history:
+        b = rec["round"]
+        gaps.append(abs(cpu.on_round(b, lambda b=b: kept[b])["serve_acc"] - rec["serve_acc"]))
+        _require(gaps[-1] <= 2 / 1024 + 1e-9, f"serve: round {b} serve_acc card vs CPU differs by {gaps[-1]}")
+    on_s, off_s = [h.wall_seconds for h in on.history], [h.wall_seconds for h in off.history]
+    print(f"serve: heartbeat device pipeline seconds a round on {[round(x, 4) for x in on_s]} off "
+          f"{[round(x, 4) for x in off_s]} (round 1 warm-up); serve_qps "
+          f"{[round(r['serve_qps']) for r in on.serve_history]}, serve_acc "
+          f"{[round(r['serve_acc'], 6) for r in on.serve_history]}, card vs CPU gaps {gaps}; parameters bit-equal "
+          f"{card}", flush=True)
+    out["heartbeat"] = {"seconds_on": on_s, "seconds_off": off_s, "serve_acc_gaps": gaps,
+                        "serve_qps": [r["serve_qps"] for r in on.serve_history]}
+
+    stale = sc.simulate(lam, cloud_rounds=3, engine="sync", pipeline="device",
+                        serve=TrafficSpec(**HEARTBEAT_TRAFFIC, swap_every=2))
+    st = [r["serve_staleness_rounds"] for r in stale.serve_history]
+    _require(st == [0.0, 1.0, 0.0], f"serve: swap_every=2 staleness {st}")
+    res = sc.simulate(lam, cloud_rounds=1, engine="async", serve=TrafficSpec(**HEARTBEAT_TRAFFIC))
+    rec = res.serve_history[0]
+    print(f"serve: swap_every=2 staleness {st}; async round 1 {res.history[0].wall_seconds:.4f}s serve_qps "
+          f"{rec['serve_qps']:.0f} serve_acc {rec['serve_acc']:.6f} {card}", flush=True)
+
+    # the LM population
+    t0 = time.perf_counter()
+    lm_sc = build_scenario("lm", scale=1.0)
+    lm_lam = lm_sc.assign("eara-sca").lam
+    print(f"lm: build_scenario lm scale=1.0 and eara-sca {time.perf_counter() - t0:.3f}s: {len(lm_sc.clients)} EUs, "
+          f"{lm_sc.n_edges} edges, {sum(c.data_size for c in lm_sc.clients)} sequences, per-edge EUs "
+          f"{lm_lam.sum(axis=0).tolist()} {card}", flush=True)
+    traffic = TrafficSpec(**LM_TRAFFIC)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    gpu = lm_sc.simulate(lm_lam, cloud_rounds=3, engine="sync", pipeline="device", serve=traffic)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    _require(counts["hier_segment_aggregate"] == 3 and counts["hier_aggregate"] == 3,
+             f"lm: device launches {counts}, expected 1 segment and 1 aggregate a round")
+    cpu_run = lm_sc.simulate(lm_lam, cloud_rounds=3, engine="sync", pipeline="device", serve=traffic, device="cpu")
+    acc_gap = max(abs(a.test_acc - b.test_acc) for a, b in zip(gpu.history, cpu_run.history))
+    param_gap = float((_flat_row(gpu.final_params).cpu() - _flat_row(cpu_run.final_params)).abs().max())
+    serve_gap = max(abs(a["serve_acc"] - b["serve_acc"]) for a, b in zip(gpu.serve_history, cpu_run.serve_history))
+    print(f"lm: device pipeline seconds a round {[round(h.wall_seconds, 4) for h in gpu.history]} (serving "
+          f"{LM_TRAFFIC['queries']} queries), next-token accuracy {[round(h.test_acc, 6) for h in gpu.history]}, "
+          f"loss {[round(h.mean_local_loss, 6) for h in gpu.history]}, serve_qps "
+          f"{[round(r['serve_qps']) for r in gpu.serve_history]}, launches {json.dumps(counts)}; card vs CPU: "
+          f"accuracy {acc_gap:.3g}, parameters {param_gap:.3g}, serve_acc {serve_gap:.3g} {card}", flush=True)
+    _require(acc_gap <= 1e-3, f"lm: card and CPU accuracy differ by {acc_gap}")
+    _require(param_gap <= 5e-3, f"lm: card and CPU parameters differ by {param_gap}")
+    _require(gpu.accountant.totals() == cpu_run.accountant.totals(), "lm: card and CPU accounting differ")
+    # where an LM round's time goes: round 2 of a telemetry-on run (round 1
+    # pays the first counts of jit_cost), then one round under torch.profiler
+    tel = lm_sc.simulate(lm_lam, cloud_rounds=2, engine="sync", pipeline="device", serve=traffic,
+                         telemetry=True).telemetry
+    rec = tel.rounds[-1]
+    totals = {k: round(v["total_s"], 6) for k, v in rec["spans"].items()}
+    cohorts = [(sp.attrs["clients"], sp.attrs["steps"]) for sp in tel.tracer.spans
+               if sp.name == "cohort_epoch" and sp.attrs["round"] == 2]
+    print(f"lm: telemetry round 2 {rec['wall_s']:.4f}s, span seconds by name {json.dumps(totals)}, cohorts "
+          f"(clients, steps) {cohorts}, analytic FLOPs of a cohort epoch "
+          f"{tel.metrics.gauges.get('analytic_flops/cohort_epoch_flat', 'not counted')} {card}", flush=True)
+    eng = BatchedSyncEngine(lm_sc.clients, lm_lam, lm_sc.program, lm_sc.test)
+    eng.run(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(1)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report_profile(prof, plain_wall, wall, f"lm: profile round {card}")
+    host, host_counts = _run_counted(lm_sc, lm_lam, "lm sync-host", cloud_rounds=1, engine="sync", pipeline="host")
+    _require(host_counts["hier_aggregate"] == _expected_aggregates(lm_lam, 1, 1),
+             f"lm: host launches {host_counts}, expected {_expected_aggregates(lm_lam, 1, 1)} hier_aggregate")
+    out["lm"] = {"launches": counts, "seconds_per_round": [h.wall_seconds for h in gpu.history],
+                 "acc_gap": acc_gap, "param_gap": param_gap, "kernels": _lm_kernels(lm_sc, lm_lam, rate, smi)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"serve: phase 6g {out['phase_s']:.1f}s {card}", flush=True)
+    return out
+
+
 def _paths_only(root: Path) -> int:
     """``--paths ROOT``: for the port under ``ROOT/src``, the heartbeat
     device-pipeline round (phase 6's: a fresh engine, one warm-up round,
@@ -1930,6 +2148,7 @@ def main(argv) -> int:
     stream_run = _stream_phase()
     mix_run = _mix_phase(mix_sc, mix_lam)
     _telemetry_phase(sc, sca_lam, mix_sc, mix_lam, smi)
+    lm_run = _serve_lm_phase(sc, sca_lam, rates[0], smi)
     exact_variants = _serve_exactness()
     serve_counts, serve_variants = _serve_path()
     flash = kern["flash"]
@@ -1958,6 +2177,8 @@ def main(argv) -> int:
         if fn_name in HEARTBEAT_KERNELS:  # phase 6e: the groups' shapes timed in phase 3, launches per path
             entry["mix"] = {"shapes": k["mix"], "launches": {
                 path: counts[fn_name] for path, counts in mix_run["launches"].items()}}
+        if fn_name in HEARTBEAT_KERNELS:  # phase 6g: the LM population's shape and its 3 device rounds
+            entry["lm"] = {**lm_run["lm"]["kernels"][fn_name], "launches": lm_run["lm"]["launches"][fn_name]}
         if fn_name == "hier_aggregate":  # phases 6b (host pipeline) and 6c (async), beside phase 5's count
             entry["launches_host_pipeline"] = host_launches
             entry["launches_async_2_rounds"] = async_run["launches_2_rounds"]

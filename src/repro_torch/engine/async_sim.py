@@ -72,7 +72,6 @@ from repro_torch.federated.simulation import (
     evaluate,
     hetero_final_params,
     initial_params,
-    refuse_unported,
 )
 from repro_torch.telemetry import NULL_TELEMETRY, coerce_telemetry
 from repro_torch.telemetry.report import CommDelta
@@ -116,8 +115,9 @@ class AsyncHFLEngine:
     ``public_shards`` and ``distill`` (the cloud barrier's distillation
     fuse of a heterogeneous-model population; ignored for a homogeneous
     one), ``telemetry`` (see the module docstring) and ``device``
-    (default "cuda"; raises without CUDA unless "cpu").  The reference's
-    ``serve`` raises ``NotImplementedError`` naming its queued item.
+    (default "cuda"; raises without CUDA unless "cpu").  ``serve`` (a
+    ``serving.traffic.ServeTraffic``; one program group only) drives query
+    traffic against the global model after each cloud barrier's reduce.
 
     The engine counts its own weighted averages in ``aggregates``
     (``"flush"``, ``"dca_start"``, ``"cloud_reduce"``: one
@@ -150,7 +150,6 @@ class AsyncHFLEngine:
         serve=None,
         device="cuda",
     ):
-        refuse_unported(serve=serve)
         if not (0.0 < quorum <= 1.0):
             raise ValueError(f"quorum must be in (0, 1], got {quorum}")
         check_cohort(cohort, upp)
@@ -180,6 +179,14 @@ class AsyncHFLEngine:
         self.group_params, self.packs = gs.params, gs.packs
         self._group_bits, self._uplink_bits = gs.bits, gs.uplink_bits
         self._momentum = [ServerMomentum(server_momentum) for _ in self.groups]
+        # the serve hook reads the post-barrier global model; its draws come
+        # from its own generator, so a serve-on run trains as a serve-off one
+        self.serve = serve
+        if serve is not None and len(self.groups) > 1:
+            raise ValueError(
+                "serve traffic targets THE global model; heterogeneous-model "
+                "populations have one per architecture group"
+            )
         self.distill = distill if len(self.groups) > 1 else None
         self.public_store = None
         if self.distill is not None:
@@ -547,6 +554,10 @@ class AsyncHFLEngine:
                         new_rows = [self._cloud_mean(g, edge_sizes_dev[g]) for g in range(n_groups)]
                     global_rows = [self._momentum[g](global_rows[g], new_rows[g]) for g in range(n_groups)]
                 self.accountant.on_cloud_sync(n, bits=cloud_bits)
+                serve_rec = (
+                    self.serve.on_round(b, lambda rows=global_rows: self.packs[0].unravel(rows[0]))
+                    if self.serve is not None else {}
+                )
                 if b % eval_every == 0 or b == cloud_rounds:
                     with tel.span("eval", round=b) as sp:
                         acc = float(np.mean([
@@ -568,11 +579,13 @@ class AsyncHFLEngine:
                 if acc is not None:
                     tel.metrics.set_gauge("eval_acc", acc)
                 tel.on_round(
-                    engine="async", round=b, acc=acc, loss=loss, wall_s=round_wall, sim_s=round_sim, **comm.take()
+                    engine="async", round=b, acc=acc, loss=loss, wall_s=round_wall, sim_s=round_sim, **serve_rec,
+                    **comm.take(),
                 )
         trees = [pk.unravel(row) for pk, row in zip(self.packs, global_rows)]
         self.params = trees[0] if n_groups == 1 else hetero_final_params(self.groups, trees)
         return SimResult(
             history, self.accountant, self.params, wall_seconds=self.queue.now,
             telemetry=tel if tel.enabled else None,
+            serve_history=self.serve.history if self.serve is not None else None,
         )

@@ -35,7 +35,7 @@ from repro_torch.engine.flatten import FlatPack, ravel_batched, unravel_batched
 from repro_torch.federated.client import _BUCKETS, FLClient
 from repro_torch.federated.programs import ClientProgram, group_clients
 from repro_torch.federated.simulation import initial_params
-from repro_torch.telemetry import NULL_TELEMETRY, step_loop
+from repro_torch.telemetry import NULL_TELEMETRY, client_map, step_loop
 from repro_torch.utils.tree import TreeSpec, tree_leaves, tree_map, tree_size_bytes
 
 
@@ -147,6 +147,17 @@ def _epoch_steps(k: int, args, kwargs):
     return n_steps, (flat, xb[:, :k], yb[:, :k], spec, program, k, *rest), kwargs
 
 
+def _epoch_clients(args, kwargs):
+    """``_cohort_epoch_flat``'s arguments cut to one client when its program
+    maps the cohort (for ``Telemetry.jit_cost``); None for the batched form."""
+    flat, xb, yb, spec, program, *rest = args
+    impl = rest[2] if len(rest) > 2 else kwargs.get("impl", "gemm")
+    if not program.cohort_is_mapped(impl):
+        return None
+    return flat.shape[0], (flat[:1], xb[:1], yb[:1], spec, program, *rest), kwargs
+
+
+@client_map(_epoch_clients)
 @step_loop(_epoch_steps)
 def _cohort_epoch_flat(
     flat: torch.Tensor,

@@ -126,8 +126,7 @@ def _segment_agg_keep(upd, seg_ids, weights, has, prev, n_segments: int, backend
 class BatchedSyncEngine:
     """Batched synchronous engine.
 
-    Knobs: ``pipeline`` ("device" | "host"; the reference's "mesh" is not
-    ported yet), ``backend`` ("kernel" | "reference"), ``upp`` (per-round
+    Knobs: ``pipeline`` ("device" | "host"), ``backend ("kernel" | "reference"), ``upp`` (per-round
     participation probability in (0, 1]), ``track_divergence`` (the
     distance to a virtual centralized model, eq. 17, stepped from the
     engine RNG after each cloud reduce as in the reference; one program
@@ -137,7 +136,9 @@ class BatchedSyncEngine:
     ``upp=1.0``), ``public_shards`` and ``distill`` (the distillation fuse
     of a heterogeneous-model population: one public ``Dataset`` per edge
     and a ``DistillSpec``; ignored for a homogeneous one), ``telemetry``
-    (True, a directory or a ``Telemetry``; see the module docstring) and
+    (True, a directory or a ``Telemetry``; see the module docstring),
+    ``serve`` (a ``serving.traffic.ServeTraffic``, one program group only:
+    query traffic against the global model after each cloud reduce) and
     ``device`` (default "cuda"; raises without CUDA unless "cpu").
 
     ``program`` is the engine's own program; the clients may carry others,
@@ -168,13 +169,11 @@ class BatchedSyncEngine:
         cohort=None,
         server_momentum: float = 0.0,
         telemetry=None,
+        serve=None,
         device="cuda",
     ):
         if pipeline not in PIPELINES:
-            raise NotImplementedError(
-                f"pipeline={pipeline!r} is not ported yet (ported: {PIPELINES}); "
-                "see ROADMAP.md Queue 1 item 12, mesh"
-            )
+            raise ValueError(f"pipeline must be one of {PIPELINES}, got {pipeline!r}")
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         check_cohort(cohort, upp)
@@ -201,6 +200,14 @@ class BatchedSyncEngine:
         self._group_index = {p: g for g, p in enumerate(self.groups)}
         n_groups = len(self.groups)
         self._momentum = [ServerMomentum(server_momentum) for _ in range(n_groups)]
+        # the serve hook reads the post-reduce global model; its draws come
+        # from its own generator, so a serve-on run trains as a serve-off one
+        self.serve = serve
+        if serve is not None and n_groups > 1:
+            raise ValueError(
+                "serve traffic targets THE global model; heterogeneous-model "
+                "populations have one per architecture group"
+            )
         self.distill = distill if n_groups > 1 else None
         self.public_store = None
         if self.distill is not None:
@@ -618,6 +625,10 @@ class BatchedSyncEngine:
                 self.accountant.on_cloud_sync(n, bits=cloud_bits)
                 if self.clock is not None:
                     self.clock.on_cloud_sync()
+                serve_rec = (
+                    self.serve.on_round(b, lambda rows=global_rows: self.pack.unravel(rows[0]))
+                    if self.serve is not None else {}
+                )
                 div = 0.0
                 if self.track_divergence:
                     # drawn from the engine RNG after the cloud reduce, as the
@@ -646,11 +657,15 @@ class BatchedSyncEngine:
                     self.tel.metrics.set_gauge("eval_acc", acc)
                 self.tel.on_round(
                     engine=engine_name, round=b, acc=acc, loss=loss_host if chunks or losses else None,
-                    wall_s=round_wall, sim_s=round_sim if self.clock is not None else None, **comm.take(),
+                    wall_s=round_wall, sim_s=round_sim if self.clock is not None else None, **serve_rec,
+                    **comm.take(),
                 )
         trees = [pk.unravel(row) for pk, row in zip(self.packs, global_rows)]
         self.params = trees[0] if n_groups == 1 else hetero_final_params(self.groups, trees)
-        result = SimResult(history, self.accountant, self.params, telemetry=self.tel if self.tel.enabled else None)
+        result = SimResult(
+            history, self.accountant, self.params, telemetry=self.tel if self.tel.enabled else None,
+            serve_history=self.serve.history if self.serve is not None else None,
+        )
         if self.clock is not None:
             result.wall_seconds = self.clock.seconds
         return result

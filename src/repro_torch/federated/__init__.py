@@ -1,13 +1,17 @@
 from repro_torch.federated.client import FLClient
 from repro_torch.federated.programs import (
     PROGRAMS,
+    SEQUENCE_PROGRAMS,
     ClientProgram,
     CNNProgram,
     FedSGDProgram,
+    LMProgram,
     MLPProgram,
+    SequenceProgram,
     as_program,
     group_clients,
     group_edge_sizes,
+    tiny_lm_config,
 )
 from repro_torch.federated.sampling import CohortSpec, pareto_weights
 from repro_torch.federated.scenario import Scenario, build_scenario
@@ -35,11 +39,14 @@ __all__ = [
     "FedSGDProgram",
     "HFLSimulation",
     "HeteroHFLSimulation",
+    "LMProgram",
     "LazyClientList",
     "MLPProgram",
     "PROGRAMS",
     "RoundMetrics",
+    "SEQUENCE_PROGRAMS",
     "Scenario",
+    "SequenceProgram",
     "SimResult",
     "StreamScenario",
     "as_program",
@@ -52,4 +59,5 @@ __all__ = [
     "group_edge_sizes",
     "pareto_weights",
     "striped_assignment",
+    "tiny_lm_config",
 ]

@@ -16,12 +16,14 @@ dataclasses, so equal configs are equal programs.
   ======== ==========================================================
   "cnn"    the paper's 1-D CNN (both convolution forms)
   "mlp"    flattened-feature classifier (``models.modules.dense``)
-  "fedsgd" wrapper around either: one plain-SGD step per round and a
+  "lm"     small causal dense transformer LM (``models.transformer``) on
+           (seq_len,) int32 token shards, next-token loss and accuracy
+  "fedsgd" wrapper around any of them: one plain-SGD step per round and a
            gradient uplink (``base="cnn"``, ``grad_bits=32``)
   ======== ==========================================================
 
-The reference's sequence LMs ("lm", "moe", "mamba", "rwkv") are queued in
-ROADMAP.md (Queue 1, sequence models).
+The reference's other sequence LMs are queued in ROADMAP.md: "moe" in
+Queue 1 item 10b, "mamba" and "rwkv" in item 10c (``UNPORTED_SEQUENCE``).
 """
 from __future__ import annotations
 
@@ -33,13 +35,33 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.cnn1d import HEARTBEAT_CNN, CNNConfig, cnn_apply, cnn_apply_cohort, cnn_init
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import dense, dense_init
-from repro_torch.training.loss import accuracy, softmax_nll, softmax_xent
+from repro_torch.models.transformer import forward as transformer_forward
+from repro_torch.models.transformer import init_params as transformer_init
+from repro_torch.training.loss import accuracy, lm_loss, softmax_nll, softmax_xent
 from repro_torch.training.optimizers import Optimizer, adam, sgd
 from repro_torch.utils.registry import Registry
 from repro_torch.utils.tree import tree_map
 
 PROGRAMS = Registry("client_program")
+
+# program names that train on (seq_len,) int32 token shards (build_scenario
+# routes them to the topic-skewed token-stream population)
+SEQUENCE_PROGRAMS = ("lm", "moe", "mamba", "rwkv")
+# the sequence programs not ported yet, and the ROADMAP.md Queue 1 item of each
+UNPORTED_SEQUENCE = {"moe": "10b, MoE", "mamba": "10c, Mamba and RWKV", "rwkv": "10c, Mamba and RWKV"}
+
+
+def refuse_unported_programs(names) -> None:
+    """``NotImplementedError`` naming the queued item of the first
+    sequence program in ``names`` that is not ported yet."""
+    for name in names:
+        if name in UNPORTED_SEQUENCE:
+            raise NotImplementedError(
+                f"the {name!r} program is not ported to repro_torch yet; it is queued in ROADMAP.md "
+                f"(Queue 1 item {UNPORTED_SEQUENCE[name]})"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,9 +111,17 @@ class ClientProgram:
         form); any other value maps :meth:`loss` with that ``impl`` over
         the C clients (``torch.func.vmap``: for the CNN's "xla", one
         grouped library convolution per layer)."""
-        if impl == "gemm":
+        if not self.cohort_is_mapped(impl):
             return softmax_nll(self.apply_cohort(params, x), y).mean(dim=-1)
         return torch.func.vmap(lambda p, xb, yb: self.loss(p, xb, yb, impl=impl))(params, x, y)
+
+    def cohort_is_mapped(self, impl: str) -> bool:
+        """True when :meth:`cohort_loss` maps :meth:`loss` over the clients
+        (``torch.func.vmap``) for this ``impl``, False when it runs one
+        batched form.  ``Telemetry.jit_cost`` counts a mapped cohort at one
+        client and scales by C: torch's flop formula for a convolution's
+        backward ignores the groups vmap gives it."""
+        return impl != "gemm"
 
     def metric(self, params, x, y):
         """Mean per-example eval metric (classification accuracy)."""
@@ -253,6 +283,12 @@ class FedSGDProgram(ClientProgram):
     def loss(self, params, x, y, *, impl: str | None = None):
         return self.base.loss(params, x, y, impl=impl)
 
+    def cohort_loss(self, params, x, y, *, impl: str = "gemm"):
+        return self.base.cohort_loss(params, x, y, impl=impl)
+
+    def cohort_is_mapped(self, impl: str) -> bool:
+        return self.base.cohort_is_mapped(impl)
+
     def metric(self, params, x, y):
         return self.base.metric(params, x, y)
 
@@ -288,6 +324,94 @@ class FedSGDProgram(ClientProgram):
         if self.grad_bits >= 32:
             return trained
         return tree_map(lambda s, t: s + (t - s).to(torch.float16).to(t.dtype), start, trained)
+
+
+def tiny_lm_config(
+    vocab_size: int = 128,
+    seq_len: int = 32,
+    d_model: int = 32,
+    n_layers: int = 2,
+    n_heads: int = 2,
+    d_ff: int = 64,
+) -> ModelConfig:
+    """A causal transformer sized for federated IoT clients (20,640
+    parameters at the defaults).  fp32 with tied embeddings: FedAvg averages
+    flat fp32 rows, and attention runs the plain path (``use_flash=False``),
+    since training needs a gradient and the flash kernel defines none."""
+    return ModelConfig(
+        name=f"lm-tiny-v{vocab_size}-d{d_model}",
+        family="dense",
+        n_layers=n_layers,
+        d_model=d_model,
+        n_heads=n_heads,
+        n_kv_heads=n_heads,
+        d_ff=d_ff,
+        vocab_size=vocab_size,
+        act="gelu",
+        tie_embeddings=True,
+        max_seq=seq_len,
+        dtype="float32",
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class SequenceProgram(ClientProgram):
+    """Token-sequence LM programs over ``models.transformer``.
+
+    Shards hold (N, seq_len) int32 token sequences and the training signal
+    is next-token prediction on the sequence itself, so the ``Dataset``
+    label ``y`` carries the sequence's TOPIC, which only the KLD-aware
+    assignment reads (``n_classes`` is the topic count).  The cohort form
+    maps :meth:`loss` over the C clients for every ``impl``: the base
+    class's batched form would score ``y`` as a class label.
+    """
+
+    cfg: ModelConfig = dataclasses.field(default_factory=tiny_lm_config)
+    seq_len: int = 32
+    n_topics: int = 4
+
+    def init(self, generator: torch.Generator) -> dict:
+        return transformer_init(generator, self.cfg)
+
+    def apply(self, params, x, *, impl: str | None = None):
+        del impl  # one formulation
+        return transformer_forward(params, self.cfg, x)[0]
+
+    def loss(self, params, x, y, *, impl: str | None = None):
+        del y, impl  # the topic label is an assignment-time signal only
+        return lm_loss(self.apply(params, x), x, shift=True)
+
+    def cohort_loss(self, params, x, y, *, impl: str = "gemm"):
+        return torch.func.vmap(lambda p, xb, yb: self.loss(p, xb, yb))(params, x, y)
+
+    def cohort_is_mapped(self, impl: str) -> bool:
+        return True
+
+    def metric(self, params, x, y):
+        """Next-token accuracy (the labels are the input shifted by one)."""
+        del y
+        return accuracy(self.apply(params, x)[:, :-1], x[:, 1:])
+
+    @property
+    def feat_shape(self) -> Tuple[int, ...]:
+        return (self.seq_len,)
+
+    @property
+    def feat_dtype(self):
+        return np.int32
+
+    @property
+    def n_classes(self) -> int:
+        return self.n_topics
+
+
+@dataclasses.dataclass(frozen=True)
+class LMProgram(SequenceProgram):
+    """Small causal dense-transformer LM on token shards."""
+
+    @property
+    def name(self) -> str:
+        return "lm"
 
 
 def group_clients(clients, fallback=None):
@@ -349,6 +473,12 @@ def _cnn_program(cfg: CNNConfig = HEARTBEAT_CNN) -> CNNProgram:
 @PROGRAMS.register("mlp")
 def _mlp_program(feat: Tuple[int, ...] = (187, 1), n_classes: int = 5, hidden: int = 64) -> MLPProgram:
     return MLPProgram(feat=tuple(feat), classes=n_classes, hidden=hidden)
+
+
+@PROGRAMS.register("lm")
+def _lm_program(vocab_size: int = 128, seq_len: int = 32, n_topics: int = 4, **cfg_kw) -> LMProgram:
+    cfg = tiny_lm_config(vocab_size=vocab_size, seq_len=seq_len, **cfg_kw)
+    return LMProgram(cfg=cfg, seq_len=seq_len, n_topics=n_topics)
 
 
 @PROGRAMS.register("fedsgd")

@@ -5,6 +5,14 @@ over either):
   * Heartbeat: 5 classes, 5 edges, 18 EUs (Table 3 edge distribution)
   * Seizure:   3 classes, 3 edges, 13 EUs (Table 2 edge distribution)
 
+and the token-stream population of the sequence programs
+(``build_scenario("lm")`` or ``model="lm"``): ``lm_eus`` EUs over
+``lm_edges`` edges, each shard dominated by one Markov topic, the topics
+standing in for classes so that the KLD-aware assignment has an imbalance
+to balance.  The dense transformer LM is ported; the reference's "moe",
+"mamba" and "rwkv" programs raise ``NotImplementedError`` naming their
+ROADMAP.md items.
+
 ``model_mix=`` builds a heterogeneous-MODEL population instead: a mapping
 of program names to EU counts (``{"cnn": 12, "mlp": 6}``) gives each EU its
 program, one small PUBLIC shard per edge is drawn after the test set (so
@@ -29,6 +37,7 @@ import torch
 
 from repro_torch.core.assignment import AssignmentResult, dba_assignment, eara, random_assignment
 from repro_torch.core.hfl import HFLSchedule
+from repro_torch.data.lm_stream import TokenStream
 from repro_torch.data.partition import (
     TABLE2_SEIZURE,
     TABLE3_HEARTBEAT,
@@ -40,7 +49,15 @@ from repro_torch.device import resolve_device
 from repro_torch.engine.distill import DistillSpec
 from repro_torch.faults import FaultSpec, FaultState
 from repro_torch.federated.client import FLClient
-from repro_torch.federated.programs import ClientProgram, CNNProgram, FedSGDProgram, MLPProgram
+from repro_torch.federated.programs import (
+    PROGRAMS,
+    SEQUENCE_PROGRAMS,
+    ClientProgram,
+    CNNProgram,
+    FedSGDProgram,
+    MLPProgram,
+    refuse_unported_programs,
+)
 from repro_torch.federated.simulation import (
     HeteroHFLSimulation,
     HFLSimulation,
@@ -48,10 +65,10 @@ from repro_torch.federated.simulation import (
     SimResult,
     centralized_baseline,
     not_ported,
-    refuse_unported,
 )
-from repro_torch.federated.stream import SEQUENCE_MODELS, build_stream_scenario
+from repro_torch.federated.stream import build_stream_scenario
 from repro_torch.models.cnn1d import HEARTBEAT_CNN, SEIZURE_CNN
+from repro_torch.serving.traffic import ServeTraffic, TrafficSpec
 from repro_torch.telemetry import coerce_telemetry
 from repro_torch.utils.tree import tree_size_bytes
 from repro_torch.wireless.channel import WirelessParams, build_cost_matrices, sample_topology
@@ -145,7 +162,10 @@ class Scenario:
                   its clock).
         pipeline: the sync engine's round: "device" (fixed-shape segment
                   kernel programs, shard store) | "host" (per-client jobs,
-                  one ``flat_mean`` per edge); the reference's "mesh" raises.
+                  one ``flat_mean`` per edge).  The reference's "mesh" and
+                  ``mesh=`` raise ``NotImplementedError`` under
+                  ``engine="sync"``, the one engine that reads them; the
+                  other engines ignore both, as in the reference.
         backend:  the engines' aggregation path, "kernel" (the CUDA
                   kernels on the card, their plain versions on the CPU) |
                   "reference"; the readable simulator ignores it.
@@ -182,19 +202,25 @@ class Scenario:
                   ``metrics.json`` and ``summary.txt`` there when the run
                   ends (also when it raises); a
                   ``repro_torch.telemetry.Telemetry`` — record into it.
+        serve:    a ``repro_torch.serving.TrafficSpec``: after each cloud
+                  round the global model is hot-swapped behind a
+                  deterministic query stream drawn from the clients'
+                  shards, and each round reports ``serve_qps``,
+                  ``serve_staleness_rounds`` and ``serve_acc``
+                  (``SimResult.serve_history``; under telemetry also the
+                  round records and gauges).  The queries come from a keyed
+                  side-channel generator, so a run trains exactly as it
+                  would without them.  Homogeneous populations only.
         device:   where the engine runs; "cuda" by default, raising without
                   CUDA unless "cpu" is asked for.
-
-        Every other option of the reference's ``simulate`` raises
-        ``NotImplementedError`` when set, naming the queued item.
         """
         if engine not in ("reference", "sync", "async"):
             raise ValueError(f"unknown engine {engine!r} (reference | sync | async)")
-        if pipeline not in ("device", "host", "mesh"):
-            raise ValueError(f"unknown pipeline {pipeline!r} (device | host | mesh)")
-        if pipeline == "mesh":
-            raise not_ported("pipeline='mesh'")
-        refuse_unported(mesh=mesh, serve=serve)
+        if engine == "sync":
+            if pipeline == "mesh":
+                raise not_ported("pipeline='mesh'")
+            if mesh is not None:
+                raise not_ported("mesh")
         distill = distill if distill is not None else self.distill
         hetero = self.is_hetero
         if hetero and (cohort is not None or server_momentum):
@@ -210,10 +236,20 @@ class Scenario:
                 spec, self.topo, self.wp, self.model_bits, class_counts=self.class_counts, device=device
             )
         tel = coerce_telemetry(telemetry)
+        serve_state = None
+        if serve is not None:
+            if not isinstance(serve, TrafficSpec):
+                raise TypeError(f"serve must be a repro_torch.serving.TrafficSpec, got {type(serve).__name__}")
+            if hetero:
+                raise ValueError(
+                    "serve traffic targets THE global model; heterogeneous-model populations have one per group"
+                )
+            serve_state = ServeTraffic(serve, self.clients, self.program, tel, device=device)
         try:
             sim = self._engine(
                 assignment, schedule, seed, upp, track_divergence, wall_clock, engine, backend, compression,
-                staleness_decay, quorum, pipeline, distill, fault_state, tel, cohort, server_momentum, device,
+                staleness_decay, quorum, pipeline, distill, fault_state, tel, cohort, server_momentum, serve_state,
+                device,
             )
             return sim.run(cloud_rounds, eval_every=eval_every)
         finally:
@@ -222,7 +258,7 @@ class Scenario:
 
     def _engine(
         self, assignment, schedule, seed, upp, track_divergence, wall_clock, engine, backend, compression,
-        staleness_decay, quorum, pipeline, distill, fault_state, tel, cohort, server_momentum, device,
+        staleness_decay, quorum, pipeline, distill, fault_state, tel, cohort, server_momentum, serve, device,
     ):
         """The engine ``simulate`` runs, built from its checked options."""
         hetero = self.is_hetero
@@ -264,6 +300,7 @@ class Scenario:
                 telemetry=tel,
                 cohort=cohort,
                 server_momentum=server_momentum,
+                serve=serve,
                 device=device,
             )
         if engine == "async":
@@ -290,6 +327,7 @@ class Scenario:
                 telemetry=tel,
                 cohort=cohort,
                 server_momentum=server_momentum,
+                serve=serve,
                 device=device,
             )
         from repro_torch.engine.sync_sim import BatchedSyncEngine
@@ -313,6 +351,7 @@ class Scenario:
             cohort=cohort,
             server_momentum=server_momentum,
             telemetry=tel,
+            serve=serve,
             device=device,
         )
 
@@ -387,30 +426,44 @@ def build_scenario(
     mean_dist: float = 300.0,
     n_test_per_class: int = 300,
     wp: Optional[WirelessParams] = None,
+    lm_eus: int = 12,
+    lm_edges: int = 4,
+    lm_topics: int = 4,
+    lm_seq_len: int = 32,
+    lm_vocab: int = 128,
     lazy: bool = False,
     n_eus: Optional[int] = None,
     n_edges: Optional[int] = None,
     device="cuda",
 ):
-    """The paper's heartbeat or seizure setup.
+    """The paper's heartbeat or seizure setup, or the token-stream LM
+    population.
 
-    ``model`` picks the client program, "cnn" (the paper's) or "mlp" (a
-    flattened-feature classifier on the same shards); ``fedsgd=True`` wraps
-    it in ``FedSGDProgram`` (one plain-SGD step per round, a gradient
-    uplink of ``grad_bits`` = 32 or 16 bits per parameter).  ``hparams``
-    (optional) is one mapping per EU of ``FLClient`` overrides (``lr`` |
-    ``batch_size`` | ``local_epochs`` | ``max_steps``).  The cost matrices
-    are evaluated on ``device`` ("cuda" by default; raises without CUDA
-    unless "cpu").  ``faults`` (a ``repro_torch.faults.FaultSpec``) is the
-    scenario's default fault model, which ``simulate`` applies unless told
-    otherwise.
+    ``dataset`` picks the shards ("heartbeat" | "seizure" | "lm") and
+    ``model`` the client program: "cnn" (the paper's) or "mlp" (a
+    flattened-feature classifier on the same shards), or "lm", the dense
+    transformer LM on the topic-skewed token shards (``dataset="lm"``
+    implied; ``dataset="lm"`` defaults the model to "lm").  ``fedsgd=True``
+    wraps the program in ``FedSGDProgram`` (one plain-SGD step per round, a
+    gradient uplink of ``grad_bits`` = 32 or 16 bits per parameter).
+    ``hparams`` (optional) is one mapping per EU of ``FLClient`` overrides
+    (``lr`` | ``batch_size`` | ``local_epochs`` | ``max_steps``).  The cost
+    matrices are evaluated on ``device`` ("cuda" by default; raises without
+    CUDA unless "cpu").  ``faults`` (a ``repro_torch.faults.FaultSpec``) is
+    the scenario's default fault model, which ``simulate`` applies unless
+    told otherwise.
+
+    The LM population has ``lm_eus`` EUs over ``lm_edges`` edges, each shard
+    dominated by one of ``lm_topics`` Markov topics, with ``lm_seq_len``
+    long sequences over ``lm_vocab`` tokens; ``scale`` sizes the shards.
 
     ``model_mix`` (instead of ``model``) builds a heterogeneous-MODEL
     population: program names to EU counts summing to the population, e.g.
     ``{"cnn": 12, "mlp": 6}``.  The scenario then carries one public shard
     per edge (``public_per_edge // classes`` samples of each class) and a
     default ``engine.distill.DistillSpec``; ``model_bits`` is the largest
-    architecture's.  A one-program mix is the homogeneous population.
+    architecture's.  A one-program mix is the homogeneous population
+    (``{"lm": 12}`` on the LM population).
 
     ``lazy=True`` builds a streaming population of ``n_eus`` clients over
     ``n_edges`` edges (default 8) instead: a ``federated.stream.
@@ -419,8 +472,9 @@ def build_scenario(
     cohort (``simulate(CohortSpec(...))``).  It takes no ``faults``,
     ``model_mix`` or ``hparams`` (per-client state, O(M)).
 
-    The reference's other workloads (the sequence models and the "lm"
-    dataset, and a ``model_mix`` of them) raise ``NotImplementedError``.
+    The reference's other sequence programs ("moe", "mamba", "rwkv"), as
+    ``model`` or in a ``model_mix``, raise ``NotImplementedError`` naming
+    their ROADMAP.md items.
     """
     resolve_device(device)
     if lazy:
@@ -440,28 +494,52 @@ def build_scenario(
             grad_bits=grad_bits,
             seed=seed,
             n_test_per_class=n_test_per_class,
+            lm_topics=lm_topics,
+            lm_seq_len=lm_seq_len,
+            lm_vocab=lm_vocab,
         )
     if n_eus is not None or n_edges is not None:
         raise ValueError("n_eus/n_edges are lazy-mode knobs (pass lazy=True)")
-    if model_mix is not None:
-        if fedsgd:
-            raise ValueError("model_mix and fedsgd cannot combine (pick one)")
-        if model != "cnn":  # "cnn" is the unset default
-            raise ValueError(f"pass either model= or model_mix=, not both (got model={model!r})")
-        seq = set(model_mix) & set(SEQUENCE_MODELS)
-        if seq and seq != set(model_mix):
+    if model_mix is not None and fedsgd:
+        raise ValueError("model_mix and fedsgd cannot combine (pick one)")
+    if model_mix is not None and model != "cnn":  # "cnn" is the unset default
+        raise ValueError(f"pass either model= or model_mix=, not both (got model={model!r})")
+    seq_model = model in SEQUENCE_PROGRAMS
+    seq_mix = model_mix is not None and set(model_mix) <= set(SEQUENCE_PROGRAMS)
+    if model_mix is not None and not seq_mix:
+        bad = set(model_mix) & set(SEQUENCE_PROGRAMS)
+        if bad:
             raise ValueError(
                 "model_mix cannot cross families: sequence programs "
-                f"{sorted(seq)} do not share a shard layout with {sorted(set(model_mix) - seq)}"
+                f"{sorted(bad)} do not share a shard layout with {sorted(set(model_mix) - bad)}"
             )
-        if not seq and dataset == "lm":
-            raise ValueError(f"dataset='lm' requires a sequence model_mix {SEQUENCE_MODELS}, got {sorted(model_mix)}")
-        if seq:
-            raise not_ported("model")
-    if model in SEQUENCE_MODELS or dataset == "lm":
-        raise not_ported("model")
+        if dataset == "lm":
+            raise ValueError(f"dataset='lm' requires a sequence model_mix {SEQUENCE_PROGRAMS}, got {sorted(model_mix)}")
+    if dataset == "lm" or seq_model or seq_mix:
+        if not (seq_model or seq_mix) and model != "cnn":  # "cnn" is the unset default
+            raise ValueError(f"dataset='lm' requires a sequence model {SEQUENCE_PROGRAMS}, got {model!r}")
+        refuse_unported_programs(list(model_mix) if seq_mix else [model])
+        return _build_lm_scenario(
+            model=model if seq_model else "lm",
+            model_mix=model_mix if seq_mix else None,
+            fedsgd=fedsgd,
+            grad_bits=grad_bits,
+            hparams=hparams,
+            faults=faults,
+            seed=seed,
+            scale=scale,
+            mean_dist=mean_dist,
+            n_test_per_class=n_test_per_class,
+            wp=wp,
+            n_eus=lm_eus,
+            n_edges=lm_edges,
+            n_topics=lm_topics,
+            seq_len=lm_seq_len,
+            vocab=lm_vocab,
+            device=device,
+        )
     if model not in ("cnn", "mlp"):
-        raise ValueError(f"unknown model {model!r} (cnn | mlp)")
+        raise ValueError(f"unknown model {model!r} (cnn | mlp | {' | '.join(SEQUENCE_PROGRAMS)})")
     rng = np.random.default_rng(seed)
     if dataset == "heartbeat":
         table, n_eus, cnn, maker = TABLE3_HEARTBEAT, 18, HEARTBEAT_CNN, heartbeat_like
@@ -498,6 +576,25 @@ def build_scenario(
         if fedsgd:
             program = FedSGDProgram(base=program, grad_bits=grad_bits)
         per_eu, distinct = [program] * n_eus, [program]
+    if len(distinct) > 1:
+        name = f"{dataset}-mix(" + "+".join(model_mix) + ")"
+    else:
+        name = dataset if program.name == "cnn" else f"{dataset}-{program.name}"
+    return _assemble(
+        name, program, per_eu, distinct, shards, test, counts, init_edge, hparams, faults, seed, mean_dist, wp,
+        n_edges, public, distill, device,
+    )
+
+
+def _assemble(
+    name, program, per_eu, distinct, shards, test, counts, init_edge, hparams, faults, seed, mean_dist, wp, n_edges,
+    public, distill, device,
+) -> Scenario:
+    """The clients, topology and cost model of a population, as a
+    ``Scenario``.  The topology and the payload size come from a
+    ``torch.Generator`` seeded from ``seed``, which never touches the data
+    stream.  ``init_edge`` None is each EU's nearest edge."""
+    n_eus = len(shards)
     kw = _hparam_kwargs(hparams, n_eus)
     clients = [FLClient(i, shards[i], per_eu[i], **kw[i]) for i in range(n_eus)]
     wp = wp or WirelessParams()
@@ -508,10 +605,6 @@ def build_scenario(
     # a mixed fleet sizes EARA's airtime by its LARGEST architecture
     model_bits = max(tree_size_bytes(p.init(gen)) * 8 for p in distinct)
     cost = build_cost_matrices(topo, model_bits, wp, device=device)
-    if len(distinct) > 1:
-        name = f"{dataset}-mix(" + "+".join(model_mix) + ")"
-    else:
-        name = dataset if program.name == "cnn" else f"{dataset}-{program.name}"
     return Scenario(
         name=name,
         program=program,
@@ -522,8 +615,84 @@ def build_scenario(
         cost=cost,
         wp=wp,
         model_bits=model_bits,
-        init_edge=init_edge,
+        init_edge=init_edge if init_edge is not None else np.asarray(topo.dist).argmin(axis=1),
         public=public,
         distill=distill,
         faults=faults,
+    )
+
+
+def _build_lm_scenario(
+    *,
+    model: str,
+    model_mix: Optional[Mapping[str, int]],
+    fedsgd: bool,
+    grad_bits: int,
+    hparams: Optional[Sequence[Optional[Mapping]]],
+    faults,
+    seed: int,
+    scale: float,
+    mean_dist: float,
+    n_test_per_class: int,
+    wp: Optional[WirelessParams],
+    n_eus: int,
+    n_edges: int,
+    n_topics: int,
+    seq_len: int,
+    vocab: int,
+    device,
+) -> Scenario:
+    """The topic-skewed token-stream population of the sequence programs.
+
+    Each EU's shard is dominated by one Markov topic (the ``lm_stream``
+    transition families) with a sprinkle of the others, the LM counterpart
+    of the paper's per-EU dominant-class imbalance, recorded in
+    ``class_counts`` so that EARA balances edge topic mixtures as it
+    balances class mixtures.  Shards are (N, seq_len) int32 and byte-equal
+    to the reference's at the same arguments.  Every program in a
+    ``model_mix`` is ported only if it is "lm", so a mix here is the
+    homogeneous population (the caller refuses the others).
+    """
+    rng = np.random.default_rng(seed)
+    base = max(1, int(round(40 * scale)))
+    # the dominant topic gets ~8x the sideline topics' sequence counts
+    counts = rng.integers(0, base + 1, (n_eus, n_topics)).astype(np.int64)
+    dom = rng.integers(0, n_topics, n_eus)
+    counts[np.arange(n_eus), dom] += 8 * base
+    streams = [TokenStream(vocab, seed=seed, topic=t) for t in range(n_topics)]
+    shards = []
+    for i in range(n_eus):
+        xs, ys = [], []
+        for t in range(n_topics):
+            c = int(counts[i, t])
+            if c == 0:
+                continue
+            xs.append(streams[t].batch(c, seq_len))
+            ys.append(np.full((c,), t, np.int32))
+        x = np.concatenate(xs, 0)
+        y = np.concatenate(ys, 0)
+        perm = rng.permutation(len(y))
+        shards.append(Dataset(x[perm], y[perm], n_classes=n_topics))
+    # fresh streams for the test set, so it never replays training state
+    test_streams = [TokenStream(vocab, seed=seed + 7919, topic=t) for t in range(n_topics)]
+    test = Dataset(
+        np.concatenate([s.batch(n_test_per_class, seq_len) for s in test_streams], 0),
+        np.concatenate([np.full((n_test_per_class,), t, np.int32) for t in range(n_topics)], 0),
+        n_classes=n_topics,
+    )
+
+    def make_seq(name: str) -> ClientProgram:
+        return PROGRAMS.get(name)(vocab_size=vocab, seq_len=seq_len, n_topics=n_topics)
+
+    if model_mix is not None:
+        per_eu, distinct = _mix_programs(model_mix, n_eus, SEQUENCE_PROGRAMS, make_seq)
+        program = per_eu[0]
+    else:
+        program = make_seq(model)
+        if fedsgd:
+            program = FedSGDProgram(base=program, grad_bits=grad_bits)
+        per_eu, distinct = [program] * n_eus, [program]
+    return _assemble(
+        program.name, program, per_eu, distinct, shards, test, counts, None, hparams, faults,
+        seed, mean_dist, wp, n_edges, None, None, device,
     )

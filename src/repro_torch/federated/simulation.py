@@ -52,8 +52,6 @@ from repro_torch.utils.tree import tree_add, tree_leaves, tree_map, tree_size_by
 QUEUED = {
     "pipeline='mesh'": "Queue 1 item 12, mesh",
     "mesh": "Queue 1 item 12, mesh",
-    "model": "Queue 1 item 10, sequence models",
-    "serve": "Queue 1 item 11, serving",
 }
 
 
@@ -62,14 +60,6 @@ def not_ported(option: str) -> NotImplementedError:
         f"{option} is not ported to repro_torch yet; it is queued in ROADMAP.md "
         f"({QUEUED[option]})"
     )
-
-
-def refuse_unported(**options) -> None:
-    """Raise ``not_ported`` for the first option set to anything but its
-    off value (None, False or 0.0)."""
-    for option, value in options.items():
-        if value is not None and value is not False and value != 0.0:
-            raise not_ported(option)
 
 
 def check_cohort(cohort, upp: float) -> None:
@@ -101,6 +91,10 @@ class SimResult:
     # the run's Telemetry (None when telemetry was off): ``.summary()`` is
     # the end-of-run table, ``.rounds`` the per-round records
     telemetry: object = None
+    # one serve record per cloud round (round, queries, serve_qps,
+    # serve_staleness_rounds, serve_acc) when the run carried query traffic
+    # (``Scenario.simulate(serve=TrafficSpec(...))``), else None
+    serve_history: Optional[List[dict]] = None
 
     def rounds_to_accuracy(self, target: float) -> Optional[int]:
         for m in self.history:
@@ -189,9 +183,11 @@ class HFLSimulation:
     a directory or a ``Telemetry``) records the reference's spans
     (``assignment``, ``local_train``, ``edge_aggregate``, ``cloud_reduce``,
     ``eval``, ``cloud_round``), its fault counters and one record per cloud
-    round.  The reference's ``serve`` raises ``NotImplementedError`` naming
-    its queued item.  ``device``: "cuda" by default, raising without CUDA
-    unless "cpu".
+    round.  ``serve`` (a ``serving.traffic.ServeTraffic``) drives one round
+    of query traffic against the global model after each cloud reduce; it
+    reads the model and draws from its own generator, so the run trains as
+    without it.  ``device``: "cuda" by default, raising without CUDA unless
+    "cpu".
     """
 
     def __init__(
@@ -214,7 +210,6 @@ class HFLSimulation:
         serve=None,
         device="cuda",
     ):
-        refuse_unported(serve=serve)
         check_cohort(cohort, upp)
         self.device = resolve_device(device)
         configure_numerics(self.device)
@@ -226,6 +221,7 @@ class HFLSimulation:
         self.rng = np.random.default_rng(seed)
         self.upp = upp
         self.cohort = cohort
+        self.serve = serve
         self._momentum = ServerMomentum(server_momentum)
         self.tel = coerce_telemetry(telemetry) or NULL_TELEMETRY
         self.params = initial_params(self.program, seed, self.device)
@@ -389,6 +385,7 @@ class HFLSimulation:
                 self.accountant.on_cloud_sync(n)
                 if self.clock is not None:
                     self.clock.on_cloud_sync()
+                serve_rec = self.serve.on_round(b, lambda gp=global_params: gp) if self.serve is not None else {}
                 div = 0.0
                 if self.track_divergence:
                     for _ in range(self.schedule.cloud_period):
@@ -411,10 +408,13 @@ class HFLSimulation:
                     self.tel.metrics.set_gauge("eval_acc", acc)
                 self.tel.on_round(
                     engine="reference", round=b, acc=acc, loss=loss, wall_s=round_wall,
-                    sim_s=round_sim if self.clock is not None else None, **comm.take(),
+                    sim_s=round_sim if self.clock is not None else None, **serve_rec, **comm.take(),
                 )
         self.params = global_params
-        result = SimResult(history, self.accountant, global_params, telemetry=self.tel if self.tel.enabled else None)
+        result = SimResult(
+            history, self.accountant, global_params, telemetry=self.tel if self.tel.enabled else None,
+            serve_history=self.serve.history if self.serve is not None else None,
+        )
         if self.clock is not None:
             result.wall_seconds = self.clock.seconds
         return result

@@ -17,9 +17,9 @@ memory holds (M = 100k-1M):
     on access (small-M parity runs materialize through it; the streaming
     engine never touches client objects).
 
-``build_scenario(lazy=True, n_eus=...)`` lands here.  The reference's
-token-stream population (``model="lm"`` and the other sequence programs)
-is queued with the sequence models.
+``build_scenario(lazy=True, n_eus=...)`` lands here, for the health
+shards (``HealthShardSource``) or, with ``dataset="lm"`` or ``model="lm"``,
+the token-stream population (``TokenShardSource``).
 """
 from __future__ import annotations
 
@@ -30,12 +30,20 @@ import numpy as np
 import torch
 
 from repro_torch.core.hfl import HFLSchedule
-from repro_torch.data.shard_source import HealthShardSource, ShardSource
+from repro_torch.data.shard_source import HealthShardSource, ShardSource, TokenShardSource
 from repro_torch.data.synthetic_health import Dataset, make_dataset
 from repro_torch.federated.client import FLClient
-from repro_torch.federated.programs import CNNProgram, FedSGDProgram, MLPProgram, as_program
+from repro_torch.federated.programs import (
+    PROGRAMS,
+    SEQUENCE_PROGRAMS,
+    CNNProgram,
+    FedSGDProgram,
+    MLPProgram,
+    as_program,
+    refuse_unported_programs,
+)
 from repro_torch.federated.sampling import CohortSpec
-from repro_torch.federated.simulation import SimResult, not_ported
+from repro_torch.federated.simulation import SimResult
 from repro_torch.models.cnn1d import HEARTBEAT_CNN, SEIZURE_CNN
 from repro_torch.telemetry import coerce_telemetry
 from repro_torch.utils.seedhash import keyed_randint
@@ -45,7 +53,6 @@ _CHUNK = 1 << 16
 _S_TEST = 0x7E57  # test-set RNG key component (disjoint from client keys)
 
 ASSIGN_STRATEGIES = ("striped", "hash")
-SEQUENCE_MODELS = ("lm", "moe", "mamba", "rwkv")
 
 
 def striped_assignment(source: ShardSource, n_edges: int, strategy: str = "striped") -> np.ndarray:
@@ -207,6 +214,9 @@ def build_stream_scenario(
     n_test_per_class: int = 300,
     max_per_class: int = 2,
     dom_boost: int = 8,
+    lm_topics: int = 4,
+    lm_seq_len: int = 32,
+    lm_vocab: int = 128,
 ) -> StreamScenario:
     """Lazy-mode ``build_scenario``: nothing O(M) but small int arrays.
 
@@ -218,31 +228,45 @@ def build_stream_scenario(
     back bit-identical, and every engine that materializes the source
     trains on the same bytes.  The shards, test set and assignment are
     byte-equal to the reference's at the same arguments.
+
+    The token-stream population (``dataset="lm"`` or a sequence ``model``)
+    draws ``lm_seq_len``-token sequences over ``lm_vocab`` tokens from
+    ``lm_topics`` topics, and its test set is one balanced pooled draw of
+    ``n_test_per_class // 4`` sequences a topic.
     """
-    if model in SEQUENCE_MODELS or dataset == "lm":
-        raise not_ported("model")
-    if dataset == "heartbeat":
-        cnn = HEARTBEAT_CNN
-    elif dataset == "seizure":
-        cnn = SEIZURE_CNN
+    if model in SEQUENCE_PROGRAMS or dataset == "lm":
+        prog_name = model if model in SEQUENCE_PROGRAMS else "lm"
+        refuse_unported_programs([prog_name])
+        source = TokenShardSource(
+            seed, n_eus, n_topics=lm_topics, vocab_size=lm_vocab, seq_len=lm_seq_len,
+            max_per_topic=max_per_class, dom_boost=max(1, dom_boost - 2),
+        )
+        program = PROGRAMS.get(prog_name)(vocab_size=lm_vocab, seq_len=lm_seq_len, n_topics=lm_topics)
+        test = TokenShardSource(
+            seed + 1, 1, n_topics=lm_topics, vocab_size=lm_vocab, seq_len=lm_seq_len,
+            min_per_topic=n_test_per_class // 4, max_per_topic=n_test_per_class // 4, dom_boost=1,
+        ).shard(0)
+        name = f"lm-stream-{prog_name}"
+    elif dataset in ("heartbeat", "seizure"):
+        cnn = HEARTBEAT_CNN if dataset == "heartbeat" else SEIZURE_CNN
+        k = cnn.n_classes
+        source = HealthShardSource(
+            seed, n_eus, n_classes=k, length=cnn.seq_len, channels=cnn.in_channels,
+            max_per_class=max_per_class, dom_boost=dom_boost,
+        )
+        if model == "cnn":
+            program = CNNProgram(cnn)
+        elif model == "mlp":
+            program = MLPProgram(feat=(cnn.seq_len, cnn.in_channels), classes=k)
+        else:
+            raise ValueError(f"unknown model {model!r} for dataset {dataset!r}")
+        test = make_dataset(
+            np.random.default_rng((seed, _S_TEST)), np.full(k, n_test_per_class),
+            length=cnn.seq_len, channels=cnn.in_channels,
+        )
+        name = f"{dataset}-stream" if model == "cnn" else f"{dataset}-stream-{model}"
     else:
         raise ValueError(dataset)
-    k = cnn.n_classes
-    source = HealthShardSource(
-        seed, n_eus, n_classes=k, length=cnn.seq_len, channels=cnn.in_channels,
-        max_per_class=max_per_class, dom_boost=dom_boost,
-    )
-    if model == "cnn":
-        program = CNNProgram(cnn)
-    elif model == "mlp":
-        program = MLPProgram(feat=(cnn.seq_len, cnn.in_channels), classes=k)
-    else:
-        raise ValueError(f"unknown model {model!r} for dataset {dataset!r}")
-    test = make_dataset(
-        np.random.default_rng((seed, _S_TEST)), np.full(k, n_test_per_class),
-        length=cnn.seq_len, channels=cnn.in_channels,
-    )
-    name = f"{dataset}-stream" if model == "cnn" else f"{dataset}-stream-{model}"
     if fedsgd:
         program = FedSGDProgram(base=program, grad_bits=grad_bits)
     program = as_program(program)

@@ -12,11 +12,16 @@ metrics and round records and writes ``trace.json``, ``trace.jsonl``,
 the fault-injection preset (client churn, mid-round upload losses with
 async retries, finite energy budgets, time-varying channels);
 ``--cohort N`` trains a sampled N-client cohort a round, and with
-``--lazy-eus M`` over a lazy M-client population on the streaming engine.
+``--lazy-eus M`` over a lazy M-client population on the streaming engine;
+``--dataset lm`` federates the dense transformer LM over the token-stream
+population.  ``--serve Q`` hot-swaps the global model into serving after
+each cloud round and drives it with Q deterministic queries drawn from the
+scenario's own shards (``--serve-batch`` a batch, a swap every
+``--swap-every`` rounds), printing serve_acc, qps and staleness per round.
 
-The reference's ``--arch`` mode (LM training of a sequence model) waits for
-ROADMAP.md Queue 1 items 10 and 13, and ``--serve`` (evaluation under
-traffic) for item 11: both raise ``NotImplementedError``.
+The reference's ``--arch`` mode (LM training of one sequence model outside
+the federation) waits for ROADMAP.md Queue 1 items 10 and 13 and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -61,17 +66,26 @@ def run_paper(args) -> None:
         from repro_torch.faults import FaultSpec
 
         faults = FaultSpec(seed=args.seed, **FAULT_PRESETS[args.faults])
+    serve = None
+    if args.serve:
+        from repro_torch.serving import TrafficSpec
+
+        serve = TrafficSpec(queries=args.serve, batch=args.serve_batch, swap_every=args.swap_every, seed=args.seed)
     sc = build_scenario(args.dataset, scale=args.scale, seed=args.seed, device=args.device)
     a = sc.assign(args.strategy, device=args.device)
     print(f"strategy={args.strategy} KLD={a.kld_total:.3f}")
     res = sc.simulate(
         a.lam, cloud_rounds=args.rounds, schedule=schedule, seed=args.seed, engine=args.engine, faults=faults,
-        cohort=cohort, server_momentum=args.server_momentum, telemetry=telemetry, device=args.device,
+        cohort=cohort, server_momentum=args.server_momentum, telemetry=telemetry, serve=serve, device=args.device,
     )
+    serve_by_round = {r["round"]: r for r in (res.serve_history or [])}
     for m in res.history:
         extra = f" wall={m.wall_seconds:.2f}s"
         if m.sim_seconds:
             extra += f" sim={m.sim_seconds:.2f}s"
+        s = serve_by_round.get(m.cloud_round)
+        if s is not None:
+            extra += f" serve_acc={s['serve_acc']:.3f} qps={s['serve_qps']:.0f} stale={s['serve_staleness_rounds']:.0f}"
         print(f"round {m.cloud_round}: acc={m.test_acc:.3f}{extra}")
     if faults is not None:
         t = res.accountant.totals()
@@ -106,7 +120,10 @@ def main(argv=None) -> None:
                     help="streaming mode: a lazy M-client population (needs --cohort)")
     ap.add_argument("--lazy-edges", type=int, default=8)
     ap.add_argument("--serve", type=int, default=0, metavar="Q",
-                    help="evaluation under traffic (not ported: ROADMAP.md Queue 1 item 11)")
+                    help="evaluation under traffic: Q queries a cloud round against the hot-swapped global model")
+    ap.add_argument("--serve-batch", type=int, default=32, help="serving batch size for --serve")
+    ap.add_argument("--swap-every", type=int, default=1,
+                    help="hot-swap the served model every K cloud rounds (serve_staleness_rounds)")
     ap.add_argument("--arch", default="",
                     help="LM training of a sequence model (not ported: ROADMAP.md Queue 1 items 10 and 13)")
     ap.add_argument("--telemetry", default="", metavar="DIR", help="record telemetry; write artifacts to DIR")
@@ -117,11 +134,6 @@ def main(argv=None) -> None:
         raise NotImplementedError(
             "--arch (LM training of a sequence model) is not ported to repro_torch yet; it is queued in "
             "ROADMAP.md (Queue 1 item 10, sequence models, and item 13, the training step and launchers)"
-        )
-    if args.serve:
-        raise NotImplementedError(
-            "--serve (evaluation under traffic) is not ported to repro_torch yet; it is queued in "
-            "ROADMAP.md (Queue 1 item 11, serving)"
         )
     run_paper(args)
 

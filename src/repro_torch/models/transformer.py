@@ -15,8 +15,12 @@ max_seq, Hkv, D).  Where the reference scans the stacked blocks with
 ``lax.scan``, the port loops over the layer axis in Python, taking views of
 each layer's slice.
 
-The other families (moe, hybrid mamba, ssm rwkv, encdec, vlm) load their
-configs but raise ``NotImplementedError`` here (ROADMAP.md Queue 1 item 10).
+A vlm config runs as the dense stack it is: as in the reference, no model
+code reads its ``n_patch_tokens``.  The other families (moe, hybrid mamba,
+ssm rwkv, encdec) load their configs but raise ``NotImplementedError`` here
+(ROADMAP.md Queue 1 item 10).  ``forward`` writes into no tensor in place
+and reads no value back to the host, so it runs under ``torch.func.vmap``
+with autograd (the federated LM cohort).
 """
 from __future__ import annotations
 
@@ -54,12 +58,15 @@ def block_spec(cfg: ModelConfig) -> Tuple[List[LayerSpec], int]:
     return specs, n_blocks
 
 
+PORTED_FAMILIES = ("dense", "vlm")
+
+
 def require_ported(cfg: ModelConfig) -> None:
     """Raise for a family the port does not carry yet."""
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP.md Queue 1 "
-            "item 10); the port runs attention-only dense stacks"
+            "item 10); the port runs attention-only dense stacks (dense and vlm)"
         )
 
 

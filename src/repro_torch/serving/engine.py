@@ -122,7 +122,7 @@ class ServeEngine:
         """Exact-length prefill per distinct prompt length (recurrent stacks)."""
         raise NotImplementedError(
             "exact-length bucketed prefill serves recurrent stacks, which are not ported yet "
-            "(ROADMAP.md Queue 1 item 11)"
+            "(ROADMAP.md Queue 1 item 11b)"
         )
 
     # -- serving --------------------------------------------------------

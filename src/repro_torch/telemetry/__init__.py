@@ -80,6 +80,24 @@ def step_loop(resize):
     return mark
 
 
+def client_map(cut):
+    """Declare a function a map over C independent clients, for ``jit_cost``.
+
+    ``cut(args, kwargs)`` returns None when the call runs one batched form
+    (counted as it runs), else ``(c, args_1, kwargs_1)``: the call's client
+    count and its arguments cut to one client.  ``jit_cost`` then counts the
+    one-client program and scales by C.  A mapped program counted whole
+    over-counts: torch's flop formula for a convolution's backward ignores
+    the groups ``torch.func.vmap`` gives a mapped convolution.
+    """
+
+    def mark(fn):
+        fn.cost_clients = cut
+        return fn
+
+    return mark
+
+
 def _to_meta(a):
     """``a`` with every tensor in it replaced by a ``meta`` tensor of the
     same shape, strides and dtype (tuples, lists and dicts walked)."""
@@ -155,8 +173,19 @@ def _count(fn, args, kwargs) -> dict:
 def analytic_cost(fn, args, kwargs) -> dict:
     """The analytic cost of ``fn(*args, **kwargs)`` counted on meta copies
     of its tensors; a ``step_loop`` function is counted at 1 and 2 steps
-    and extrapolated to its own step count."""
+    and extrapolated to its own step count, and a mapped ``client_map``
+    call is counted at one client and scaled by its client count."""
     args, kwargs = _to_meta(tuple(args)), _to_meta(dict(kwargs))
+    clients = 1
+    cut = getattr(fn, "cost_clients", None)
+    one = cut(args, kwargs) if cut is not None else None
+    if one is not None:
+        clients, args, kwargs = one
+    cost = _steps_cost(fn, args, kwargs)
+    return {k: v * clients for k, v in cost.items()}
+
+
+def _steps_cost(fn, args, kwargs) -> dict:
     resize = getattr(fn, "cost_steps", None)
     if resize is not None:
         n, a1, k1 = resize(1, args, kwargs)
@@ -212,7 +241,8 @@ class Telemetry:
         dots; ``bytes_moved`` adds up every operation's output, where the
         reference counts only what XLA's fusion leaves in memory, so it is
         larger (eager execution materializes every intermediate).  A
-        ``step_loop`` function is counted at 1 and 2 steps and extrapolated.
+        ``step_loop`` function is counted at 1 and 2 steps and extrapolated,
+        and a mapped ``client_map`` call at one client, scaled by C.
 
         Results are cached on (key, argument shapes/dtypes, other
         arguments), so later calls are dict lookups, and set the gauges
@@ -377,6 +407,7 @@ __all__ = [
     "jit_cache_sizes",
     "registered_jits",
     "step_loop",
+    "client_map",
     "summary_table",
     "write_rounds_jsonl",
 ]

@@ -1,4 +1,6 @@
-"""Classifier cross-entropy (the paper's eq. 1) and accuracy."""
+"""Loss functions: classifier cross-entropy (the paper's eq. 1), LM
+next-token cross-entropy (whole and chunked over the sequence) and
+accuracy."""
 from __future__ import annotations
 
 import torch
@@ -30,6 +32,39 @@ def softmax_xent(logits, labels, mask=None):
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def lm_loss(logits, tokens, *, shift: bool = True):
+    """Next-token prediction: predict tokens[t+1] from logits[t]."""
+    if shift:
+        logits = logits[:, :-1]
+        labels = tokens[:, 1:]
+    else:
+        labels = tokens
+    return softmax_xent(logits, labels)
+
+
+def chunked_lm_loss(hidden, emb, labels, *, chunk: int = 512):
+    """Unembed and cross-entropy, one sequence chunk at a time.
+
+    The full (B, S, V) logits would dominate activation memory at a large
+    vocabulary; a loop over ``chunk``-long pieces of the sequence holds one
+    (B, chunk, V) block of logits at a time (the reference scans the same
+    chunks).  hidden: (B, S, d) final normed activations; emb: (V, d) output
+    table; labels: (B, S) int.  Products are of the inputs' values in fp32
+    with fp32 accumulation, as the reference's ``preferred_element_type``.
+    Returns the mean token NLL.
+    """
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of chunk {chunk}")
+    table = emb.float()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, chunk):
+        logits = torch.einsum("bcd,vd->bcv", hidden[:, i:i + chunk].float(), table)
+        total = total + softmax_nll(logits, labels[:, i:i + chunk]).sum()
+    return total / (b * s)
 
 
 def accuracy(logits, labels):

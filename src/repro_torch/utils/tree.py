@@ -1,33 +1,43 @@
-"""Parameter trees: nested dicts of tensors, flattened in JAX's leaf order.
+"""Parameter trees: nested dicts and tuples of tensors, flattened in JAX's
+leaf order.
 
 JAX flattens a dict by SORTED key at every level, so the CNN's leaves come
 out as ``conv1/b, conv1/w, conv2/b, ...`` whatever order the dict was built
-in.  Every function here walks trees in that order, which makes a flat row
-of this package equal, element for element, to the reference's
-``tree_ravel`` row for the same parameters.
+in, and a tuple in its own order (a transformer's ``params["blocks"]``).
+Every function here walks trees in that order, which makes a flat row of
+this package equal, element for element, to the reference's
+``tree_ravel`` row for the same parameters.  A path holds a dict's key or
+a tuple's int index at each level.  Any other node (a list, say) is
+refused.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Mapping, Sequence, Tuple
+from typing import Callable, List, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-Path = Tuple[str, ...]
+Path = Tuple[Union[str, int], ...]
 
 
 def tree_paths(tree, prefix: Path = ()) -> List[Path]:
-    """Key path of every leaf, in JAX's leaf order (sorted keys)."""
+    """Key path of every leaf, in JAX's leaf order (sorted keys, tuples in
+    order)."""
     if isinstance(tree, Mapping):
         out: List[Path] = []
         for k in sorted(tree):
             out += tree_paths(tree[k], prefix + (k,))
         return out
+    if isinstance(tree, tuple):
+        out = []
+        for i, v in enumerate(tree):
+            out += tree_paths(v, prefix + (i,))
+        return out
     if not isinstance(tree, torch.Tensor):
         raise TypeError(
-            f"parameter trees are nested dicts of tensors; got {type(tree).__name__} "
-            f"at {'/'.join(prefix) or '<root>'}"
+            f"parameter trees are nested dicts and tuples of tensors; got {type(tree).__name__} "
+            f"at {'/'.join(map(str, prefix)) or '<root>'}"
         )
     return [prefix]
 
@@ -42,15 +52,28 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     return [_get(tree, p) for p in tree_paths(tree)]
 
 
+def _as_tuples(node):
+    """A node built by ``tree_unflatten`` with its int-keyed dicts (the
+    tuples) turned back into tuples."""
+    if not isinstance(node, dict):
+        return node
+    if node and all(isinstance(k, int) for k in node):
+        return tuple(_as_tuples(node[i]) for i in range(len(node)))
+    return {k: _as_tuples(v) for k, v in node.items()}
+
+
 def tree_unflatten(paths: Tuple[Path, ...], leaves) -> dict:
-    """Rebuild the nested dict whose leaves sit at ``paths``."""
+    """Rebuild the nested tree whose leaves sit at ``paths``: a level keyed
+    by int indices becomes a tuple."""
     out: dict = {}
+    seq = False
     for path, leaf in zip(paths, leaves):
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
-    return out
+        seq = seq or any(isinstance(k, int) for k in path)
+    return _as_tuples(out) if seq else out
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -58,6 +81,8 @@ def tree_map(fn: Callable, tree, *rest):
     is a tree of one leaf."""
     if isinstance(tree, Mapping):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 

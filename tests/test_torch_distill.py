@@ -43,6 +43,7 @@ from repro_torch.federated import FLClient, HeteroHFLSimulation, build_scenario 
 from repro_torch.federated.programs import CNNProgram, FedSGDProgram, MLPProgram, group_edge_sizes  # noqa: E402
 from repro_torch.federated.simulation import hetero_final_params  # noqa: E402
 from repro_torch.models.cnn1d import CNNConfig  # noqa: E402
+from repro_torch.serving import TrafficSpec  # noqa: E402
 from torch_parity import (  # noqa: E402
     ReferencePopulation,
     check_run,
@@ -453,6 +454,7 @@ def test_build_scenario_model_mix_errors(case):
 
 
 def test_sequence_model_mix_is_queued():
+    """A mix naming "moe" waits for the MoE program (Queue 1 item 10b)."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         build_scenario("heartbeat", model_mix={"lm": 12, "moe": 6}, device="cpu")
 
@@ -464,7 +466,7 @@ SIM_ERRORS = {
     "divergence-sync": (dict(track_divergence=True, engine="sync"), ValueError),
     "wall-clock": (dict(wall_clock=True), ValueError),
     "faults": (dict(faults=FaultSpec(seed=1)), ValueError),
-    "serve": (dict(serve=object(), cohort=object()), NotImplementedError),
+    "serve": (dict(serve=TrafficSpec(queries=8, batch=8)), ValueError),
     "telemetry": (dict(telemetry=True, server_momentum=0.9), ValueError),
 }
 
@@ -472,8 +474,9 @@ SIM_ERRORS = {
 @pytest.mark.parametrize("case", list(SIM_ERRORS))
 def test_simulate_hetero_errors(pair, case):
     """What the reference refuses for a hetero population raises
-    ``ValueError`` (with ``telemetry=`` on too, as in the reference); the
-    queued ``serve=`` raises ``NotImplementedError`` first."""
+    ``ValueError`` (with ``telemetry=`` on too, as in the reference),
+    serving traffic included: a hetero population has no one global model
+    to serve."""
     _, sc, lam = pair
     kw, exc = SIM_ERRORS[case]
     with pytest.raises(exc):

@@ -167,18 +167,37 @@ def test_cloud_weights_go_to_the_device_once_per_run(pair, lam, backend, monkeyp
 
 
 @pytest.mark.parametrize(
-    "kw",
+    "kw,raises",
     [
-        {"pipeline": "mesh"},
-        {"mesh": 4},
-        {"serve": object()},
+        ({"engine": "sync", "pipeline": "mesh"}, NotImplementedError),
+        ({"engine": "sync", "mesh": 4}, NotImplementedError),
+        ({"engine": "reference", "pipeline": "mesh", "mesh": 4}, None),
+        ({"engine": "async", "pipeline": "mesh", "mesh": 4}, None),
+        ({"serve": object()}, TypeError),
     ],
-    ids=lambda kw: next(iter(kw)),
+    ids=["pipeline", "mesh", "reference-ignores-mesh", "async-ignores-mesh", "serve"],
 )
-def test_unported_options_raise(pair, lam, kw):
+def test_unported_options_raise(pair, lam, kw, raises):
+    """The mesh pipeline is refused, naming its ROADMAP.md item, under
+    ``engine="sync"``, the one engine of the reference that reads
+    ``pipeline`` and ``mesh``; the readable simulator and async ignore both,
+    as in the reference.  A ``serve`` that is not a ``TrafficSpec`` raises
+    the reference's ``TypeError``."""
     _, sc = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if raises is None:
+        assert len(sc.simulate(lam, cloud_rounds=1, device="cpu", **kw).history) == 1
+        return
+    with pytest.raises(raises, match="ROADMAP" if raises is NotImplementedError else "TrafficSpec"):
         sc.simulate(lam, cloud_rounds=1, device="cpu", **kw)
+
+
+def test_sync_engine_pipeline_must_be_known(pair, lam):
+    """As the reference: ``BatchedSyncEngine`` takes the pipelines it has
+    and raises ``ValueError`` for any other, "mesh" included."""
+    _, sc = pair
+    for pipeline in ("mesh", "bogus"):
+        with pytest.raises(ValueError, match="pipeline must be one of"):
+            sync_sim.BatchedSyncEngine(sc.clients, lam, sc.program, sc.test, pipeline=pipeline, device="cpu")
 
 
 @pytest.mark.parametrize("pipeline", ["device", "host"])
@@ -205,13 +224,20 @@ def test_faults_must_be_a_fault_spec(pair, lam):
 
 
 @pytest.mark.parametrize(
-    "kw", [{"model_mix": {"lm": 12, "moe": 6}}],
-    ids=lambda kw: next(iter(kw)),
+    "kw,raises",
+    [({"model_mix": {"lm": 12, "moe": 6}}, True), ({"model_mix": {"lm": 12}}, False)],
+    ids=["model_mix", "model_mix-lm"],
 )
-def test_unported_scenarios_raise(kw):
-    """A ``model_mix`` of sequence programs waits for the sequence models."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_scenario("heartbeat", scale=0.02, device="cpu", **kw)
+def test_unported_scenarios_raise(kw, raises):
+    """A ``model_mix`` naming "moe" waits for the MoE program (ROADMAP.md
+    Queue 1 item 10b); a mix of "lm" alone builds the homogeneous token
+    population."""
+    if raises:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md .Queue 1 item 10b"):
+            build_scenario("heartbeat", scale=0.02, device="cpu", **kw)
+        return
+    sc = build_scenario("heartbeat", scale=0.02, device="cpu", **kw)
+    assert sc.name == "lm" and not sc.is_hetero and len(sc.clients) == 12
 
 
 # -- one-off host work: cost model and assignment ------------------------------

@@ -112,3 +112,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device="):
         serve_launch.main(["--batch", "1", "--prompt-len", "2", "--tokens", "1"])
     ServeEngine(cfg, max_seq=16, device="cpu")
+
+    from repro_torch.serving import ServeTraffic, TrafficSpec
+
+    with pytest.raises(RuntimeError, match="device="):
+        ServeTraffic(TrafficSpec(), sc.clients, sc.program)
+    with pytest.raises(RuntimeError, match="device="):
+        sc.simulate(lam, cloud_rounds=1, serve=TrafficSpec())
+    with pytest.raises(RuntimeError, match="device="):
+        build_scenario("lm", scale=0.05, n_test_per_class=2)
+    with pytest.raises(RuntimeError, match="device="):
+        build_scenario("lm", lazy=True, n_eus=20, n_test_per_class=4)
+    lm = build_scenario("lm", scale=0.05, n_test_per_class=2, device="cpu")
+    with pytest.raises(RuntimeError, match="device="):
+        lm.simulate(lm.assign("dba", device="cpu").lam, cloud_rounds=1)

@@ -103,9 +103,10 @@ def test_fedsgd_quantize_upload_matches_reference(grad_bits):
 
 
 def test_program_registry_matches_reference():
-    """``PROGRAMS`` carries "cnn", "mlp" and "fedsgd", whose factories build
-    the same configurations as the reference's."""
-    assert list(PROGRAMS.names()) == ["cnn", "fedsgd", "mlp"]
+    """``PROGRAMS`` carries "cnn", "mlp", "lm" and "fedsgd", whose factories
+    build the same configurations as the reference's; "moe" is not
+    registered yet."""
+    assert list(PROGRAMS.names()) == ["cnn", "fedsgd", "lm", "mlp"]
     assert set(PROGRAMS.names()) < set(REF_PROGRAMS.names())
     mlp, ref_mlp = PROGRAMS.get("mlp")(hidden=32), REF_PROGRAMS.get("mlp")(hidden=32)
     assert (mlp.feat, mlp.classes, mlp.hidden, mlp.name) == (ref_mlp.feat, ref_mlp.classes, ref_mlp.hidden, ref_mlp.name)
@@ -117,7 +118,7 @@ def test_program_registry_matches_reference():
     with pytest.raises(TypeError):
         FedSGDProgram(base=FedSGDProgram())
     with pytest.raises(KeyError, match="available"):
-        PROGRAMS.get("lm")
+        PROGRAMS.get("moe")
 
 
 @pytest.fixture(scope="module")

@@ -117,12 +117,11 @@ def test_sync_engine_matches_readable_simulator(pair, sim_runs, case, pipeline):
     [("serve", object())],
 )
 def test_readable_simulator_refuses_unported_options(pair, option, value):
-    """The reference simulator's options that are not ported raise and name
-    their queued item."""
+    """A ``serve`` that is not a ``TrafficSpec`` raises the reference's
+    ``TypeError`` before the readable simulator is built."""
     _, sc = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP.md .Queue 1 item"):
-        HFLSimulation(sc.clients, sc.assign("dba", device="cpu").lam, sc.program, sc.test, device="cpu",
-                      **{option: value})
+    with pytest.raises(TypeError, match="TrafficSpec"):
+        sc.simulate(sc.assign("dba", device="cpu").lam, 1, engine="reference", device="cpu", **{option: value})
 
 
 def test_readable_simulator_records_telemetry(pair, tmp_path):

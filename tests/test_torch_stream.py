@@ -357,9 +357,10 @@ def test_server_momentum_matches_centralized_sgd_oracle():
 @pytest.mark.parametrize("option", ["model"])
 def test_stream_unported_options_raise(scenarios, spec, option):
     """The lazy scenario's option that is not ported yet raises and names
-    its queued item: the token-stream population."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md .Queue 1 item"):
-        build_scenario("heartbeat", lazy=True, n_eus=M, model="lm", device="cpu")
+    its queued item: the token population of the MoE program ("lm" is
+    ported, ``tests/test_torch_lm.py``)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md .Queue 1 item 10b"):
+        build_scenario("heartbeat", lazy=True, n_eus=M, **{option: "moe"}, device="cpu")
 
 
 def test_stream_simulate_records_telemetry(scenarios, spec):

@@ -344,6 +344,19 @@ def test_jit_cost_flops_equal_reference(c, steps):
         assert port is not None and ref is not None and port["bytes_moved"] > 0, key
 
 
+def test_jit_cost_mapped_cohort_counts_each_client():
+    """The host pipeline's epoch (``impl="xla"``, the convolution mapped
+    over the clients by ``torch.func.vmap``) is counted at one client and
+    scaled by C, so at C 3 it counts the FLOPs of the GEMM form
+    (109,962,240), not the 174,282,240 of the mapped program counted
+    whole, whose convolution backward the flop formula over-counts."""
+    pairs = cost_pairs(c=3, steps=4, batch=10, n_edges=5, kd_steps=2, kd_batch=4)
+    flat_form, mapped = pairs["cohort_epoch_flat"][0], pairs["cohort_epoch"][0]
+    assert mapped["flops"] == flat_form["flops"] == 109_962_240
+    one = cost_pairs(c=1, steps=4, batch=10, n_edges=5, kd_steps=2, kd_batch=4)["cohort_epoch"][0]
+    assert mapped == {k: 3 * v for k, v in one.items()}
+
+
 def test_jit_cost_step_loop_is_exact():
     """A ``step_loop`` program counted at 1 and 2 steps and extrapolated
     equals the count of all its steps, FLOPs and bytes alike; at the full
@@ -559,14 +572,12 @@ def test_train_cli_paper_writes_artifacts(tmp_path):
 
 
 def test_train_cli_refuses_unported_modes(monkeypatch):
-    """``--arch`` names Queue 1 items 10 and 13, ``--serve`` item 11, and
-    the default device is the card."""
+    """``--arch`` names Queue 1 items 10 and 13, and the default device is
+    the card (``--serve`` is ported: ``tests/test_torch_serve_traffic.py``)."""
     from repro_torch.launch import train
 
     with pytest.raises(NotImplementedError, match="item 10.*item 13"):
         train.main(["--arch", "qwen3-14b"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train.main(["--paper", "--serve", "4"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device="):
         train.main(["--paper", "--rounds", "1"])

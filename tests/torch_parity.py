@@ -29,11 +29,13 @@ from repro.faults import FaultState as RefFaultState
 from repro.federated.client import FLClient as RefFLClient
 from repro.federated.programs import CNNProgram as RefCNNProgram
 from repro.federated.programs import FedSGDProgram as RefFedSGDProgram
+from repro.federated.programs import LMProgram as RefLMProgram
 from repro.federated.programs import MLPProgram as RefMLPProgram
 from repro.federated.simulation import HeteroHFLSimulation as RefHeteroHFLSimulation
 from repro.federated.simulation import HFLSimulation as RefHFLSimulation
 from repro.federated.simulation import centralized_baseline as ref_centralized_baseline
 from repro.models.cnn1d import CNNConfig as RefCNNConfig
+from repro.models.config import ModelConfig as RefModelConfig
 from repro.utils.tree import tree_ravel as ref_tree_ravel
 from repro.wireless.channel import Topology as RefTopology
 from repro.wireless.channel import WirelessParams as RefWirelessParams
@@ -41,16 +43,20 @@ from repro.wireless.channel import build_cost_matrices as ref_build_cost_matrice
 from repro_torch.convert import params_from_numpy
 from repro_torch.engine.flatten import FlatPack
 from repro_torch.faults import FaultState
-from repro_torch.federated.programs import CNNProgram, FedSGDProgram, MLPProgram
+from repro_torch.federated.programs import CNNProgram, FedSGDProgram, LMProgram, MLPProgram
 
 
 def reference_program(program):
-    """The reference's program of the same config as a port CNN, MLP or
-    FedSGD over either."""
+    """The reference's program of the same config as a port CNN, MLP, LM or
+    FedSGD over any of them."""
     if isinstance(program, FedSGDProgram):
         return RefFedSGDProgram(base=reference_program(program.base), grad_bits=program.grad_bits)
     if isinstance(program, CNNProgram):
         return RefCNNProgram(RefCNNConfig(**dataclasses.asdict(program.cfg)))
+    if isinstance(program, LMProgram):
+        return RefLMProgram(
+            cfg=RefModelConfig(**dataclasses.asdict(program.cfg)), seq_len=program.seq_len, n_topics=program.n_topics
+        )
     return RefMLPProgram(feat=tuple(program.feat), classes=program.classes, hidden=program.hidden)
 
 
@@ -129,11 +135,13 @@ def _ref_init(self, generator):
 
 @contextlib.contextmanager
 def reference_inits():
-    """Within the block, ``CNNProgram.init`` and ``MLPProgram.init`` (and so
-    ``FedSGDProgram.init`` over either) return the reference's parameters."""
+    """Within the block, ``CNNProgram.init``, ``MLPProgram.init`` and
+    ``LMProgram.init`` (and so ``FedSGDProgram.init`` over any of them)
+    return the reference's parameters."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(CNNProgram, "init", _ref_init)
         mp.setattr(MLPProgram, "init", _ref_init)
+        mp.setattr(LMProgram, "init", _ref_init)
         yield
 
 
