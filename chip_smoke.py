@@ -35,14 +35,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    one call queues and their device time, the host time) and a run under
    ``torch.cuda.set_sync_debug_mode("error")``;
    flash attention, bf16 on the ``wgmma`` kernel, at the qwen3-14b serve
-   prefill and at starcoder2-3b's widths with its 4096 window biting, fp32
+   prefill, at starcoder2-3b's widths with its 4096 window biting and at
+   granite-moe-3b-a800m's prefill (B 4, S 2048, Hq 24, Hkv 8, d 64), fp32
    on the SIMT kernel at its own case and at phase 7's shape (with the name
    of the CUDA kernel the library call ran), plus untimed cases (d 96,
    windows below the tile, ragged lengths, a fused projection's views; fp32
    2e-5, bf16 2e-2), each checked to have launched its dtype's variant;
-   top-k gating (1e-5; bit for bit on ties and underflow) timed for 8192
-   tokens, k 8, at the granite-moe router width (E 40) and at E 128 and
-   1000, beside softmax -> topk -> scatter -> divide as a yardstick;
+   top-k gating (1e-5; bit for bit on ties and underflow and at phase 9's
+   shapes) timed at the granite-moe router width (E 40, k 8) for phase
+   9a's decode (T 4), phase 9b's prefill (T 2048) and 8192 tokens, and at E
+   128 and 1000, beside softmax -> topk -> scatter -> divide as a
+   yardstick;
 4. card against CPU: the heartbeat sync engine (scale 0.02, two cloud
    rounds), the streaming engine (a lazy population of 120 over 4 edges, a
    cohort of 24, two rounds), and the qwen3-14b smoke config served with
@@ -155,7 +158,33 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    none in decode), then a ragged batch through the pad-mask path (no
    flash launch), then the same parameters with ``use_flash=False``
    (prefill-logit difference, token agreement), then one prefill and 4
-   decode steps under ``torch.profiler``.
+   decode steps under ``torch.profiler``;
+9. the MoE family, every number printed with the card's name and power
+   limit, and the phase's seconds: (a) ``ServeEngine`` on
+   granite-moe-3b-a800m at published widths (32 layers, d_model 1536,
+   24/8 heads, 40 experts top-8, d_ff 512, vocab 49,155, bf16, random
+   weights from seed 0, ``use_flash=True``; its parameter count and
+   bytes): one 4 x 2048 prefill (launch counts zeroed just before and read
+   just after: 32 ``wgmma`` flash launches, no ``topk_gating``, its 8,192
+   tokens taking the capacity dispatch) and one decode step (32
+   ``topk_gating``, no flash), then the uniform batch with 32 new tokens
+   each (prefill seconds, decode tokens/s, peak memory; one flash launch a
+   layer, one ``topk_gating`` a layer and decode step), ``use_flash=False``
+   on the same parameters (prefill-logit difference, token agreement), and
+   one prefill and 4 decode steps under ``torch.profiler``; (b) its widths
+   cut to 2 layers in fp32: a uniform 4 x 512 batch (the dense dispatch)
+   gives the same tokens with ``use_flash`` on and off (2 ``topk_gating``
+   launches a prefill and a decode step), a ragged batch under 4096 tokens
+   the same tokens as its requests alone; (c) the granite-moe and dbrx
+   smoke configs served card against CPU (prefill logits 1e-4, identical
+   greedy tokens), and ``MoEProgram.loss`` and its gradient (1e-5, 1e-4);
+   (d) ``build_scenario("lm", model="moe")`` at ``scale=1.0`` under
+   EARA-SCA, 3 device-pipeline rounds (1 segment and 1 ``hier_aggregate``
+   launch a round; seconds a round) against the same 3 on the CPU
+   (parameters 5e-3, next-token accuracy 1e-3, equal accounting), then
+   ``model_mix={"lm": 8, "moe": 4}`` for 1 device round (2 + 2 launches)
+   held to the host pipeline (accuracy within 2 test samples, parameters
+   5e-3, equal accounting).
 
 With ``--wrappers ROOT`` the script times only the launch floor and the
 segment, aggregate and top-k kernels and their wrappers' whole calls, for
@@ -1373,16 +1402,20 @@ def _served_params():
     return kept, lambda: setattr(ServeTraffic, "on_round", real)
 
 
-def _lm_kernels(lm_sc, lm_lam, rate: float, smi: str) -> dict:
-    """Both FedAvg kernels at the LM population's shapes (the edge FedAvg of
-    its EARA-SCA pairs, N 12 into E 4, and the cloud reduce N 4, D 20,640
-    fp32), each against its plain version (1e-5) and timed beside it and the
-    library call (``wmat @ x``, ``wn @ x``) in this call."""
+def _lm_kernels(lm_sc, lm_lam, rate: float, smi: str, label: str = "the LM shape", group=None) -> dict:
+    """Both FedAvg kernels at a token population's shapes (the edge FedAvg
+    of its EARA-SCA pairs, N 12 into E 4 for the LM, and the cloud reduce
+    over the edges, N 4, D 20,640 fp32 for the LM), each against its plain
+    version (1e-5) and timed beside it and the library call (``wmat @ x``,
+    ``wn @ x``) in this call.  ``group`` (an index of ``group_clients``)
+    takes one group of a mixed population: its program's width, its
+    clients' pairs and their data sizes."""
     import importlib
 
     import numpy as np
     import torch
 
+    from repro_torch.federated import group_clients
     from repro_torch.kernels import (
         hier_aggregate,
         hier_aggregate_ref,
@@ -1394,13 +1427,19 @@ def _lm_kernels(lm_sc, lm_lam, rate: float, smi: str) -> dict:
     agg_mod = importlib.import_module("repro_torch.kernels.hier_aggregate")
     seg_mod = importlib.import_module("repro_torch.kernels.segment_aggregate")
     dev = torch.device("cuda")
-    d = tree_num_params(lm_sc.program.init(torch.Generator().manual_seed(0)))
-    pc, pe = np.nonzero(lm_lam)
+    sizes = np.asarray([c.data_size for c in lm_sc.clients], np.float32)
+    if group is None:
+        program, member = lm_sc.program, np.ones(len(sizes), bool)
+    else:
+        programs, group_of = group_clients(lm_sc.clients)
+        program, member = programs[group], np.asarray(group_of) == group
+    d = tree_num_params(program.init(torch.Generator().manual_seed(0)))
+    pc, pe = np.nonzero(lm_lam * member[:, None])
     n, e = len(pc), lm_lam.shape[1]
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.standard_normal((n, d)), dtype=torch.float32, device=dev)
     seg = torch.as_tensor(pe, dtype=torch.int32, device=dev)
-    w = torch.as_tensor([lm_sc.clients[i].data_size for i in pc], dtype=torch.float32, device=dev)
+    w = torch.as_tensor(sizes[pc], dtype=torch.float32, device=dev)
     err = _close(hier_segment_aggregate(x, seg, w, e), hier_segment_aggregate_ref(x, seg, w, e), TOL["float32"])
     wmat = hier_segment_aggregate_ref(torch.eye(n, device=dev), seg, w, e)
     seg_t = {"N": n, "E": e, "D": d, "max_abs_err": err, **_timings(
@@ -1408,15 +1447,14 @@ def _lm_kernels(lm_sc, lm_lam, rate: float, smi: str) -> dict:
         plain=lambda: hier_segment_aggregate_ref(x, seg, w, e), library=lambda: wmat @ x,
         nbytes=(n + e) * d * 4 + n * 8, rate=rate)}
     xa = torch.as_tensor(rng.standard_normal((e, d)), dtype=torch.float32, device=dev)
-    wa = torch.as_tensor(lm_lam.T.astype(np.float32) @ np.asarray([c.data_size for c in lm_sc.clients], np.float32),
-                         device=dev)
+    wa = torch.as_tensor(lm_lam.T.astype(np.float32) @ (sizes * member), device=dev)
     err = _close(hier_aggregate(xa, wa), hier_aggregate_ref(xa, wa), TOL["float32"])
     wn = wa / wa.sum().clamp_min(1e-30)
     agg_t = {"N": e, "D": d, "max_abs_err": err, **_timings(
         kernel=lambda: agg_mod._launch(xa, wa), wrapper=lambda: hier_aggregate(xa, wa),
         plain=lambda: hier_aggregate_ref(xa, wa), library=lambda: wn @ xa, nbytes=(e + 1) * d * 4 + e * 4, rate=rate)}
-    for label, t in (("hier_segment_aggregate", seg_t), ("hier_aggregate", agg_t)):
-        print(f"lm: kernel {label} at the LM shape {_fmt(t)} [{smi}]", flush=True)
+    for name, t in (("hier_segment_aggregate", seg_t), ("hier_aggregate", agg_t)):
+        print(f"lm: kernel {name} at {label} {_fmt(t)} [{smi}]", flush=True)
     return {"hier_segment_aggregate": seg_t, "hier_aggregate": agg_t}
 
 
@@ -1634,9 +1672,11 @@ def _flash_phase(rates) -> dict:
     """Phase 3, flash attention: each case against the plain version on the
     card, having launched its dtype's variant (bf16 ``wgmma``, fp32
     ``simt``); device times of the ``wgmma`` kernel at (a) the qwen3-14b
-    serve prefill and (b) starcoder2-3b's heads at 8192 tokens with its
-    4096 window, and of the SIMT kernel at the "fp32" case and at phase 7's
-    shape (qwen3-14b widths in fp32), with the name of the CUDA kernel that
+    serve prefill, (b) starcoder2-3b's heads at 8192 tokens with its
+    4096 window and (c) the granite-moe-3b-a800m prefill of phase 9a (Hq
+    24, Hkv 8, d 64), and of the SIMT kernel at the "fp32" case, at phase 7's
+    shape (qwen3-14b widths in fp32) and at phase 9b's (granite-moe widths
+    in fp32: B 4, S 512, Hq 24, Hkv 8, d 64), with the name of the CUDA kernel that
     ``scaled_dot_product_attention`` ran for each fp32 case."""
     import torch
     import torch.nn.functional as F
@@ -1652,9 +1692,11 @@ def _flash_phase(rates) -> dict:
     cases = [
         # label, B, S, Hq, Hkv, D, window, dtype, timed
         ("qwen3-14b prefill", 4, 2048, 40, 8, 128, None, bf16, "wgmma"),
+        ("granite-moe-3b-a800m prefill (phase 9a)", 4, 2048, 24, 8, 64, None, bf16, "granite"),
         ("starcoder2-3b window", 1, 8192, 24, 2, 128, 4096, bf16, "window"),
         ("fp32", 2, 1024, 16, 4, 128, None, f32, "simt"),
         ("fp32 qwen3-14b widths (phase 7)", 4, 1536, 40, 8, 128, None, f32, "simt_phase7"),
+        ("fp32 granite-moe-3b-a800m widths (phase 9b)", 4, 512, 24, 8, 64, None, f32, "simt_granite"),
         ("fp32 window < tile", 2, 300, 8, 2, 64, 7, f32, None),
         ("fp32 ragged tail", 3, 77, 6, 3, 32, 100, f32, None),
         ("fp32 smoke heads", 2, 130, 8, 2, 16, None, f32, None),
@@ -1708,6 +1750,7 @@ def _flash_phase(rates) -> dict:
                 "bound_by": bound_by,
             }
             t["tflops"] = ops / t["ms"] / 1e9
+            t["max_abs_err"] = err  # a variant's main case takes its worst case's below
             if dtype == f32:
                 # the call above falls back to unfused math for fp32 GQA; beside
                 # it, PyTorch's fused fp32 kernel (memory-efficient attention),
@@ -1743,8 +1786,10 @@ def _cuda_kernel_names(fn) -> str:
 
 def _topk_phase(rate: float, floor: dict) -> dict:
     """Phase 3, top-k gating: the kernel against its plain version on the
-    card (1e-5; bit for bit on ties and underflow), timed for 8192 tokens
-    with k 8 at granite-moe-3b-a800m's router width (E 40) and at E 128 and
+    card (1e-5; bit for bit on ties and underflow and at the two shapes of
+    phase 9's path), timed at granite-moe-3b-a800m's router width (E 40, k
+    8) at the decode shape of phase 9a (T 4, the record's main shape), at
+    phase 9b's dense prefill (T 2048) and for 8192 tokens, and at E 128 and
     1000.  No single PyTorch call computes it, so there is no library time;
     beside it, as a yardstick only, softmax -> topk -> scatter -> divide."""
     import torch
@@ -1766,23 +1811,26 @@ def _topk_phase(rate: float, floor: dict) -> dict:
     ties[4, ::3] = 1.0           # a sum whose bits depend on its order: torch.softmax's
     ties[5, 5] = 300.0
     cases = [
-        ("granite-moe router", logits(8192, 40), 8, "main"),
-        ("E 128", logits(8192, 128), 8, "timed"),
-        ("E 1000", logits(8192, 1000), 8, "timed"),
-        ("bf16", logits(8192, 40, torch.bfloat16), 8, None),
-        *((f"E {e}", logits(300, e, dtype), 8, None)
+        # label, logits, k, timed, bit for bit
+        ("granite-moe decode, phase 9a", logits(4, 40), 8, "main", True),
+        ("granite-moe prefill, phase 9b", logits(2048, 40), 8, "timed", True),
+        ("granite-moe router", logits(8192, 40), 8, "timed", False),
+        ("E 128", logits(8192, 128), 8, "timed", False),
+        ("E 1000", logits(8192, 1000), 8, "timed", False),
+        ("bf16", logits(8192, 40, torch.bfloat16), 8, None, False),
+        *((f"E {e}", logits(300, e, dtype), 8, None, False)
           for e in (32, 33, 56, 57, 64, 65, 1024) for dtype in (torch.float32, torch.bfloat16)),
-        ("ties and underflow", ties, 8, "exact"),
-        ("ties and underflow, k 1", ties, 1, "exact"),
-        ("k > E", logits(64, 33), 40, None),
-        ("k 0", logits(64, 40), 0, None),
+        ("ties and underflow", ties, 8, None, True),
+        ("ties and underflow, k 1", ties, 1, None, True),
+        ("k > E", logits(64, 33), 40, None, False),
+        ("k 0", logits(64, 40), 0, None, False),
     ]
     result = {"max_abs_err": 0.0, "other_shapes": []}
-    for label, x, k, timed in cases:
+    for label, x, k, timed, exact in cases:
         got = topk_gating(x, k)
         want = topk_gating_ref(x, k)
         torch.cuda.synchronize()
-        if timed == "exact":
+        if exact:
             _require(torch.equal(got, want), f"topk_gating [{label}]: not bit for bit the plain version")
         err = _close(got, want, 1e-5)
         result["max_abs_err"] = max(result["max_abs_err"], err)
@@ -1989,6 +2037,351 @@ def _serve_path():
     return counts, variants
 
 
+# phase 9: the MoE family
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_MIX = {"lm": 8, "moe": 4}
+
+
+def _moe_serve(smi: str) -> dict:
+    """Phase 9a: granite-moe-3b-a800m at published widths (bf16, random
+    weights from seed 0, ``use_flash=True``) through ``ServeEngine``.  One
+    prefill of 4 x 2048 tokens and one decode step, each with the launch
+    counts zeroed just before and read just after (the prefill: one bf16
+    ``wgmma`` flash launch per layer and no ``topk_gating``, its 8,192
+    tokens taking the capacity dispatch; a decode step: one ``topk_gating``
+    per layer and no flash); then the uniform batch served with 32 new
+    tokens each (counts zeroed just before and read just after: one flash
+    launch per layer, one ``topk_gating`` per layer and decode step);
+    ``use_flash=False`` on the same parameters (prefill-logit difference,
+    token agreement); one prefill and 4 decode steps under
+    ``torch.profiler``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import decode_step, prefill
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.telemetry import Telemetry
+
+    card = f"[{smi}]"
+    cfg = dataclasses.replace(get_config(MOE_ARCH), use_flash=True)
+    n_layers = cfg.n_layers
+    t0 = time.perf_counter()
+    tel = Telemetry()
+    engine = ServeEngine(cfg, max_seq=2080, seed=0, device="cuda", telemetry=tel)
+    torch.cuda.synchronize()
+    leaves = _leaves(engine.params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"moe: {cfg.name} {n_layers} layers d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} experts "
+          f"{cfg.moe.n_experts} top-{cfg.moe.top_k} d_ff {cfg.d_ff} vocab {cfg.vocab_size} {cfg.dtype}: {n_params} "
+          f"parameters, {n_bytes} bytes, drawn in {time.perf_counter() - t0:.3f}s {card}", flush=True)
+    rng = np.random.default_rng(0)
+    engine.run([Request(rng.integers(0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=2)])  # warm-up
+    prompts = rng.integers(0, cfg.vocab_size, (4, 2048)).astype(np.int32)
+    toks = torch.as_tensor(prompts, device="cuda")
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        logits, cache = prefill(engine.params, cfg, toks, max_seq=2080)
+        torch.cuda.synchronize()
+        pre_counts, pre_variants = launch_counts(), dict(flash_attention.launches_by_variant)
+        reset_launch_counts()
+        decode_step(engine.params, cfg, logits[:, -1].argmax(-1)[:, None], cache,
+                    torch.full((4,), 2048, device="cuda"))
+        torch.cuda.synchronize()
+        step_counts = launch_counts()
+    del logits, cache
+    print(f"moe: one prefill 4 x 2048 launches {json.dumps(pre_counts)} flash by variant {json.dumps(pre_variants)}; "
+          f"one decode step launches {json.dumps(step_counts)} {card}", flush=True)
+    _require(pre_counts["flash_attention"] == n_layers and pre_variants["wgmma"] == n_layers,
+             f"moe prefill: flash launches {pre_counts} {pre_variants}, not {n_layers} wgmma")
+    _require(pre_counts["topk_gating"] == 0, "moe prefill: 8,192 tokens a call launched topk_gating")
+    _require(step_counts["topk_gating"] == n_layers and step_counts["flash_attention"] == 0,
+             f"moe decode step: launches {step_counts}, not {n_layers} topk_gating and no flash")
+
+    def spans():
+        pre = [s for s in tel.tracer.spans if s.name == "prefill"][-1]
+        dec = [s for s in tel.tracer.spans if s.name == "decode"][-1]
+        return pre, dec
+
+    reqs = [Request(p, max_new_tokens=32) for p in prompts]
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    counts, variants = launch_counts(), dict(flash_attention.launches_by_variant)
+    pre, dec = spans()
+    out = {"launches": counts["topk_gating"], "decode_steps": dec.attrs["steps"], "prefill_s": pre.duration,
+           "decode_tok_s": dec.attrs["tokens"] / dec.duration, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "n_params": n_params, "n_bytes": n_bytes, "flash_wgmma": variants["wgmma"]}
+    print(f"moe: uniform 4 x 2048, 32 new tokens: prefill {pre.duration:.4f}s, decode {dec.attrs['steps']} steps "
+          f"{dec.duration:.4f}s = {out['decode_tok_s']:.2f} tok/s; max_memory_allocated {out['peak_bytes']} bytes; "
+          f"launches {json.dumps(counts)} flash by variant {json.dumps(variants)} {card}", flush=True)
+    _require(counts["flash_attention"] == n_layers and variants["wgmma"] == n_layers,
+             f"moe serve: flash launches {counts} {variants}, not {n_layers} wgmma")
+    _require(counts["topk_gating"] == n_layers * dec.attrs["steps"],
+             f"moe serve: {counts['topk_gating']} topk_gating launches, not {n_layers} per decode step")
+    for r in reqs:
+        _require(r.out.shape == (32,) and 0 <= r.out.min() and r.out.max() < cfg.vocab_size, "moe: bad tokens")
+
+    plain_cfg = dataclasses.replace(cfg, use_flash=False)
+    with torch.inference_mode():
+        lf = prefill(engine.params, cfg, toks, max_seq=2048)[0]
+        lp = prefill(engine.params, plain_cfg, toks, max_seq=2048)[0]
+    _require(bool(torch.isfinite(lf).all() and torch.isfinite(lp).all()), "moe: non-finite prefill logits")
+    out["flash_vs_plain_logits"] = float((lf - lp).abs().max())
+    argmax_same = int((lf.argmax(-1) == lp.argmax(-1)).sum())
+    del lf, lp
+    plain = ServeEngine(plain_cfg, params=engine.params, max_seq=2080, device="cuda")
+    plain_out = [r.out for r in plain.run([Request(p, max_new_tokens=32) for p in prompts])]
+    out["leading_tokens_equal"] = [int(np.sum(np.cumprod(a == b))) for a, b in zip((r.out for r in reqs), plain_out)]
+    print(f"moe: bf16 use_flash on vs off, same params: prefill logits max |diff| {out['flash_vs_plain_logits']:.4g}, "
+          f"first tokens equal {argmax_same}/4, leading tokens equal per row {out['leading_tokens_equal']} of 32 "
+          f"{card}", flush=True)
+
+    short = [Request(p, max_new_tokens=5) for p in prompts]
+    engine.run(short)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run(short)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run(short)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report_profile(prof, plain_wall, wall, f"moe profile: prefill + 4 decode steps {card}")
+    del engine, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_exactness(smi: str) -> dict:
+    """Phase 9b: granite-moe widths cut to 2 layers, fp32, on the card.  A
+    uniform 4 x 512 batch (2,048 tokens: the dense dispatch, so
+    ``topk_gating`` runs in the prefill too) gives the same tokens with
+    ``use_flash`` on and off; a ragged batch under 4096 tokens gives the
+    same tokens as its requests served alone.  Launch counts are zeroed
+    just before and read just after the uniform batch: 2 ``topk_gating`` a
+    prefill and 2 a decode step, 2 fp32 flash launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, launch_counts, reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.serving import Request, ServeEngine
+
+    card = f"[{smi}]"
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=2, dtype="float32", use_flash=True)
+    params = init_params(torch.Generator("cuda").manual_seed(1), cfg)
+    rng = np.random.default_rng(1)
+    new = 8
+
+    def serve(engine, prompts):
+        return [r.out for r in engine.run([Request(p, max_new_tokens=new) for p in prompts])]
+
+    flash = ServeEngine(cfg, params=params, max_seq=600, device="cuda")
+    plain = ServeEngine(dataclasses.replace(cfg, use_flash=False), params=params, max_seq=600, device="cuda")
+    uniform = list(rng.integers(0, cfg.vocab_size, (4, 512)).astype(np.int32))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    a = serve(flash, uniform)
+    torch.cuda.synchronize()
+    counts, variants = launch_counts(), dict(flash_attention.launches_by_variant)
+    want = cfg.n_layers * new  # one prefill and new - 1 decode steps
+    _require(counts["topk_gating"] == want, f"moe exact: {counts['topk_gating']} topk_gating launches, not {want}")
+    _require(variants["simt"] == cfg.n_layers, f"moe exact: flash launches by variant {variants}")
+    b = serve(plain, uniform)
+    same = all(np.array_equal(x, y) for x, y in zip(a, b))
+    print(f"moe exact: {cfg.name} 2 layers fp32, uniform 4 x 512: use_flash on/off tokens identical {same}; "
+          f"launches {json.dumps(counts)} flash by variant {json.dumps(variants)} {card}", flush=True)
+    _require(same, "moe exact: use_flash on and off give different tokens in fp32")
+    ragged = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (512, 300, 411, 200)]
+    batched = serve(flash, ragged)
+    for i, p in enumerate(ragged):
+        _require(np.array_equal(batched[i], serve(flash, [p])[0]), f"moe exact: ragged row {i} differs from solo")
+    print(f"moe exact: ragged batch (512, 300, 411, 200) token-identical to each request served alone {card}",
+          flush=True)
+    del flash, plain, params
+    torch.cuda.empty_cache()
+    return {"topk_gating": counts["topk_gating"], "flash_simt": variants["simt"]}
+
+
+def _moe_card_vs_cpu(smi: str) -> None:
+    """Phase 9c: one bf16 MoE layer at granite-moe-3b-a800m's published
+    widths (phase 9a's layer: random weights from seed 0) through the
+    dispatches that 9a runs, the capacity dispatch (prefill) and the dense
+    dispatch with ``topk_gating``'s combine (decode), and the training
+    forward's dense dispatch, on the card (bf16 products with fp32
+    outputs) and on the CPU (the same products upcast): outputs within
+    2e-2; then the granite-moe and dbrx smoke configs served with the same
+    parameters on the card and on the CPU (prefill logits 1e-4, identical
+    greedy tokens), and ``MoEProgram.loss`` and its gradient on one batch
+    (loss 1e-5, gradient 1e-4)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.federated import PROGRAMS
+    from repro_torch.models import init_params, moe
+    from repro_torch.models.transformer import prefill
+    from repro_torch.serving import Request, ServeEngine
+
+    card = f"[{smi}]"
+    rng = np.random.default_rng(0)
+    cfg = get_config(MOE_ARCH)
+    _require(cfg.param_dtype == torch.bfloat16, f"{cfg.name} is not bf16")
+    layer = moe.moe_init(torch.Generator().manual_seed(0), cfg)
+    on_card = _tree_to(layer, "cuda")
+    gen = torch.Generator().manual_seed(1)
+    for label, fn, shape in (
+        ("capacity dispatch (9a prefill)", lambda p, h: moe.moe_mlp_grouped(p, cfg, h)[0], (2, 256)),
+        ("dense dispatch, topk_gating combine (9a decode)", lambda p, h: moe.moe_mlp_serve(p, cfg, h), (4, 32)),
+        ("dense dispatch, router_topk combine (training)", lambda p, h: moe.moe_mlp(p, cfg, h)[0], (4, 32)),
+    ):
+        x = torch.randn((*shape, cfg.d_model), generator=gen).to(torch.bfloat16)
+        with torch.inference_mode():
+            want, got = fn(layer, x), fn(on_card, x.to("cuda"))
+        _require(got.dtype == torch.bfloat16 and got.shape == x.shape,
+                 f"moe bf16 layer {label}: {got.dtype} {tuple(got.shape)}")
+        diff = float((got.float().cpu() - want.float()).abs().max())
+        print(f"moe card-vs-cpu bf16 layer {cfg.name} d {cfg.d_model} E {cfg.moe.n_experts} top-{cfg.moe.top_k} "
+              f"{label}, {shape[0]} x {shape[1]} tokens: max |diff| {diff:.3g} {card}", flush=True)
+        _require(diff <= 2e-2, f"moe bf16 layer {label}: card and CPU differ by {diff}")
+    del layer, on_card
+    for arch in (MOE_ARCH, "dbrx-132b"):
+        cfg = get_smoke_config(arch)
+        params = init_params(torch.Generator().manual_seed(0), cfg)
+        prompts = rng.integers(0, cfg.vocab_size, (3, 100))
+        logits, outs = {}, {}
+        for d in ("cuda", "cpu"):
+            p = _tree_to(params, d)
+            with torch.inference_mode():
+                logits[d] = prefill(p, cfg, torch.as_tensor(prompts, device=d), max_seq=128)[0].cpu()
+            eng = ServeEngine(cfg, params=p, max_seq=128, device=d)
+            outs[d] = [r.out for r in eng.run([Request(x.astype(np.int32), max_new_tokens=16) for x in prompts])]
+        diff = float((logits["cuda"] - logits["cpu"]).abs().max())
+        same = all(np.array_equal(a, b) for a, b in zip(outs["cuda"], outs["cpu"]))
+        print(f"moe card-vs-cpu serve {cfg.name}: prefill logits max |diff| {diff:.3g}, greedy tokens identical "
+              f"{same} {card}", flush=True)
+        _require(diff <= 1e-4, f"{cfg.name}: card and CPU prefill logits disagree")
+        _require(same, f"{cfg.name}: card and CPU greedy tokens disagree")
+
+    prog = PROGRAMS.get("moe")()
+    params = prog.init(torch.Generator().manual_seed(0))
+    x = torch.as_tensor(rng.integers(0, 128, (16, 32)))
+    loss, grads = {}, {}
+    for d in ("cuda", "cpu"):
+        leaves = _leaves(_tree_to(params, d))
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        p = _tree_from_leaves(params, iter(leaves))
+        value = prog.loss(p, x.to(d), torch.zeros(16, dtype=torch.int64, device=d))
+        grads[d] = torch.cat([g.reshape(-1).cpu() for g in torch.autograd.grad(value, leaves)])
+        loss[d] = float(value.detach())
+    loss_gap, grad_gap = abs(loss["cuda"] - loss["cpu"]), float((grads["cuda"] - grads["cpu"]).abs().max())
+    print(f"moe card-vs-cpu MoEProgram.loss {loss['cuda']:.6f} vs {loss['cpu']:.6f} (|diff| {loss_gap:.3g}), "
+          f"gradient max |diff| {grad_gap:.3g} over {grads['cpu'].numel()} parameters {card}", flush=True)
+    _require(loss_gap <= 1e-5, "MoEProgram.loss: card and CPU disagree")
+    _require(grad_gap <= 1e-4, "MoEProgram gradient: card and CPU disagree")
+
+
+def _tree_from_leaves(tree, leaves):
+    """``tree``'s nesting with its leaves taken in order from ``leaves``."""
+    if isinstance(tree, dict):
+        return {k: _tree_from_leaves(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_from_leaves(v, leaves) for v in tree)
+    return next(leaves)
+
+
+def _moe_population(rate: float, smi: str) -> dict:
+    """Phase 9d: ``build_scenario("lm", model="moe")`` at ``scale=1.0`` (the
+    reference's defaults, nothing cut) under EARA-SCA on the device
+    pipeline for 3 rounds (launch counts zeroed just before and read just
+    after: 1 segment and 1 ``hier_aggregate`` a round; seconds a round),
+    the same on the CPU (parameters within 5e-3, next-token accuracy within
+    1e-3, equal accounting); then ``model_mix={"lm": 8, "moe": 4}`` for 1
+    round on the device pipeline (2 segment and 2 ``hier_aggregate``
+    launches) held to the host pipeline (accuracy within 2 test samples,
+    parameters within 5e-3, equal accounting).  Both FedAvg kernels are held
+    to their plain versions at the population's shapes and at each group's
+    of the mix, and timed there."""
+    import torch
+
+    from repro_torch.federated import build_scenario
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    card = f"[{smi}]"
+    t0 = time.perf_counter()
+    sc = build_scenario("lm", model="moe", scale=1.0)
+    lam = sc.assign("eara-sca").lam
+    print(f"moe: build_scenario lm model=moe scale=1.0 and eara-sca {time.perf_counter() - t0:.3f}s: "
+          f"{len(sc.clients)} EUs, {sc.n_edges} edges, {sum(c.data_size for c in sc.clients)} sequences, "
+          f"{int(sc.model_bits) // 32} parameters {card}", flush=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    gpu = sc.simulate(lam, cloud_rounds=3, engine="sync", pipeline="device")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    _require(counts["hier_segment_aggregate"] == 3 and counts["hier_aggregate"] == 3 and counts["topk_gating"] == 0,
+             f"moe population: device launches {counts}, expected 1 segment and 1 aggregate a round")
+    t0 = time.perf_counter()
+    cpu = sc.simulate(lam, cloud_rounds=3, engine="sync", pipeline="device", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    acc_gap = max(abs(a.test_acc - b.test_acc) for a, b in zip(gpu.history, cpu.history))
+    param_gap = float((_flat_row(gpu.final_params).cpu() - _flat_row(cpu.final_params)).abs().max())
+    out = {"seconds_per_round": [h.wall_seconds for h in gpu.history], "launches": counts,
+           "acc_gap": acc_gap, "param_gap": param_gap,
+           "kernels": _lm_kernels(sc, lam, rate, smi, label="the MoE population's shape")}
+    print(f"moe: device pipeline seconds a round {[round(h.wall_seconds, 4) for h in gpu.history]}, next-token "
+          f"accuracy {[round(h.test_acc, 6) for h in gpu.history]}, loss "
+          f"{[round(h.mean_local_loss, 6) for h in gpu.history]}, launches {json.dumps(counts)}; the CPU's 3 rounds "
+          f"{cpu_s:.2f}s; card vs CPU: accuracy {acc_gap:.3g}, parameters {param_gap:.3g} {card}", flush=True)
+    _require(acc_gap <= 1e-3, f"moe population: card and CPU accuracy differ by {acc_gap}")
+    _require(param_gap <= 5e-3, f"moe population: card and CPU parameters differ by {param_gap}")
+    _require(gpu.accountant.totals() == cpu.accountant.totals(), "moe population: card and CPU accounting differ")
+
+    mix = build_scenario("lm", model_mix=MOE_MIX)
+    mix_lam = mix.assign("eara-sca").lam
+    dev, dev_counts = _run_counted(mix, mix_lam, f"moe mix sync-device {card}", cloud_rounds=1, engine="sync",
+                                   pipeline="device")
+    _require(dev_counts["hier_segment_aggregate"] == 2 and dev_counts["hier_aggregate"] == 2,
+             f"moe mix: device launches {dev_counts}, expected 2 segment and 2 aggregate a round")
+    _require(set(dev.final_params) == set(MOE_MIX), f"moe mix: final_params keyed {sorted(dev.final_params)}")
+    host, _ = _run_counted(mix, mix_lam, f"moe mix sync-host {card}", cloud_rounds=1, engine="sync", pipeline="host")
+    _agree(f"moe mix device vs host {card}", dev, host, acc_tol=2 / len(mix.test))
+    out["mix"] = {"launches": dev_counts, "seconds": dev.history[0].wall_seconds,
+                  "host_seconds": host.history[0].wall_seconds,
+                  "kernels": {name: _lm_kernels(mix, mix_lam, rate, smi, label=f"the mix's {name} group", group=g)
+                              for g, name in enumerate(MOE_MIX)}}
+    print(f"moe: mix {mix.name} device round {dev.history[0].wall_seconds:.4f}s, host round "
+          f"{host.history[0].wall_seconds:.4f}s {card}", flush=True)
+    return out
+
+
+def _moe_phase(rate: float, smi: str) -> dict:
+    """Phase 9, the MoE family: 9a-9d, each printed with the card's name and
+    power limit, and the phase's seconds."""
+    t_phase = time.perf_counter()
+    out = {"serve": _moe_serve(smi), "exact": _moe_exactness(smi)}
+    _moe_card_vs_cpu(smi)
+    out["population"] = _moe_population(rate, smi)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"moe: phase 9 {out['phase_s']:.1f}s [{smi}]", flush=True)
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -2151,6 +2544,7 @@ def main(argv) -> int:
     lm_run = _serve_lm_phase(sc, sca_lam, rates[0], smi)
     exact_variants = _serve_exactness()
     serve_counts, serve_variants = _serve_path()
+    moe_run = _moe_phase(rates[0], smi)
     flash = kern["flash"]
     record = []
     for k, fn_name, source, replaces, launches, variant in (
@@ -2158,7 +2552,7 @@ def main(argv) -> int:
         (kern["agg"], "hier_aggregate", AGG_SOURCE, AGG_REPLACES, counts["hier_aggregate"], None),
         (flash["wgmma"], "flash_attention", FLASH_SOURCE, FLASH_REPLACES, serve_variants["wgmma"], "wgmma"),
         (flash["simt"], "flash_attention", FLASH_SIMT_SOURCE, FLASH_REPLACES, exact_variants["simt"], "simt"),
-        (kern["topk"], "topk_gating", TOPK_SOURCE, TOPK_REPLACES, serve_counts["topk_gating"], None),
+        (kern["topk"], "topk_gating", TOPK_SOURCE, TOPK_REPLACES, moe_run["serve"]["launches"], None),
     ):
         if variant == "simt":  # timed at phase 7's shape, where its launches are counted
             k = {**flash["simt_phase7"], "max_abs_err": k["max_abs_err"]}
@@ -2179,6 +2573,11 @@ def main(argv) -> int:
                 path: counts[fn_name] for path, counts in mix_run["launches"].items()}}
         if fn_name in HEARTBEAT_KERNELS:  # phase 6g: the LM population's shape and its 3 device rounds
             entry["lm"] = {**lm_run["lm"]["kernels"][fn_name], "launches": lm_run["lm"]["launches"][fn_name]}
+        if fn_name in HEARTBEAT_KERNELS:  # phase 9d: the MoE population's 3 device rounds, the mix's round
+            pop = moe_run["population"]
+            entry["moe"] = {**pop["kernels"][fn_name], "launches": pop["launches"][fn_name]}
+            entry["moe_mix"] = {"shapes": {g: t[fn_name] for g, t in pop["mix"]["kernels"].items()},
+                                "launches": pop["mix"]["launches"][fn_name]}
         if fn_name == "hier_aggregate":  # phases 6b (host pipeline) and 6c (async), beside phase 5's count
             entry["launches_host_pipeline"] = host_launches
             entry["launches_async_2_rounds"] = async_run["launches_2_rounds"]
@@ -2187,8 +2586,17 @@ def main(argv) -> int:
             mode = max(async_run["flush_rows"], key=lambda n: (async_run["flush_rows"][n], -n))
             entry["async_flush"] = k["by_n"].get(mode, {"N": mode, "ms": "not measured"})
         entry.update({key: k[key] for key in _EXTRA_KEYS if key in k})
+        if variant == "wgmma":  # phase 9a's prefill: its shape timed in phase 3, launches per prefill
+            entry["granite"] = {"shape": "B 4, S 2048, Hq 24, Hkv 8, d 64, bf16 (phase 9a)",
+                                "launches": moe_run["serve"]["flash_wgmma"], **flash["granite"]}
+        if fn_name == "topk_gating":  # phase 9: the decode shape's launches; phase 9b's prefill and decode
+            entry["shape"] = "T 4, E 40, k 8 (phase 9a decode)"
+            entry["launches_per_decode_step"] = moe_run["serve"]["launches"] // moe_run["serve"]["decode_steps"]
+            entry["launches_phase_9b"] = moe_run["exact"]["topk_gating"]
         if variant == "simt":
             entry["shape"] = "B 4, S 1536, Hq 40, Hkv 8, d 128, fp32 (phase 7)"
+            entry["granite"] = {"shape": "B 4, S 512, Hq 24, Hkv 8, d 64, fp32 (phase 9b)",
+                                "launches": moe_run["exact"]["flash_simt"], **flash["simt_granite"]}
             entry["fp32_case"] = {
                 "shape": "B 2, S 1024, Hq 16, Hkv 4, d 128, fp32",
                 **{key: flash["simt"][key] for key in

@@ -18,12 +18,14 @@ dataclasses, so equal configs are equal programs.
   "mlp"    flattened-feature classifier (``models.modules.dense``)
   "lm"     small causal dense transformer LM (``models.transformer``) on
            (seq_len,) int32 token shards, next-token loss and accuracy
+  "moe"    the same LM with top-k routed expert banks (``models.moe``),
+           its router's load-balance and z losses added to the loss
   "fedsgd" wrapper around any of them: one plain-SGD step per round and a
            gradient uplink (``base="cnn"``, ``grad_bits=32``)
   ======== ==========================================================
 
-The reference's other sequence LMs are queued in ROADMAP.md: "moe" in
-Queue 1 item 10b, "mamba" and "rwkv" in item 10c (``UNPORTED_SEQUENCE``).
+The reference's other sequence LMs are queued in ROADMAP.md: "mamba" and
+"rwkv" in Queue 1 item 10c (``UNPORTED_SEQUENCE``).
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.cnn1d import HEARTBEAT_CNN, CNNConfig, cnn_apply, cnn_apply_cohort, cnn_init
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.modules import dense, dense_init
 from repro_torch.models.transformer import forward as transformer_forward
 from repro_torch.models.transformer import init_params as transformer_init
@@ -50,7 +52,7 @@ PROGRAMS = Registry("client_program")
 # routes them to the topic-skewed token-stream population)
 SEQUENCE_PROGRAMS = ("lm", "moe", "mamba", "rwkv")
 # the sequence programs not ported yet, and the ROADMAP.md Queue 1 item of each
-UNPORTED_SEQUENCE = {"moe": "10b, MoE", "mamba": "10c, Mamba and RWKV", "rwkv": "10c, Mamba and RWKV"}
+UNPORTED_SEQUENCE = {"mamba": "10c, Mamba and RWKV", "rwkv": "10c, Mamba and RWKV"}
 
 
 def refuse_unported_programs(names) -> None:
@@ -354,6 +356,37 @@ def tiny_lm_config(
     )
 
 
+def tiny_moe_config(
+    vocab_size: int = 128,
+    seq_len: int = 32,
+    d_model: int = 32,
+    n_layers: int = 2,
+    n_heads: int = 2,
+    d_ff: int = 32,
+    n_experts: int = 4,
+    top_k: int = 2,
+) -> ModelConfig:
+    """The mixture-of-experts LM sized for federated IoT clients: every
+    layer's feed-forward block a top-k routed bank of SwiGLU experts.  At
+    cohort token counts (under 4096 per client and call) it takes the
+    dense dispatch, whose shapes are static, so the mapped cohort epoch
+    sees no data-dependent shape."""
+    return ModelConfig(
+        name=f"moe-tiny-v{vocab_size}-d{d_model}-e{n_experts}",
+        family="moe",
+        n_layers=n_layers,
+        d_model=d_model,
+        n_heads=n_heads,
+        n_kv_heads=n_heads,
+        d_ff=d_ff,
+        vocab_size=vocab_size,
+        moe=MoEConfig(n_experts=n_experts, top_k=top_k),
+        tie_embeddings=True,
+        max_seq=seq_len,
+        dtype="float32",
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class SequenceProgram(ClientProgram):
     """Token-sequence LM programs over ``models.transformer``.
@@ -363,7 +396,10 @@ class SequenceProgram(ClientProgram):
     label ``y`` carries the sequence's TOPIC, which only the KLD-aware
     assignment reads (``n_classes`` is the topic count).  The cohort form
     maps :meth:`loss` over the C clients for every ``impl``: the base
-    class's batched form would score ``y`` as a class label.
+    class's batched form would score ``y`` as a class label.  Subclasses
+    choose the config and may add loss terms from the forward's aux dict
+    (:meth:`_aux_loss`).  :meth:`apply_cohort` (the distillation fuse's
+    batched forward) maps :meth:`apply` over the C models.
     """
 
     cfg: ModelConfig = dataclasses.field(default_factory=tiny_lm_config)
@@ -377,9 +413,20 @@ class SequenceProgram(ClientProgram):
         del impl  # one formulation
         return transformer_forward(params, self.cfg, x)[0]
 
+    def apply_cohort(self, params, x):
+        return torch.func.vmap(lambda p, xb: self.apply(p, xb))(params, x)
+
+    def _aux_loss(self, aux):
+        """Auxiliary loss terms from the forward's aux dict; None = none."""
+        del aux
+        return None
+
     def loss(self, params, x, y, *, impl: str | None = None):
         del y, impl  # the topic label is an assignment-time signal only
-        return lm_loss(self.apply(params, x), x, shift=True)
+        logits, aux = transformer_forward(params, self.cfg, x)
+        base = lm_loss(logits, x, shift=True)
+        extra = self._aux_loss(aux)
+        return base if extra is None else base + extra
 
     def cohort_loss(self, params, x, y, *, impl: str = "gemm"):
         return torch.func.vmap(lambda p, xb, yb: self.loss(p, xb, yb))(params, x, y)
@@ -412,6 +459,25 @@ class LMProgram(SequenceProgram):
     @property
     def name(self) -> str:
         return "lm"
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEProgram(SequenceProgram):
+    """Mixture-of-experts LM: top-k softmax routing, dense dispatch at
+    cohort sizes.  The router's Switch load-balance loss and z-loss join the
+    next-token loss (``aux_weight`` / ``z_weight``), so the router's health
+    travels with the federated updates like any other gradient."""
+
+    cfg: ModelConfig = dataclasses.field(default_factory=tiny_moe_config)
+    aux_weight: float = 1e-2
+    z_weight: float = 1e-3
+
+    @property
+    def name(self) -> str:
+        return "moe"
+
+    def _aux_loss(self, aux):
+        return self.aux_weight * aux["moe_aux"] + self.z_weight * aux["moe_z"]
 
 
 def group_clients(clients, fallback=None):
@@ -479,6 +545,19 @@ def _mlp_program(feat: Tuple[int, ...] = (187, 1), n_classes: int = 5, hidden: i
 def _lm_program(vocab_size: int = 128, seq_len: int = 32, n_topics: int = 4, **cfg_kw) -> LMProgram:
     cfg = tiny_lm_config(vocab_size=vocab_size, seq_len=seq_len, **cfg_kw)
     return LMProgram(cfg=cfg, seq_len=seq_len, n_topics=n_topics)
+
+
+@PROGRAMS.register("moe")
+def _moe_program(
+    vocab_size: int = 128,
+    seq_len: int = 32,
+    n_topics: int = 4,
+    aux_weight: float = 1e-2,
+    z_weight: float = 1e-3,
+    **cfg_kw,
+) -> MoEProgram:
+    cfg = tiny_moe_config(vocab_size=vocab_size, seq_len=seq_len, **cfg_kw)
+    return MoEProgram(cfg=cfg, seq_len=seq_len, n_topics=n_topics, aux_weight=aux_weight, z_weight=z_weight)
 
 
 @PROGRAMS.register("fedsgd")

@@ -9,15 +9,16 @@ and the token-stream population of the sequence programs
 (``build_scenario("lm")`` or ``model="lm"``): ``lm_eus`` EUs over
 ``lm_edges`` edges, each shard dominated by one Markov topic, the topics
 standing in for classes so that the KLD-aware assignment has an imbalance
-to balance.  The dense transformer LM is ported; the reference's "moe",
-"mamba" and "rwkv" programs raise ``NotImplementedError`` naming their
-ROADMAP.md items.
+to balance.  The dense transformer LM and the MoE LM are ported; the
+reference's "mamba" and "rwkv" programs raise ``NotImplementedError``
+naming their ROADMAP.md item.
 
 ``model_mix=`` builds a heterogeneous-MODEL population instead: a mapping
-of program names to EU counts (``{"cnn": 12, "mlp": 6}``) gives each EU its
-program, one small PUBLIC shard per edge is drawn after the test set (so
-the private shards stay byte-equal to the homogeneous builder's), and the
-engines fuse the per-architecture edge models by logit distillation on it
+of program names to EU counts (``{"cnn": 12, "mlp": 6}``, or ``{"lm": 8,
+"moe": 4}`` on the token population) gives each EU its program, one small
+PUBLIC shard per edge is drawn after the test set (so the private shards
+stay byte-equal to the homogeneous builder's), and the engines fuse the
+per-architecture edge models by logit distillation on it
 (``engine.distill``).
 
 The data come from the same numpy stream as the reference's, so the shards,
@@ -441,9 +442,10 @@ def build_scenario(
 
     ``dataset`` picks the shards ("heartbeat" | "seizure" | "lm") and
     ``model`` the client program: "cnn" (the paper's) or "mlp" (a
-    flattened-feature classifier on the same shards), or "lm", the dense
-    transformer LM on the topic-skewed token shards (``dataset="lm"``
-    implied; ``dataset="lm"`` defaults the model to "lm").  ``fedsgd=True``
+    flattened-feature classifier on the same shards), or "lm" or "moe",
+    the dense or mixture-of-experts transformer LM on the topic-skewed
+    token shards (``dataset="lm"`` implied; ``dataset="lm"`` defaults the
+    model to "lm").  ``fedsgd=True``
     wraps the program in ``FedSGDProgram`` (one plain-SGD step per round, a
     gradient uplink of ``grad_bits`` = 32 or 16 bits per parameter).
     ``hparams`` (optional) is one mapping per EU of ``FLClient`` overrides
@@ -463,7 +465,9 @@ def build_scenario(
     per edge (``public_per_edge // classes`` samples of each class) and a
     default ``engine.distill.DistillSpec``; ``model_bits`` is the largest
     architecture's.  A one-program mix is the homogeneous population
-    (``{"lm": 12}`` on the LM population).
+    (``{"lm": 12}`` on the LM population).  A mix of sequence programs
+    (``{"lm": 8, "moe": 4}``) draws one public token pool per edge
+    (``public_per_edge // lm_topics`` sequences of each topic).
 
     ``lazy=True`` builds a streaming population of ``n_eus`` clients over
     ``n_edges`` edges (default 8) instead: a ``federated.stream.
@@ -472,9 +476,9 @@ def build_scenario(
     cohort (``simulate(CohortSpec(...))``).  It takes no ``faults``,
     ``model_mix`` or ``hparams`` (per-client state, O(M)).
 
-    The reference's other sequence programs ("moe", "mamba", "rwkv"), as
+    The reference's other sequence programs ("mamba", "rwkv"), as
     ``model`` or in a ``model_mix``, raise ``NotImplementedError`` naming
-    their ROADMAP.md items.
+    their ROADMAP.md item.
     """
     resolve_device(device)
     if lazy:
@@ -522,6 +526,7 @@ def build_scenario(
         return _build_lm_scenario(
             model=model if seq_model else "lm",
             model_mix=model_mix if seq_mix else None,
+            public_per_edge=public_per_edge,
             fedsgd=fedsgd,
             grad_bits=grad_bits,
             hparams=hparams,
@@ -626,6 +631,7 @@ def _build_lm_scenario(
     *,
     model: str,
     model_mix: Optional[Mapping[str, int]],
+    public_per_edge: int,
     fedsgd: bool,
     grad_bits: int,
     hparams: Optional[Sequence[Optional[Mapping]]],
@@ -649,9 +655,9 @@ def _build_lm_scenario(
     of the paper's per-EU dominant-class imbalance, recorded in
     ``class_counts`` so that EARA balances edge topic mixtures as it
     balances class mixtures.  Shards are (N, seq_len) int32 and byte-equal
-    to the reference's at the same arguments.  Every program in a
-    ``model_mix`` is ported only if it is "lm", so a mix here is the
-    homogeneous population (the caller refuses the others).
+    to the reference's at the same arguments.  A mix of more than one
+    program adds one public token pool per edge from fresh streams (seed +
+    3571), drawn after everything else, and the default ``DistillSpec``.
     """
     rng = np.random.default_rng(seed)
     base = max(1, int(round(40 * scale)))
@@ -684,15 +690,31 @@ def _build_lm_scenario(
     def make_seq(name: str) -> ClientProgram:
         return PROGRAMS.get(name)(vocab_size=vocab, seq_len=seq_len, n_topics=n_topics)
 
+    public = distill = None
     if model_mix is not None:
         per_eu, distinct = _mix_programs(model_mix, n_eus, SEQUENCE_PROGRAMS, make_seq)
         program = per_eu[0]
+        if len(distinct) > 1:
+            # per-edge public token pools from fresh streams (never replaying
+            # training or test state), drawn after everything else
+            pub_streams = [TokenStream(vocab, seed=seed + 3571, topic=t) for t in range(n_topics)]
+            per_topic = max(1, public_per_edge // n_topics)
+            public = [
+                Dataset(
+                    np.concatenate([s.batch(per_topic, seq_len) for s in pub_streams], 0),
+                    np.concatenate([np.full((per_topic,), t, np.int32) for t in range(n_topics)], 0),
+                    n_classes=n_topics,
+                )
+                for _ in range(n_edges)
+            ]
+            distill = DistillSpec()
     else:
         program = make_seq(model)
         if fedsgd:
             program = FedSGDProgram(base=program, grad_bits=grad_bits)
         per_eu, distinct = [program] * n_eus, [program]
+    name = "mix(" + "+".join(model_mix) + ")" if len(distinct) > 1 else program.name
     return _assemble(
-        program.name, program, per_eu, distinct, shards, test, counts, None, hparams, faults,
-        seed, mean_dist, wp, n_edges, None, None, device,
+        name, program, per_eu, distinct, shards, test, counts, None, hparams, faults,
+        seed, mean_dist, wp, n_edges, public, distill, device,
     )

@@ -1,10 +1,16 @@
 """Top-k MoE router gating: the dense (T, E) combine matrix.
 
 Replaces the Pallas kernel ``topk_gating`` of the reference
-(``src/repro/kernels/topk_gating.py``: ``_gate_kernel``).  Nothing on a
-model path calls it, in the reference or here: the reference's MoE router
-uses ``lax.top_k`` (``src/repro/models/moe.py``).  It is ported so that
-every kernel of the reference has its counterpart, and is held to it.
+(``src/repro/kernels/topk_gating.py``: ``_gate_kernel``), which no model
+path of the reference calls: its MoE router uses ``lax.top_k``
+(``src/repro/models/moe.py::router_topk``).  Here the serving functions
+(``models/transformer.py``: ``prefill`` below 4096 tokens a call and
+``decode_step``) take the dense MoE dispatch's combine weights from it,
+one launch per MoE layer (``models/moe.py::moe_mlp_serve``): they take no
+gradient and map nothing, and its combine equals ``router_topk``'s, ties
+and underflowed rows included (``tests/test_torch_moe.py``).  Training
+keeps ``router_topk``, whose aux loss and capacity dispatch need the k
+indices the kernel does not return.
 
 What it computes, per token row: probs = softmax(logits) in fp32; then k
 sweeps, each adding the row maximum of what remains to ``total`` and

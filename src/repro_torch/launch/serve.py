@@ -1,7 +1,8 @@
-"""Serving launcher: batched prefill + decode for a dense --arch.
+"""Serving launcher: batched prefill + decode for a dense, vlm or MoE --arch.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --tokens 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --full-config
 
 The port of ``repro.launch.serve``, with the same flags plus ``--device``
 (default ``cuda``; without CUDA it raises unless ``--device cpu`` is

@@ -1,4 +1,4 @@
-"""Model assembly for attention-only dense stacks.
+"""Model assembly for attention stacks: dense, vlm and MoE.
 
 The port of ``src/repro/models/transformer.py``, in its parameter layout::
 
@@ -16,11 +16,19 @@ max_seq, Hkv, D).  Where the reference scans the stacked blocks with
 each layer's slice.
 
 A vlm config runs as the dense stack it is: as in the reference, no model
-code reads its ``n_patch_tokens``.  The other families (moe, hybrid mamba,
-ssm rwkv, encdec) load their configs but raise ``NotImplementedError`` here
-(ROADMAP.md Queue 1 item 10).  ``forward`` writes into no tensor in place
-and reads no value back to the host, so it runs under ``torch.func.vmap``
-with autograd (the federated LM cohort).
+code reads its ``n_patch_tokens``.  An MoE layer's feed-forward block is a
+routed expert bank (``models.moe``): the full-sequence layers (``forward``,
+``prefill``) take the capacity dispatch from 4096 tokens a call (under
+``torch.func.vmap`` that is one mapped call's B * S, as in the reference),
+else the dense dispatch; ``decode_step`` always takes the dense dispatch,
+as the reference does.  The serving functions (``prefill``,
+``decode_step``) take the dense dispatch's combine weights from the
+``topk_gating`` kernel, ``forward`` from ``router_topk``.  The
+other families (hybrid mamba, ssm rwkv, encdec) load their configs but
+raise ``NotImplementedError`` naming their ROADMAP.md Queue 1 items.
+``forward`` writes into no tensor in place and reads no value back to the
+host, so it runs under ``torch.func.vmap`` with autograd (the federated LM
+and MoE cohorts).
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
+from repro_torch.models import moe as moem
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import apply_norm, embed, embedding_init, norm_init, unembed
 
@@ -58,15 +67,20 @@ def block_spec(cfg: ModelConfig) -> Tuple[List[LayerSpec], int]:
     return specs, n_blocks
 
 
-PORTED_FAMILIES = ("dense", "vlm")
+PORTED_FAMILIES = ("dense", "vlm", "moe")
+# the families not ported yet, and the ROADMAP.md Queue 1 item of each
+QUEUED_FAMILIES = {"hybrid": "10c, Mamba and RWKV", "ssm": "10c, Mamba and RWKV", "encdec": "10d, encdec"}
+
+# from this many tokens in one call an MoE layer takes the capacity dispatch
+GROUPED_DISPATCH_TOKENS = 4096
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not carry yet."""
+    """Raise for a family the port does not carry yet, naming its item."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP.md Queue 1 "
-            "item 10); the port runs attention-only dense stacks (dense and vlm)"
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP.md Queue 1 item "
+            f"{QUEUED_FAMILIES.get(cfg.family, '10')}); the port runs attention stacks (dense, vlm and moe)"
         )
 
 
@@ -87,14 +101,14 @@ def _layer(block, l: int):
 # single layer init/apply
 # ---------------------------------------------------------------------------
 def layer_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec):
-    if spec.kind != "attn" or spec.is_moe or spec.cross:
-        raise NotImplementedError(f"layer {spec} is not ported yet (ROADMAP.md Queue 1 item 10)")
+    if spec.kind != "attn" or spec.cross:
+        raise NotImplementedError(f"layer {spec} is not ported yet (ROADMAP.md Queue 1 items 10c-10d)")
     dt, dev = cfg.param_dtype, gen.device
     return {
         "norm1": norm_init(cfg.d_model, dt, cfg.norm, device=dev),
         "mixer": attn.attn_init(gen, cfg),
         "norm2": norm_init(cfg.d_model, dt, cfg.norm, device=dev),
-        "ffn": mlpm.mlp_init(gen, cfg),
+        "ffn": moem.moe_init(gen, cfg) if spec.is_moe else mlpm.mlp_init(gen, cfg),
     }
 
 
@@ -121,6 +135,10 @@ def _zeros(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _grouped(h: torch.Tensor) -> bool:
+    return h.shape[0] * h.shape[1] >= GROUPED_DISPATCH_TOKENS
+
+
 def layer_apply_full(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, window=None):
     """Full-sequence layer. Returns (x, aux, z); aux and z, the MoE losses,
     are 0 for a dense layer."""
@@ -128,7 +146,23 @@ def layer_apply_full(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, wind
     h = attn.full_attention(p["mixer"], cfg, h, positions, window=window)
     x = x + h
     h = apply_norm(p["norm2"], x, cfg.norm_eps)
-    return x + mlpm.mlp(p["ffn"], cfg, h), _zeros(x), _zeros(x)
+    if not spec.is_moe:
+        return x + mlpm.mlp(p["ffn"], cfg, h), _zeros(x), _zeros(x)
+    h, aux, z = (moem.moe_mlp_grouped if _grouped(h) else moem.moe_mlp)(p["ffn"], cfg, h)
+    return x + h, aux, z
+
+
+def _ffn_serve(p, cfg: ModelConfig, spec: LayerSpec, h, *, capacity: bool):
+    """The feed-forward block of the serving functions: with ``capacity``
+    (the prefill layer), an MoE layer's capacity dispatch from 4096 tokens
+    a call; otherwise its dense dispatch with the ``topk_gating`` kernel's
+    combine weights (decode, at any batch, as the reference).  The router
+    losses are dropped, as the reference drops them there."""
+    if not spec.is_moe:
+        return mlpm.mlp(p["ffn"], cfg, h)
+    if capacity and _grouped(h):
+        return moem.moe_mlp_grouped(p["ffn"], cfg, h)[0]
+    return moem.moe_mlp_serve(p["ffn"], cfg, h)
 
 
 def layer_apply_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, position, *, window=None, slot=None):
@@ -157,7 +191,7 @@ def layer_apply_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, position,
     h = attn.decode_attend(p["mixer"], q, cache["k"], cache["v"], position, window=window, slot=slot)
     x = x + h
     h = apply_norm(p["norm2"], x, cfg.norm_eps)
-    return x + mlpm.mlp(p["ffn"], cfg, h), cache
+    return x + _ffn_serve(p, cfg, spec, h, capacity=False), cache
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +264,7 @@ def layer_apply_prefill(p, cfg: ModelConfig, spec: LayerSpec, x, positions, max_
     }
     x = x + h
     hh = apply_norm(p["norm2"], x, cfg.norm_eps)
-    return x + mlpm.mlp(p["ffn"], cfg, hh), cache
+    return x + _ffn_serve(p, cfg, spec, hh, capacity=True), cache
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None, positions=None, pad_mask=None):

@@ -14,6 +14,12 @@ pad-masked prefill never does.  Stacks with recurrent layers need one
 exact-length prefill per distinct length (``_prefill_bucketed``), which is
 not ported yet.
 
+An MoE stack keeps the reference's one exception to that exactness: from
+4096 tokens in one prefill call its layers take the capacity dispatch, in
+which left-pad tokens take expert slots, so a ragged batch of that size is
+not token-identical to its requests served alone (in the reference too).
+Below it the dense dispatch treats every token apart, and ragged = solo.
+
 :meth:`swap` repoints the parameter tree between ``run`` calls (hot-swap
 under traffic).
 """

@@ -868,3 +868,88 @@ def test_wrappers_never_take_the_plain_version_on_card(cuda, monkeypatch):
     monkeypatch.undo()
     meta = hier_aggregate(u.to("meta"), wt.to("meta"))
     assert meta.device.type == "meta" and launch_counts()["hier_aggregate"] == 1
+
+
+def test_moe_decode_launches_topk_gating_once_per_layer_without_sync_on_card(cuda):
+    """The granite-moe smoke config on the card: a dense-dispatch prefill
+    and each ``decode_step`` launch ``topk_gating`` once per MoE layer, a
+    decode step queues no host sync (sync-debug "error"), and the logits
+    match the CPU's on the same parameters (1e-4)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import decode_step, prefill
+
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    on_card = _to(params, cuda)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 20)))
+    logits, cache = {}, {}
+    with torch.inference_mode():
+        for dev, p in (("cpu", params), ("cuda", on_card)):
+            reset_launch_counts()
+            logits[dev], cache[dev] = prefill(p, cfg, tokens.to(dev), max_seq=32)
+            assert launch_counts()["topk_gating"] == (cfg.n_layers if dev == "cuda" else 0)
+        for step in range(3):
+            tok = logits["cpu"].argmax(-1)
+            pos = torch.full((3,), 20 + step)
+            logits["cpu"], _ = decode_step(params, cfg, tok, cache["cpu"], pos)
+            tok_c, pos_c = tok.to(cuda), pos.to(cuda)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                logits["cuda"], _ = decode_step(on_card, cfg, tok_c, cache["cuda"], pos_c)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert launch_counts()["topk_gating"] == cfg.n_layers
+            np.testing.assert_allclose(_f32(logits["cuda"]), _f32(logits["cpu"]), atol=1e-4, rtol=0)
+
+
+def test_moe_engine_round_keeps_one_segment_and_one_aggregate_launch_on_card(cuda):
+    """The MoE token population's device-pipeline round on the card: one
+    ``hier_segment_aggregate`` and one ``hier_aggregate`` launch a round (no
+    ``topk_gating``: training keeps ``router_topk``), and the run matches
+    the CPU's."""
+    from repro_torch.federated import build_scenario
+
+    sc = build_scenario(model="moe", scale=0.04, seed=0, n_test_per_class=6, lm_eus=5, lm_edges=2, lm_topics=3,
+                        lm_seq_len=16, lm_vocab=64, device="cpu")
+    lam = sc.assign("eara-sca", device="cpu").lam
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    card = sc.simulate(lam, cloud_rounds=2, seed=3, engine="sync", device="cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["hier_segment_aggregate"] == 2 and counts["hier_aggregate"] == 2 and counts["topk_gating"] == 0
+    cpu = sc.simulate(lam, cloud_rounds=2, seed=3, engine="sync", device="cpu")
+    _card_matches_cpu(card, cpu, len(sc.test))
+
+
+@pytest.mark.parametrize("dispatch", ["moe_mlp", "moe_mlp_serve", "moe_mlp_grouped", "moe_mlp_grouped_reshaped"])
+def test_moe_bf16_layer_on_card_matches_cpu(cuda, dispatch):
+    """One bf16 MoE layer at granite-moe-3b-a800m's published widths (d
+    1536, E 40 top-8, d_ff 512) through each dispatch the transformer runs,
+    on the card (bf16 products with fp32 outputs, ``bmm(...,
+    out_dtype=)``) and on the CPU (the same products upcast) with the same
+    parameters and inputs: outputs within 2e-2 (the bf16 tolerance), the
+    fp32 router's aux and z within 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("granite-moe-3b-a800m")
+    assert cfg.param_dtype == torch.bfloat16
+    params = moe.moe_init(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((2, 64, cfg.d_model), generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    call = {
+        "moe_mlp": lambda p, h: moe.moe_mlp(p, cfg, h),
+        "moe_mlp_serve": lambda p, h: (moe.moe_mlp_serve(p, cfg, h),),
+        "moe_mlp_grouped": lambda p, h: moe.moe_mlp_grouped(p, cfg, h),
+        "moe_mlp_grouped_reshaped": lambda p, h: moe.moe_mlp_grouped(p, cfg, h, group_size=16),
+    }[dispatch]
+    with torch.inference_mode():
+        cpu = call(params, x)
+        card = call(_to(params, cuda), x.to(cuda))
+    assert card[0].dtype == torch.bfloat16 and card[0].shape == x.shape
+    np.testing.assert_allclose(_f32(card[0]), _f32(cpu[0]), atol=2e-2, rtol=0)
+    for got, want in zip(card[1:], cpu[1:]):
+        assert float(got) == pytest.approx(float(want), abs=1e-5)

@@ -454,9 +454,16 @@ def test_build_scenario_model_mix_errors(case):
 
 
 def test_sequence_model_mix_is_queued():
-    """A mix naming "moe" waits for the MoE program (Queue 1 item 10b)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        build_scenario("heartbeat", model_mix={"lm": 12, "moe": 6}, device="cpu")
+    """A mix of "lm" and "moe" (once queued as Queue 1 item 10b) builds the
+    mixed token population: one public token pool per edge, the default
+    ``DistillSpec``, the reference's name and pools
+    (``tests/test_torch_moe.py`` runs it against the reference)."""
+    sc = build_scenario("heartbeat", model_mix={"lm": 8, "moe": 4}, scale=0.05, n_test_per_class=4, device="cpu")
+    assert sc.is_hetero and sc.name == "mix(lm+moe)" and sc.distill == DistillSpec()
+    assert len(sc.public) == sc.n_edges == 4
+    assert [c.program.name for c in sc.clients] == ["lm"] * 8 + ["moe"] * 4
+    for pool in sc.public:
+        assert pool.x.shape == (16, 32) and pool.x.dtype == np.int32 and np.bincount(pool.y).tolist() == [4] * 4
 
 
 SIM_ERRORS = {

@@ -225,19 +225,17 @@ def test_faults_must_be_a_fault_spec(pair, lam):
 
 @pytest.mark.parametrize(
     "kw,raises",
-    [({"model_mix": {"lm": 12, "moe": 6}}, True), ({"model_mix": {"lm": 12}}, False)],
+    [({"model_mix": {"lm": 8, "moe": 4}}, True), ({"model_mix": {"lm": 12}}, False)],
     ids=["model_mix", "model_mix-lm"],
 )
 def test_unported_scenarios_raise(kw, raises):
-    """A ``model_mix`` naming "moe" waits for the MoE program (ROADMAP.md
-    Queue 1 item 10b); a mix of "lm" alone builds the homogeneous token
-    population."""
-    if raises:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md .Queue 1 item 10b"):
-            build_scenario("heartbeat", scale=0.02, device="cpu", **kw)
-        return
+    """A ``model_mix`` naming "moe" (ported from ROADMAP.md Queue 1 item
+    10b) builds the mixed token population; a mix of "lm" alone builds the
+    homogeneous one.  ``raises`` marks the case that once raised."""
     sc = build_scenario("heartbeat", scale=0.02, device="cpu", **kw)
-    assert sc.name == "lm" and not sc.is_hetero and len(sc.clients) == 12
+    assert len(sc.clients) == 12 and sc.is_hetero == raises
+    assert sc.name == ("mix(lm+moe)" if raises else "lm")
+    assert (sc.public is not None) == raises
 
 
 # -- one-off host work: cost model and assignment ------------------------------

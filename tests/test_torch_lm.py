@@ -7,9 +7,10 @@ the reference's to 1e-6; ``LMProgram`` federates on the readable
 simulator, both sync pipelines, async and the lazy streaming engine and is
 held by ``check_run`` (accuracy 1e-6, loss 1e-5, parameters 5e-3, traffic
 exact) from the reference's initial parameters; serving under traffic
-scores next-token accuracy.  The other sequence programs stay queued and
-raise naming their ROADMAP.md items; a vlm config serves as the dense stack
-it is.
+scores next-token accuracy.  "mamba" and "rwkv" stay queued and raise
+naming their ROADMAP.md item (the MoE program is
+``tests/test_torch_moe.py``'s); a vlm config serves as the dense stack it
+is.
 """
 import dataclasses
 
@@ -275,10 +276,10 @@ def test_lazy_lm_matches_reference_stream():
 
 
 # -- what stays queued, and the vlm stack --------------------------------------
-@pytest.mark.parametrize("name,item", [("moe", "10b"), ("mamba", "10c"), ("rwkv", "10c")])
+@pytest.mark.parametrize("name,item", [("mamba", "10c"), ("rwkv", "10c")])
 def test_unported_sequence_programs_raise(name, item):
-    """"moe", "mamba" and "rwkv" raise naming their items, as ``model=``, in
-    a ``model_mix`` (beside "lm") and in the lazy population."""
+    """"mamba" and "rwkv" raise naming their item, as ``model=``, in a
+    ``model_mix`` (beside "lm") and in the lazy population."""
     match = f"ROADMAP.md .Queue 1 item {item}"
     with pytest.raises(NotImplementedError, match=match):
         build_scenario(model=name, device="cpu")

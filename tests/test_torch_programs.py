@@ -1,5 +1,6 @@
 """The MLP and FedSGD programs and the ``PROGRAMS`` registry: the port
 against the JAX package on the same inputs, on every engine."""
+import dataclasses
 from pathlib import Path
 
 import jax
@@ -17,7 +18,7 @@ from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.engine.flatten import FlatPack  # noqa: E402
 from repro_torch.federated import PROGRAMS, CNNProgram, FedSGDProgram, MLPProgram, build_scenario  # noqa: E402
 from repro.utils.tree import tree_size_bytes as ref_tree_size_bytes  # noqa: E402
-from torch_parity import ReferencePopulation, check_run, flat, ref_flat, reference_inits  # noqa: E402
+from torch_parity import ReferencePopulation, check_run, flat, ref_flat, reference_inits, reference_program  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 KW = dict(scale=0.02, seed=0, n_test_per_class=20)
@@ -103,10 +104,10 @@ def test_fedsgd_quantize_upload_matches_reference(grad_bits):
 
 
 def test_program_registry_matches_reference():
-    """``PROGRAMS`` carries "cnn", "mlp", "lm" and "fedsgd", whose factories
-    build the same configurations as the reference's; "moe" is not
-    registered yet."""
-    assert list(PROGRAMS.names()) == ["cnn", "fedsgd", "lm", "mlp"]
+    """``PROGRAMS`` carries "cnn", "mlp", "lm", "moe" and "fedsgd", whose
+    factories build the same configurations as the reference's; "mamba"
+    and "rwkv" are not registered yet."""
+    assert list(PROGRAMS.names()) == ["cnn", "fedsgd", "lm", "mlp", "moe"]
     assert set(PROGRAMS.names()) < set(REF_PROGRAMS.names())
     mlp, ref_mlp = PROGRAMS.get("mlp")(hidden=32), REF_PROGRAMS.get("mlp")(hidden=32)
     assert (mlp.feat, mlp.classes, mlp.hidden, mlp.name) == (ref_mlp.feat, ref_mlp.classes, ref_mlp.hidden, ref_mlp.name)
@@ -117,8 +118,11 @@ def test_program_registry_matches_reference():
         FedSGDProgram(grad_bits=8)
     with pytest.raises(TypeError):
         FedSGDProgram(base=FedSGDProgram())
+    moe, ref_moe = PROGRAMS.get("moe")(n_experts=8, z_weight=0.0), REF_PROGRAMS.get("moe")(n_experts=8, z_weight=0.0)
+    assert reference_program(moe) == ref_moe and moe.name == ref_moe.name == "moe"
+    assert dataclasses.asdict(moe.cfg) == dataclasses.asdict(ref_moe.cfg)
     with pytest.raises(KeyError, match="available"):
-        PROGRAMS.get("moe")
+        PROGRAMS.get("mamba")
 
 
 @pytest.fixture(scope="module")

@@ -356,11 +356,22 @@ def test_server_momentum_matches_centralized_sgd_oracle():
 
 @pytest.mark.parametrize("option", ["model"])
 def test_stream_unported_options_raise(scenarios, spec, option):
-    """The lazy scenario's option that is not ported yet raises and names
-    its queued item: the token population of the MoE program ("lm" is
-    ported, ``tests/test_torch_lm.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md .Queue 1 item 10b"):
-        build_scenario("heartbeat", lazy=True, n_eus=M, **{option: "moe"}, device="cpu")
+    """The lazy token population of the MoE program (``model="moe"``, once
+    queued as Queue 1 item 10b) is the reference's: its source shards,
+    test set, assignment and payload size, and one streaming round on it
+    against the reference's (accuracy 1e-6, parameters 1e-4, traffic
+    exact)."""
+    kw = dict(lazy=True, n_eus=M, n_edges=N_EDGES, seed=SEED, n_test_per_class=16, lm_seq_len=16, lm_vocab=64)
+    ref = ref_build("heartbeat", **{option: "moe"}, **kw)
+    sc = build_scenario("heartbeat", **{option: "moe"}, **kw, device="cpu")
+    assert sc.name == ref.name == "lm-stream-moe" and sc.model_bits == ref.model_bits
+    assert sc.edge_of.tobytes() == ref.edge_of.tobytes()
+    for got, want in [(sc.test, ref.test)] + [(sc.source.shard(c), ref.source.shard(c)) for c in (0, M - 1)]:
+        assert got.x.tobytes() == want.x.tobytes() and got.y.tobytes() == want.y.tobytes()
+    cohort = dict(size=8, seed=4)
+    got = sc.simulate(CohortSpec(**cohort), cloud_rounds=1, schedule=SCHEDULE, seed=0, device="cpu")
+    want = ref.simulate(ref_sampling.CohortSpec(**cohort), cloud_rounds=1, schedule=REF_SCHEDULE, seed=0)
+    check_run(want, got, param_tol=1e-4)
 
 
 def test_stream_simulate_records_telemetry(scenarios, spec):

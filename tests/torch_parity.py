@@ -31,11 +31,13 @@ from repro.federated.programs import CNNProgram as RefCNNProgram
 from repro.federated.programs import FedSGDProgram as RefFedSGDProgram
 from repro.federated.programs import LMProgram as RefLMProgram
 from repro.federated.programs import MLPProgram as RefMLPProgram
+from repro.federated.programs import MoEProgram as RefMoEProgram
 from repro.federated.simulation import HeteroHFLSimulation as RefHeteroHFLSimulation
 from repro.federated.simulation import HFLSimulation as RefHFLSimulation
 from repro.federated.simulation import centralized_baseline as ref_centralized_baseline
 from repro.models.cnn1d import CNNConfig as RefCNNConfig
 from repro.models.config import ModelConfig as RefModelConfig
+from repro.models.config import MoEConfig as RefMoEConfig
 from repro.utils.tree import tree_ravel as ref_tree_ravel
 from repro.wireless.channel import Topology as RefTopology
 from repro.wireless.channel import WirelessParams as RefWirelessParams
@@ -43,19 +45,33 @@ from repro.wireless.channel import build_cost_matrices as ref_build_cost_matrice
 from repro_torch.convert import params_from_numpy
 from repro_torch.engine.flatten import FlatPack
 from repro_torch.faults import FaultState
-from repro_torch.federated.programs import CNNProgram, FedSGDProgram, LMProgram, MLPProgram
+from repro_torch.federated.programs import CNNProgram, FedSGDProgram, LMProgram, MLPProgram, MoEProgram
+
+
+def reference_model_config(cfg) -> RefModelConfig:
+    """The reference's ``ModelConfig`` equal to a port one (its ``moe``
+    block included)."""
+    fields = dataclasses.asdict(cfg)
+    if cfg.moe is not None:
+        fields["moe"] = RefMoEConfig(**fields["moe"])
+    return RefModelConfig(**fields)
 
 
 def reference_program(program):
-    """The reference's program of the same config as a port CNN, MLP, LM or
-    FedSGD over any of them."""
+    """The reference's program of the same config as a port CNN, MLP, LM,
+    MoE or FedSGD over any of them."""
     if isinstance(program, FedSGDProgram):
         return RefFedSGDProgram(base=reference_program(program.base), grad_bits=program.grad_bits)
     if isinstance(program, CNNProgram):
         return RefCNNProgram(RefCNNConfig(**dataclasses.asdict(program.cfg)))
     if isinstance(program, LMProgram):
         return RefLMProgram(
-            cfg=RefModelConfig(**dataclasses.asdict(program.cfg)), seq_len=program.seq_len, n_topics=program.n_topics
+            cfg=reference_model_config(program.cfg), seq_len=program.seq_len, n_topics=program.n_topics
+        )
+    if isinstance(program, MoEProgram):
+        return RefMoEProgram(
+            cfg=reference_model_config(program.cfg), seq_len=program.seq_len,
+            n_topics=program.n_topics, aux_weight=program.aux_weight, z_weight=program.z_weight,
         )
     return RefMLPProgram(feat=tuple(program.feat), classes=program.classes, hidden=program.hidden)
 
@@ -135,13 +151,12 @@ def _ref_init(self, generator):
 
 @contextlib.contextmanager
 def reference_inits():
-    """Within the block, ``CNNProgram.init``, ``MLPProgram.init`` and
-    ``LMProgram.init`` (and so ``FedSGDProgram.init`` over any of them)
-    return the reference's parameters."""
+    """Within the block, ``CNNProgram.init``, ``MLPProgram.init``,
+    ``LMProgram.init`` and ``MoEProgram.init`` (and so ``FedSGDProgram.init``
+    over any of them) return the reference's parameters."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(CNNProgram, "init", _ref_init)
-        mp.setattr(MLPProgram, "init", _ref_init)
-        mp.setattr(LMProgram, "init", _ref_init)
+        for cls in (CNNProgram, MLPProgram, LMProgram, MoEProgram):
+            mp.setattr(cls, "init", _ref_init)
         yield
 
 
