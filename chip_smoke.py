@@ -184,7 +184,35 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (parameters 5e-3, next-token accuracy 1e-3, equal accounting), then
    ``model_mix={"lm": 8, "moe": 4}`` for 1 device round (2 + 2 launches)
    held to the host pipeline (accuracy within 2 test samples, parameters
-   5e-3, equal accounting).
+   5e-3, equal accounting);
+10. the recurrent families (Mamba and RWKV), every number printed with the
+   card's name and power limit, and the phase's seconds: (a)
+   ``ServeEngine`` on rwkv6-7b at published widths (32 layers, d_model
+   4096, 64 heads of 64, d_ff 14,336, vocab 65,536, bf16, random weights
+   from seed 0; its 6,997,811,200 parameters and their bytes): one 4 x
+   2048 prefill and one decode step (launch counts zeroed just before and
+   read just after: no flash, no ``topk_gating``), the uniform batch with
+   32 new tokens each (prefill seconds, decode tokens/s, peak memory), a
+   ragged batch of lengths that are multiples of 64 through the
+   exact-length buckets (token-identical to each request alone), one
+   prefill and 4 decode steps under ``torch.profiler``, one RWKV mixer
+   layer and its decode step timed alone; (b) the jamba and rwkv6 smoke
+   configs served card against CPU (prefill logits 1e-4, identical greedy
+   tokens, uniform and ragged), jamba with ``use_flash=True`` (one fp32
+   flash launch per attention layer and prefill bucket, one
+   ``topk_gating`` per MoE layer and bucket or decode step); (c) one Mamba
+   mixer at jamba-1.5-large-398b's widths (d_model 8192, d_state 16, bf16):
+   a 1 x 2048 chunked prefill against stepping its decode step over the
+   same tokens (outputs 2e-2, state 1e-3 relative), both timed; (d)
+   ``build_scenario("lm", model="mamba" | "rwkv")`` at ``scale=1.0`` under
+   EARA-SCA, 3 device-pipeline rounds each (1 segment and 1
+   ``hier_aggregate`` launch a round; seconds a round), mamba's 3 and
+   rwkv's first (its training amplifies rounding: ``CPU_ROUNDS``) against
+   the same on the CPU (parameters 5e-3, next-token accuracy 1e-3, equal
+   accounting), both FedAvg kernels at their shapes, then
+   ``model_mix={"lm": 6, "mamba": 3, "rwkv": 3}`` for 1 device round (3 +
+   3 launches) held to the host pipeline (accuracy within 2 test samples,
+   parameters 5e-3, equal accounting).
 
 With ``--wrappers ROOT`` the script times only the launch floor and the
 segment, aggregate and top-k kernels and their wrappers' whole calls, for
@@ -194,6 +222,7 @@ the heartbeat round (phase 6's, telemetry off) and the full-width serve
 (phase 8's uniform batch: prefill seconds, decode tokens per second) for
 the port under ``ROOT/src``, and prints one JSON line, for the same use.
 
+Each phase group's seconds are printed as it ends (``chip_smoke: phase ...``).
 The last lines are a JSON ``kernels`` record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -1697,6 +1726,8 @@ def _flash_phase(rates) -> dict:
         ("fp32", 2, 1024, 16, 4, 128, None, f32, "simt"),
         ("fp32 qwen3-14b widths (phase 7)", 4, 1536, 40, 8, 128, None, f32, "simt_phase7"),
         ("fp32 granite-moe-3b-a800m widths (phase 9b)", 4, 512, 24, 8, 64, None, f32, "simt_granite"),
+        ("fp32 jamba-1.5-large-398b smoke prefill (phase 10b)", JAMBA_SMOKE_B, JAMBA_SMOKE_S, 8, 2, 16, None, f32,
+         "simt_jamba"),
         ("fp32 window < tile", 2, 300, 8, 2, 64, 7, f32, None),
         ("fp32 ragged tail", 3, 77, 6, 3, 32, 100, f32, None),
         ("fp32 smoke heads", 2, 130, 8, 2, 16, None, f32, None),
@@ -1815,6 +1846,8 @@ def _topk_phase(rate: float, floor: dict) -> dict:
         ("granite-moe decode, phase 9a", logits(4, 40), 8, "main", True),
         ("granite-moe prefill, phase 9b", logits(2048, 40), 8, "timed", True),
         ("granite-moe router", logits(8192, 40), 8, "timed", False),
+        ("jamba smoke decode, phase 10b", logits(JAMBA_SMOKE_B, 4), 2, "timed", False),
+        ("jamba smoke prefill, phase 10b", logits(JAMBA_SMOKE_B * JAMBA_SMOKE_S, 4), 2, "timed", False),
         ("E 128", logits(8192, 128), 8, "timed", False),
         ("E 1000", logits(8192, 1000), 8, "timed", False),
         ("bf16", logits(8192, 40, torch.bfloat16), 8, None, False),
@@ -2382,6 +2415,343 @@ def _moe_phase(rate: float, smi: str) -> dict:
     return out
 
 
+# phase 10: the recurrent families (Mamba and RWKV)
+RWKV_ARCH, JAMBA_ARCH = "rwkv6-7b", "jamba-1.5-large-398b"
+RWKV_PARAMS = 6_997_811_200  # jax.eval_shape of the reference's init_params at rwkv6-7b
+REC_MIX = {"lm": 6, "mamba": 3, "rwkv": 3}
+# the rounds phase 10d holds a population's card run to the CPU's.  RWKV's
+# training at scale=1.0 amplifies rounding: one leaf scaled by 1 + 1e-7
+# moves its parameters by ~7e-3 after 3 rounds on the CPU, as far as the
+# JAX package and the port differ there (tests/torch_drift_table.py), so it
+# is held after its first round
+CPU_ROUNDS = {"mamba": 3, "rwkv": 1}
+# phase 10b's jamba smoke batch: a uniform 3 x 96 and ragged lengths
+JAMBA_SMOKE_B, JAMBA_SMOKE_S = 3, 96
+JAMBA_RAGGED = (96, 64, 64, 32)
+
+
+def _rwkv_serve(smi: str) -> dict:
+    """Phase 10a: rwkv6-7b at published widths (32 layers, d_model 4096, 64
+    heads of 64, d_ff 14,336, vocab 65,536, bf16, random weights from seed
+    0; its parameter count must be 6,997,811,200) through ``ServeEngine``.
+    One 4 x 2048 prefill and one decode step with the launch counts zeroed
+    just before and read just after (no kernel launch: the stack has no
+    attention and no router); the uniform batch with 32 new tokens each
+    (prefill seconds, decode tokens/s, peak memory); a ragged batch of
+    lengths that are multiples of 64 through the exact-length buckets,
+    token-identical to each request alone; one prefill and 4 decode steps
+    under ``torch.profiler``; one RWKV mixer layer alone at the prefill's
+    shape and its decode step at the batch's, timed."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import rwkv
+    from repro_torch.models.transformer import decode_step, prefill
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.telemetry import Telemetry
+    from repro_torch.utils.tree import tree_map
+
+    card = f"[{smi}]"
+    cfg = get_config(RWKV_ARCH)
+    t0 = time.perf_counter()
+    tel = Telemetry()
+    engine = ServeEngine(cfg, max_seq=2080, seed=0, device="cuda", telemetry=tel)
+    torch.cuda.synchronize()
+    leaves = _leaves(engine.params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"rwkv: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} heads {cfg.d_model // cfg.rwkv.head_size} x "
+          f"{cfg.rwkv.head_size} d_ff {cfg.d_ff} vocab {cfg.vocab_size} {cfg.dtype}: {n_params} parameters, "
+          f"{n_bytes} bytes, drawn in {time.perf_counter() - t0:.3f}s {card}", flush=True)
+    _require(n_params == RWKV_PARAMS, f"rwkv6-7b: {n_params} parameters, not {RWKV_PARAMS}")
+    rng = np.random.default_rng(0)
+    engine.run([Request(rng.integers(0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=2)])  # warm-up
+    prompts = rng.integers(0, cfg.vocab_size, (4, 2048)).astype(np.int32)
+    toks = torch.as_tensor(prompts, device="cuda")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        logits, cache = prefill(engine.params, cfg, toks, max_seq=2080)
+        torch.cuda.synchronize()
+        pre_counts = launch_counts()
+        reset_launch_counts()
+        decode_step(engine.params, cfg, logits[:, -1].argmax(-1)[:, None], cache,
+                    torch.full((4,), 2048, device="cuda"))
+        torch.cuda.synchronize()
+        step_counts = launch_counts()
+    del logits, cache
+    print(f"rwkv: one prefill 4 x 2048 launches {json.dumps(pre_counts)}; one decode step launches "
+          f"{json.dumps(step_counts)} {card}", flush=True)
+    _require(not any(pre_counts.values()) and not any(step_counts.values()),
+             f"rwkv: the attention-free stack launched kernels {pre_counts} {step_counts}")
+
+    reqs = [Request(p, max_new_tokens=32) for p in prompts]
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    pre = [s for s in tel.tracer.spans if s.name == "prefill"][-1]
+    dec = [s for s in tel.tracer.spans if s.name == "decode"][-1]
+    out = {"prefill_s": pre.duration, "decode_steps": dec.attrs["steps"],
+           "decode_tok_s": dec.attrs["tokens"] / dec.duration, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "n_params": n_params, "n_bytes": n_bytes, "launches": launch_counts()}
+    print(f"rwkv: uniform 4 x 2048, 32 new tokens: prefill {pre.duration:.4f}s, decode {dec.attrs['steps']} steps "
+          f"{dec.duration:.4f}s = {out['decode_tok_s']:.2f} tok/s; max_memory_allocated {out['peak_bytes']} bytes; "
+          f"launches {json.dumps(out['launches'])} {card}", flush=True)
+    for r in reqs:
+        _require(r.out.shape == (32,) and 0 <= r.out.min() and r.out.max() < cfg.vocab_size, "rwkv: bad tokens")
+
+    # distinct lengths, one row a bucket: a bucket's bf16 GEMMs take their
+    # kernel by row count, so two rows sharing a bucket round otherwise than
+    # each alone (the repeated-length restore is held exactly in fp32, 10b)
+    lens = (1024, 768, 512, 256)
+    ragged = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    t0 = time.perf_counter()
+    batched = [r.out for r in engine.run([Request(p, max_new_tokens=8) for p in ragged])]
+    out["ragged_s"] = time.perf_counter() - t0
+    for i, p in enumerate(ragged):
+        solo = engine.run([Request(p, max_new_tokens=8)])[0].out
+        _require(np.array_equal(batched[i], solo), f"rwkv: ragged row {i} (length {lens[i]}) differs from solo")
+    print(f"rwkv: ragged batch {lens} through the exact-length buckets in {out['ragged_s']:.4f}s, token-identical "
+          f"to each request served alone {card}", flush=True)
+
+    short = [Request(p, max_new_tokens=5) for p in prompts]
+    engine.run(short)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run(short)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run(short)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report_profile(prof, plain_wall, wall, f"rwkv profile: prefill + 4 decode steps {card}")
+
+    layer = tree_map(lambda t: t[0], engine.params["blocks"][0]["mixer"])  # layer 0's views
+    x = torch.randn((4, 2048, cfg.d_model), generator=torch.Generator("cuda").manual_seed(3),
+                    device="cuda").to(cfg.param_dtype)
+    state = rwkv.rwkv_init_state(cfg, 4, device="cuda")
+    with torch.inference_mode():
+        out["mixer_prefill_ms"] = _device_ms(lambda: rwkv.rwkv_mixer(layer, cfg, x, return_state=True),
+                                             iters=3, warmup=1)[0]
+        out["mixer_decode_ms"] = _device_ms(lambda: rwkv.rwkv_decode_step(layer, cfg, x[:, :1], state),
+                                            iters=50, warmup=5)[0]
+    print(f"rwkv: one RWKV mixer layer (plain PyTorch) at 4 x 2048 with its state {out['mixer_prefill_ms']:.4f} ms, "
+          f"its decode step at B 4 {out['mixer_decode_ms']:.4f} ms (device time, back to back) {card}", flush=True)
+    del engine, layer, x, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _recurrent_smoke(smi: str) -> dict:
+    """Phase 10b: the jamba and rwkv6 smoke configs served with the same
+    parameters on the card and on the CPU (prefill logits 1e-4, identical
+    greedy tokens, a uniform batch and a ragged one).  Jamba runs with
+    ``use_flash=True``, its launch counts zeroed just before and read just
+    after each card batch: one fp32 flash launch per attention layer and
+    prefill bucket, one ``topk_gating`` per MoE layer and bucket or decode
+    step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention, launch_counts, reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import block_spec, prefill
+    from repro_torch.serving import Request, ServeEngine
+
+    card = f"[{smi}]"
+    rng = np.random.default_rng(0)
+    new = 16
+    out = {}
+    for arch in (JAMBA_ARCH, RWKV_ARCH):
+        cfg = dataclasses.replace(get_smoke_config(arch), use_flash=arch == JAMBA_ARCH)
+        specs, n_blocks = block_spec(cfg)
+        attn_layers = n_blocks * sum(s.kind == "attn" for s in specs)
+        moe_layers = n_blocks * sum(s.is_moe for s in specs)
+        params = init_params(torch.Generator().manual_seed(0), cfg)
+        uniform = list(rng.integers(0, cfg.vocab_size, (JAMBA_SMOKE_B, JAMBA_SMOKE_S)).astype(np.int32))
+        ragged = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in JAMBA_RAGGED]
+        logits, outs, counts = {}, {}, {}
+        for d in ("cuda", "cpu"):
+            p = _tree_to(params, d)
+            with torch.inference_mode():
+                logits[d] = prefill(p, cfg, torch.as_tensor(np.stack(uniform), device=d), max_seq=128)[0].cpu()
+            eng = ServeEngine(cfg, params=p, max_seq=128, device=d)
+            for label, batch in (("uniform", uniform), ("ragged", ragged)):
+                if d == "cuda":
+                    torch.cuda.synchronize()
+                    reset_launch_counts()
+                outs[d, label] = [r.out for r in eng.run([Request(x, max_new_tokens=new) for x in batch])]
+                if d == "cuda":
+                    torch.cuda.synchronize()
+                    counts[label] = {**launch_counts(), "simt": flash_attention.launches_by_variant["simt"]}
+        diff = float((logits["cuda"] - logits["cpu"]).abs().max())
+        same = all(np.array_equal(a, b) for key in outs if key[0] == "cuda"
+                   for a, b in zip(outs[key], outs["cpu", key[1]]))
+        print(f"recurrent card-vs-cpu serve {cfg.name} use_flash={cfg.use_flash}: prefill logits max |diff| "
+              f"{diff:.3g}, greedy tokens identical {same} (uniform {JAMBA_SMOKE_B} x {JAMBA_SMOKE_S}, ragged "
+              f"{JAMBA_RAGGED}); card launches {json.dumps(counts)} {card}", flush=True)
+        _require(diff <= 1e-4, f"{cfg.name}: card and CPU prefill logits disagree by {diff}")
+        _require(same, f"{cfg.name}: card and CPU greedy tokens disagree")
+        for label, buckets in (("uniform", 1), ("ragged", len(set(JAMBA_RAGGED)))):
+            want_flash, want_topk = attn_layers * buckets, moe_layers * (buckets + new - 1)
+            got = counts[label]
+            _require(got["flash_attention"] == got["simt"] == want_flash and got["topk_gating"] == want_topk,
+                     f"{cfg.name} {label}: launches {got}, expected {want_flash} simt flash and {want_topk} topk_gating")
+        out[arch] = counts
+    return out
+
+
+def _jamba_mixer(smi: str) -> dict:
+    """Phase 10c: one Mamba mixer at jamba-1.5-large-398b's widths (d_model
+    8192, d_inner 16,384, d_state 16, d_conv 4, bf16, random weights from
+    seed 0): a 1 x 2048 chunked prefill's output and handed-off state
+    against stepping ``mamba_decode_step`` over the same tokens from the
+    zero state (outputs and the convolution's tail 2e-2, the scan state
+    ``h`` 1e-3 relative to its largest entry), each timed."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba
+
+    card = f"[{smi}]"
+    cfg = get_config(JAMBA_ARCH)
+    _require(cfg.param_dtype == torch.bfloat16, f"{cfg.name} is not bf16")
+    p = mamba.mamba_init(torch.Generator("cuda").manual_seed(0), cfg)
+    u = (torch.randn((1, 2048, cfg.d_model), generator=torch.Generator("cuda").manual_seed(1), device="cuda")
+         * 0.5).to(cfg.param_dtype)
+
+    def stepped():
+        state, ys = mamba.mamba_init_state(cfg, 1, device="cuda"), []
+        for t in range(u.shape[1]):
+            y, state = mamba.mamba_decode_step(p, cfg, u[:, t : t + 1], state)
+            ys.append(y)
+        return torch.cat(ys, dim=1), state
+
+    with torch.inference_mode():
+        y_chunk, s_chunk = mamba.mamba_mixer(p, cfg, u, return_state=True)
+        y_step, s_step = stepped()
+        torch.cuda.synchronize()
+        out_gap = float((y_chunk.float() - y_step.float()).abs().max())
+        h_gap = float((s_chunk["h"] - s_step["h"]).abs().max() / s_step["h"].abs().max())
+        conv_gap = float((s_chunk["conv"] - s_step["conv"]).abs().max())
+        prefill_ms = _device_ms(lambda: mamba.mamba_mixer(p, cfg, u, return_state=True), iters=5, warmup=1)[0]
+        t0 = time.perf_counter()
+        stepped()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        one = u[:, :1]
+        state = mamba.mamba_init_state(cfg, 1, device="cuda")
+        step_ms = _device_ms(lambda: mamba.mamba_decode_step(p, cfg, one, state), iters=50, warmup=5)[0]
+    out = {"out_gap": out_gap, "h_rel_gap": h_gap, "conv_gap": conv_gap, "prefill_ms": prefill_ms,
+           "decode_step_ms": step_ms, "stepped_2048_s": step_s}
+    print(f"jamba mixer: d_model {cfg.d_model} d_inner {cfg.ssm.expand * cfg.d_model} d_state {cfg.ssm.d_state} "
+          f"bf16, 1 x 2048: chunked vs stepped output max |diff| {out_gap:.3g}, state h max rel diff {h_gap:.3g}, "
+          f"conv tail max |diff| {conv_gap:.3g}; chunked prefill {prefill_ms:.4f} ms (device), one decode step "
+          f"{step_ms:.4f} ms (device), 2048 steps {step_s:.4f}s (host clock) {card}", flush=True)
+    _require(out_gap <= 2e-2, f"jamba mixer: chunked and stepped outputs differ by {out_gap}")
+    _require(h_gap <= 1e-3 and conv_gap <= 2e-2, f"jamba mixer: states differ (h {h_gap}, conv {conv_gap})")
+    del p, u
+    torch.cuda.empty_cache()
+    return out
+
+
+def _recurrent_population(name: str, rate: float, smi: str) -> dict:
+    """Phase 10d, one program: ``build_scenario("lm", model=name)`` at
+    ``scale=1.0`` under EARA-SCA, 3 device-pipeline rounds (launch counts
+    zeroed just before and read just after: 1 segment and 1
+    ``hier_aggregate`` a round; seconds a round), and the first
+    ``CPU_ROUNDS[name]`` of them against the same on the CPU (next-token
+    accuracy 1e-3 every round, parameters 5e-3, equal accounting); both
+    FedAvg kernels at its shapes."""
+    import torch
+
+    from repro_torch.federated import build_scenario
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    card = f"[{smi}]"
+    t0 = time.perf_counter()
+    sc = build_scenario("lm", model=name, scale=1.0)
+    lam = sc.assign("eara-sca").lam
+    print(f"{name}: build_scenario lm model={name} scale=1.0 and eara-sca {time.perf_counter() - t0:.3f}s: "
+          f"{len(sc.clients)} EUs, {sc.n_edges} edges, {sum(c.data_size for c in sc.clients)} sequences, "
+          f"{int(sc.model_bits) // 32} parameters {card}", flush=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    gpu = sc.simulate(lam, cloud_rounds=3, engine="sync", pipeline="device")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    _require(counts["hier_segment_aggregate"] == 3 and counts["hier_aggregate"] == 3
+             and counts["flash_attention"] == 0 and counts["topk_gating"] == 0,
+             f"{name} population: device launches {counts}, expected 1 segment and 1 aggregate a round")
+    rounds = CPU_ROUNDS[name]
+    held = gpu if rounds == 3 else sc.simulate(lam, cloud_rounds=rounds, engine="sync", pipeline="device")
+    t0 = time.perf_counter()
+    cpu = sc.simulate(lam, cloud_rounds=rounds, engine="sync", pipeline="device", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    acc_gap = max(abs(a.test_acc - b.test_acc) for a, b in zip(held.history, cpu.history))
+    param_gap = float((_flat_row(held.final_params).cpu() - _flat_row(cpu.final_params)).abs().max())
+    out = {"seconds_per_round": [h.wall_seconds for h in gpu.history], "launches": counts, "cpu_rounds": rounds,
+           "acc_gap": acc_gap, "param_gap": param_gap, "cpu_s": cpu_s,
+           "kernels": _lm_kernels(sc, lam, rate, smi, label=f"the {name} population's shape")}
+    print(f"{name}: device pipeline seconds a round {[round(h.wall_seconds, 4) for h in gpu.history]}, next-token "
+          f"accuracy {[round(h.test_acc, 6) for h in gpu.history]}, loss "
+          f"{[round(h.mean_local_loss, 6) for h in gpu.history]}, launches {json.dumps(counts)}; the CPU's {rounds} "
+          f"rounds {cpu_s:.2f}s; card vs CPU after {rounds}: accuracy {acc_gap:.3g}, parameters {param_gap:.3g} {card}",
+          flush=True)
+    _require(acc_gap <= 1e-3, f"{name} population: card and CPU accuracy differ by {acc_gap}")
+    _require(param_gap <= 5e-3, f"{name} population: card and CPU parameters differ by {param_gap}")
+    _require(held.accountant.totals() == cpu.accountant.totals(), f"{name} population: card and CPU accounting differ")
+    return out
+
+
+def _recurrent_mix(rate: float, smi: str) -> dict:
+    """Phase 10d, the mix: ``model_mix={"lm": 6, "mamba": 3, "rwkv": 3}``
+    with the distillation fuse for 1 round on the device pipeline (one
+    segment and one ``hier_aggregate`` launch per group) held to the host
+    pipeline (accuracy within 2 test samples, parameters within 5e-3, equal
+    accounting); both FedAvg kernels at each group's shapes."""
+    from repro_torch.federated import build_scenario
+
+    card = f"[{smi}]"
+    mix = build_scenario("lm", model_mix=REC_MIX)
+    lam = mix.assign("eara-sca").lam
+    dev, counts = _run_counted(mix, lam, f"recurrent mix sync-device {card}", cloud_rounds=1, engine="sync",
+                               pipeline="device")
+    groups = len(REC_MIX)
+    _require(counts["hier_segment_aggregate"] == groups and counts["hier_aggregate"] == groups,
+             f"recurrent mix: device launches {counts}, expected {groups} segment and {groups} aggregate a round")
+    _require(set(dev.final_params) == set(REC_MIX), f"recurrent mix: final_params keyed {sorted(dev.final_params)}")
+    host, _ = _run_counted(mix, lam, f"recurrent mix sync-host {card}", cloud_rounds=1, engine="sync", pipeline="host")
+    _agree(f"recurrent mix device vs host {card}", dev, host, acc_tol=2 / len(mix.test))
+    out = {"launches": counts, "seconds": dev.history[0].wall_seconds, "host_seconds": host.history[0].wall_seconds,
+           "kernels": {name: _lm_kernels(mix, lam, rate, smi, label=f"the recurrent mix's {name} group", group=g)
+                       for g, name in enumerate(REC_MIX)}}
+    print(f"recurrent: mix {mix.name} device round {out['seconds']:.4f}s, host round {out['host_seconds']:.4f}s "
+          f"{card}", flush=True)
+    return out
+
+
+def _recurrent_phase(rate: float, smi: str) -> dict:
+    """Phase 10, Mamba and RWKV: 10a-10d, each printed with the card's name
+    and power limit, and the phase's seconds."""
+    t_phase = time.perf_counter()
+    out = {"serve": _rwkv_serve(smi), "smoke": _recurrent_smoke(smi), "mixer": _jamba_mixer(smi)}
+    out["population"] = {name: _recurrent_population(name, rate, smi) for name in ("mamba", "rwkv")}
+    out["mix"] = _recurrent_mix(rate, smi)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"recurrent: phase 10 {out['phase_s']:.1f}s [{smi}]", flush=True)
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -2513,9 +2883,16 @@ def main(argv) -> int:
     from repro_torch.kernels.build import build
 
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(label: str) -> None:
+        now = time.perf_counter()
+        print(f"chip_smoke: {label} {now - t_lap[0]:.1f}s", flush=True)
+        t_lap[0] = now
+
     smi = _smi()
-    name = torch.cuda.get_device_name(0)
-    rates = _rates(name)
+    card_name = torch.cuda.get_device_name(0)
+    rates = _rates(card_name)
     print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     so, log = build()
@@ -2531,20 +2908,31 @@ def main(argv) -> int:
     kern["agg"]["layout"] = layout
     kern["flash"] = _flash_phase(rates)
     kern["topk"] = _topk_phase(rates[0], kern["floor"])
+    lap("phases 1-3")
     _card_vs_cpu()
     _stream_card_vs_cpu()
     _serve_card_vs_cpu()
+    lap("phase 4")
     counts = _main_path(sc, sca_lam)
     _profile_round(sc, sca_lam)
+    lap("phases 5-6")
     host_launches = _engines_phase(sc, sca_lam)
+    lap("phase 6b")
     async_run = _async_phase(sc, sca_lam)
+    lap("phase 6c")
     stream_run = _stream_phase()
+    lap("phase 6d")
     mix_run = _mix_phase(mix_sc, mix_lam)
+    lap("phase 6e")
     _telemetry_phase(sc, sca_lam, mix_sc, mix_lam, smi)
     lm_run = _serve_lm_phase(sc, sca_lam, rates[0], smi)
+    lap("phases 6f-6g")
     exact_variants = _serve_exactness()
     serve_counts, serve_variants = _serve_path()
+    lap("phases 7-8")
     moe_run = _moe_phase(rates[0], smi)
+    rec = _recurrent_phase(rates[0], smi)
+    rec_smoke = rec["smoke"][JAMBA_ARCH]
     flash = kern["flash"]
     record = []
     for k, fn_name, source, replaces, launches, variant in (
@@ -2578,6 +2966,11 @@ def main(argv) -> int:
             entry["moe"] = {**pop["kernels"][fn_name], "launches": pop["launches"][fn_name]}
             entry["moe_mix"] = {"shapes": {g: t[fn_name] for g, t in pop["mix"]["kernels"].items()},
                                 "launches": pop["mix"]["launches"][fn_name]}
+        if fn_name in HEARTBEAT_KERNELS:  # phase 10d: the mamba and rwkv populations' 3 rounds, the mix's round
+            for program, run in rec["population"].items():
+                entry[program] = {**run["kernels"][fn_name], "launches": run["launches"][fn_name]}
+            entry["recurrent_mix"] = {"shapes": {g: t[fn_name] for g, t in rec["mix"]["kernels"].items()},
+                                      "launches": rec["mix"]["launches"][fn_name]}
         if fn_name == "hier_aggregate":  # phases 6b (host pipeline) and 6c (async), beside phase 5's count
             entry["launches_host_pipeline"] = host_launches
             entry["launches_async_2_rounds"] = async_run["launches_2_rounds"]
@@ -2593,10 +2986,16 @@ def main(argv) -> int:
             entry["shape"] = "T 4, E 40, k 8 (phase 9a decode)"
             entry["launches_per_decode_step"] = moe_run["serve"]["launches"] // moe_run["serve"]["decode_steps"]
             entry["launches_phase_9b"] = moe_run["exact"]["topk_gating"]
+            entry["jamba"] = {"shape": f"E 4, k 2, T {JAMBA_SMOKE_B} (decode) and {JAMBA_SMOKE_B * JAMBA_SMOKE_S} "
+                                       "(prefill), timed in other_shapes (phase 10b)",
+                              "launches": {label: c["topk_gating"] for label, c in rec_smoke.items()}}
         if variant == "simt":
             entry["shape"] = "B 4, S 1536, Hq 40, Hkv 8, d 128, fp32 (phase 7)"
             entry["granite"] = {"shape": "B 4, S 512, Hq 24, Hkv 8, d 64, fp32 (phase 9b)",
                                 "launches": moe_run["exact"]["flash_simt"], **flash["simt_granite"]}
+            entry["jamba"] = {"shape": f"B {JAMBA_SMOKE_B}, S {JAMBA_SMOKE_S}, Hq 8, Hkv 2, d 16, fp32 (phase 10b)",
+                              "launches": {label: c["simt"] for label, c in rec_smoke.items()},
+                              **flash["simt_jamba"]}
             entry["fp32_case"] = {
                 "shape": "B 2, S 1024, Hq 16, Hkv 4, d 128, fp32",
                 **{key: flash["simt"][key] for key in
@@ -2606,7 +3005,7 @@ def main(argv) -> int:
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(json.dumps({"kernels": record}), flush=True)
     print(_smi(), flush=True)
-    device = {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}
+    device = {"platform": "gpu", "kind": card_name, "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

@@ -6,7 +6,10 @@ port through :func:`params_from_numpy`.  Trees are nested mappings, tuples
 and lists (a transformer's ``params["blocks"]`` is a tuple).  bfloat16
 arrays come out of JAX as ``ml_dtypes.bfloat16``, which ``torch.tensor``
 does not take; they cross by a bit view (uint16 <-> ``torch.bfloat16``), so
-a round trip is exact.
+a round trip is exact.  Each leaf keeps its own dtype: the whole tree is
+never cast to the model's ``param_dtype``, so the fp32 leaves of a bf16
+tree (the MoE router, Mamba's ``a_log`` and ``d_skip``, RWKV's ``w_base``
+and ``bonus``) stay fp32.
 """
 from __future__ import annotations
 

@@ -20,12 +20,13 @@ dataclasses, so equal configs are equal programs.
            (seq_len,) int32 token shards, next-token loss and accuracy
   "moe"    the same LM with top-k routed expert banks (``models.moe``),
            its router's load-balance and z losses added to the loss
+  "mamba"  a hybrid LM: one attention layer, then Mamba (S6) mixers
+           (``models.mamba``)
+  "rwkv"   an RWKV-6 LM: linear attention with data-dependent decay
+           (``models.rwkv``)
   "fedsgd" wrapper around any of them: one plain-SGD step per round and a
            gradient uplink (``base="cnn"``, ``grad_bits=32``)
   ======== ==========================================================
-
-The reference's other sequence LMs are queued in ROADMAP.md: "mamba" and
-"rwkv" in Queue 1 item 10c (``UNPORTED_SEQUENCE``).
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.cnn1d import HEARTBEAT_CNN, CNNConfig, cnn_apply, cnn_apply_cohort, cnn_init
-from repro_torch.models.config import ModelConfig, MoEConfig
+from repro_torch.models.config import ModelConfig, MoEConfig, RWKVConfig, SSMConfig
 from repro_torch.models.modules import dense, dense_init
 from repro_torch.models.transformer import forward as transformer_forward
 from repro_torch.models.transformer import init_params as transformer_init
@@ -51,19 +52,6 @@ PROGRAMS = Registry("client_program")
 # program names that train on (seq_len,) int32 token shards (build_scenario
 # routes them to the topic-skewed token-stream population)
 SEQUENCE_PROGRAMS = ("lm", "moe", "mamba", "rwkv")
-# the sequence programs not ported yet, and the ROADMAP.md Queue 1 item of each
-UNPORTED_SEQUENCE = {"mamba": "10c, Mamba and RWKV", "rwkv": "10c, Mamba and RWKV"}
-
-
-def refuse_unported_programs(names) -> None:
-    """``NotImplementedError`` naming the queued item of the first
-    sequence program in ``names`` that is not ported yet."""
-    for name in names:
-        if name in UNPORTED_SEQUENCE:
-            raise NotImplementedError(
-                f"the {name!r} program is not ported to repro_torch yet; it is queued in ROADMAP.md "
-                f"(Queue 1 item {UNPORTED_SEQUENCE[name]})"
-            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -387,6 +375,68 @@ def tiny_moe_config(
     )
 
 
+def tiny_mamba_config(
+    vocab_size: int = 128,
+    seq_len: int = 32,
+    d_model: int = 32,
+    n_layers: int = 2,
+    n_heads: int = 2,
+    d_ff: int = 64,
+    d_state: int = 8,
+    d_conv: int = 4,
+    expand: int = 2,
+) -> ModelConfig:
+    """A jamba-style hybrid LM sized for federated IoT clients: the whole
+    stack is one block (``hybrid_block = n_layers``), so one attention
+    layer anchors ``n_layers - 1`` Mamba (S6) mixers.  The recurrent state
+    lives inside the chunked scan of each mixer, so the federated layers
+    see an ordinary (B, S) -> logits forward."""
+    return ModelConfig(
+        name=f"mamba-tiny-v{vocab_size}-d{d_model}",
+        family="hybrid",
+        n_layers=n_layers,
+        d_model=d_model,
+        n_heads=n_heads,
+        n_kv_heads=n_heads,
+        d_ff=d_ff,
+        vocab_size=vocab_size,
+        ssm=SSMConfig(d_state=d_state, d_conv=d_conv, expand=expand),
+        hybrid_block=n_layers,
+        act="gelu",
+        tie_embeddings=True,
+        max_seq=seq_len,
+        dtype="float32",
+    )
+
+
+def tiny_rwkv_config(
+    vocab_size: int = 128,
+    seq_len: int = 32,
+    d_model: int = 32,
+    n_layers: int = 2,
+    d_ff: int = 64,
+    head_size: int = 16,
+) -> ModelConfig:
+    """An RWKV-6 "Finch" LM sized for federated IoT clients (``d_model`` a
+    multiple of ``head_size``).  As with the Mamba config, the chunked
+    recurrence is internal to the mixer."""
+    return ModelConfig(
+        name=f"rwkv-tiny-v{vocab_size}-d{d_model}",
+        family="ssm",
+        n_layers=n_layers,
+        d_model=d_model,
+        n_heads=max(1, d_model // head_size),
+        n_kv_heads=max(1, d_model // head_size),
+        d_ff=d_ff,
+        vocab_size=vocab_size,
+        rwkv=RWKVConfig(head_size=head_size),
+        act="gelu",
+        tie_embeddings=True,
+        max_seq=seq_len,
+        dtype="float32",
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class SequenceProgram(ClientProgram):
     """Token-sequence LM programs over ``models.transformer``.
@@ -480,6 +530,30 @@ class MoEProgram(SequenceProgram):
         return self.aux_weight * aux["moe_aux"] + self.z_weight * aux["moe_z"]
 
 
+@dataclasses.dataclass(frozen=True)
+class MambaProgram(SequenceProgram):
+    """Hybrid attention + Mamba (S6) LM.  The selective scan's state is made
+    and consumed inside each mixer, so rounds exchange only parameters."""
+
+    cfg: ModelConfig = dataclasses.field(default_factory=tiny_mamba_config)
+
+    @property
+    def name(self) -> str:
+        return "mamba"
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKVProgram(SequenceProgram):
+    """RWKV-6 linear-attention LM: a chunked recurrence with a carried
+    per-head state matrix, internal to the forward as Mamba's is."""
+
+    cfg: ModelConfig = dataclasses.field(default_factory=tiny_rwkv_config)
+
+    @property
+    def name(self) -> str:
+        return "rwkv"
+
+
 def group_clients(clients, fallback=None):
     """Partition clients by program (value equality): the distinct programs
     in first-appearance order and an (M,) client -> group index array."""
@@ -558,6 +632,18 @@ def _moe_program(
 ) -> MoEProgram:
     cfg = tiny_moe_config(vocab_size=vocab_size, seq_len=seq_len, **cfg_kw)
     return MoEProgram(cfg=cfg, seq_len=seq_len, n_topics=n_topics, aux_weight=aux_weight, z_weight=z_weight)
+
+
+@PROGRAMS.register("mamba")
+def _mamba_program(vocab_size: int = 128, seq_len: int = 32, n_topics: int = 4, **cfg_kw) -> MambaProgram:
+    cfg = tiny_mamba_config(vocab_size=vocab_size, seq_len=seq_len, **cfg_kw)
+    return MambaProgram(cfg=cfg, seq_len=seq_len, n_topics=n_topics)
+
+
+@PROGRAMS.register("rwkv")
+def _rwkv_program(vocab_size: int = 128, seq_len: int = 32, n_topics: int = 4, **cfg_kw) -> RWKVProgram:
+    cfg = tiny_rwkv_config(vocab_size=vocab_size, seq_len=seq_len, **cfg_kw)
+    return RWKVProgram(cfg=cfg, seq_len=seq_len, n_topics=n_topics)
 
 
 @PROGRAMS.register("fedsgd")

@@ -9,13 +9,12 @@ and the token-stream population of the sequence programs
 (``build_scenario("lm")`` or ``model="lm"``): ``lm_eus`` EUs over
 ``lm_edges`` edges, each shard dominated by one Markov topic, the topics
 standing in for classes so that the KLD-aware assignment has an imbalance
-to balance.  The dense transformer LM and the MoE LM are ported; the
-reference's "mamba" and "rwkv" programs raise ``NotImplementedError``
-naming their ROADMAP.md item.
+to balance.  Every sequence program of the reference trains there: the
+dense transformer LM, the MoE LM, the Mamba hybrid and RWKV.
 
 ``model_mix=`` builds a heterogeneous-MODEL population instead: a mapping
-of program names to EU counts (``{"cnn": 12, "mlp": 6}``, or ``{"lm": 8,
-"moe": 4}`` on the token population) gives each EU its program, one small
+of program names to EU counts (``{"cnn": 12, "mlp": 6}``, or ``{"lm": 6,
+"mamba": 3, "rwkv": 3}`` on the token population) gives each EU its program, one small
 PUBLIC shard per edge is drawn after the test set (so the private shards
 stay byte-equal to the homogeneous builder's), and the engines fuse the
 per-architecture edge models by logit distillation on it
@@ -57,7 +56,6 @@ from repro_torch.federated.programs import (
     CNNProgram,
     FedSGDProgram,
     MLPProgram,
-    refuse_unported_programs,
 )
 from repro_torch.federated.simulation import (
     HeteroHFLSimulation,
@@ -475,10 +473,6 @@ def build_scenario(
     analytic striping, and simulated by ``StreamSyncEngine`` over a sampled
     cohort (``simulate(CohortSpec(...))``).  It takes no ``faults``,
     ``model_mix`` or ``hparams`` (per-client state, O(M)).
-
-    The reference's other sequence programs ("mamba", "rwkv"), as
-    ``model`` or in a ``model_mix``, raise ``NotImplementedError`` naming
-    their ROADMAP.md item.
     """
     resolve_device(device)
     if lazy:
@@ -522,7 +516,6 @@ def build_scenario(
     if dataset == "lm" or seq_model or seq_mix:
         if not (seq_model or seq_mix) and model != "cnn":  # "cnn" is the unset default
             raise ValueError(f"dataset='lm' requires a sequence model {SEQUENCE_PROGRAMS}, got {model!r}")
-        refuse_unported_programs(list(model_mix) if seq_mix else [model])
         return _build_lm_scenario(
             model=model if seq_model else "lm",
             model_mix=model_mix if seq_mix else None,

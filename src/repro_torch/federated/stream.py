@@ -40,7 +40,6 @@ from repro_torch.federated.programs import (
     FedSGDProgram,
     MLPProgram,
     as_program,
-    refuse_unported_programs,
 )
 from repro_torch.federated.sampling import CohortSpec
 from repro_torch.federated.simulation import SimResult
@@ -236,7 +235,6 @@ def build_stream_scenario(
     """
     if model in SEQUENCE_PROGRAMS or dataset == "lm":
         prog_name = model if model in SEQUENCE_PROGRAMS else "lm"
-        refuse_unported_programs([prog_name])
         source = TokenShardSource(
             seed, n_eus, n_topics=lm_topics, vocab_size=lm_vocab, seq_len=lm_seq_len,
             max_per_topic=max_per_class, dom_boost=max(1, dom_boost - 2),

@@ -1,8 +1,17 @@
-"""Serving launcher: batched prefill + decode for a dense, vlm or MoE --arch.
+"""Serving launcher: batched prefill + decode for a dense, vlm, MoE, hybrid
+(Mamba) or ssm (RWKV) --arch.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --tokens 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --full-config
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --full-config --prompt-len 2048 --tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --device cpu
+
+``--full-config`` draws the published widths: rwkv6-7b's 6,997,811,200
+bf16 parameters fit one 80 GB card; jamba-1.5-large-398b's ~398B do not,
+so jamba serves its smoke config.  A jamba prompt over 128 tokens must be a
+multiple of 128 (its Mamba layers hand their state over from whole
+chunks, as the reference's do).  whisper-tiny (encdec) is not ported yet.
 
 The port of ``repro.launch.serve``, with the same flags plus ``--device``
 (default ``cuda``; without CUDA it raises unless ``--device cpu`` is

@@ -16,7 +16,7 @@ Masked logits take the finite value -1e30, never -inf: a fully masked row
 into real rows through 0 * NaN.  Logits are computed in fp32 from the
 inputs' values (the reference's ``preferred_element_type=f32``).
 Cross-attention (encoder-decoder models) is not ported yet (ROADMAP.md
-Queue 1 item 10).
+Queue 1 item 10d).
 """
 from __future__ import annotations
 

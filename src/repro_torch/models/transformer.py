@@ -1,4 +1,4 @@
-"""Model assembly for attention stacks: dense, vlm and MoE.
+"""Model assembly for the dense, vlm, MoE, hybrid (Mamba) and ssm (RWKV) stacks.
 
 The port of ``src/repro/models/transformer.py``, in its parameter layout::
 
@@ -10,10 +10,13 @@ The port of ``src/repro/models/transformer.py``, in its parameter layout::
       "lm_head":    {"emb": (V, d)} (absent if tied),
     }
 
-Caches mirror it: a tuple of ``{"k", "v"}`` dicts, each (n_blocks, B,
-max_seq, Hkv, D).  Where the reference scans the stacked blocks with
-``lax.scan``, the port loops over the layer axis in Python, taking views of
-each layer's slice.
+Caches mirror it: a tuple over block positions of dicts whose leaves have a
+leading n_blocks axis: ``{"k", "v"}`` (n_blocks, B, max_seq, Hkv, D) for
+an attention layer, ``{"h", "conv"}`` for a Mamba layer and ``{"s",
+"x_prev"}`` for an RWKV layer (the recurrent states in fp32, whatever the
+model's dtype, as the reference's).  Where the reference scans the stacked
+blocks with ``lax.scan``, the port loops over the layer axis in Python,
+taking views of each layer's slice.
 
 A vlm config runs as the dense stack it is: as in the reference, no model
 code reads its ``n_patch_tokens``.  An MoE layer's feed-forward block is a
@@ -23,12 +26,14 @@ routed expert bank (``models.moe``): the full-sequence layers (``forward``,
 else the dense dispatch; ``decode_step`` always takes the dense dispatch,
 as the reference does.  The serving functions (``prefill``,
 ``decode_step``) take the dense dispatch's combine weights from the
-``topk_gating`` kernel, ``forward`` from ``router_topk``.  The
-other families (hybrid mamba, ssm rwkv, encdec) load their configs but
-raise ``NotImplementedError`` naming their ROADMAP.md Queue 1 items.
+``topk_gating`` kernel, ``forward`` from ``router_topk``.  A hybrid stack
+(jamba) repeats a block of one attention layer and ``hybrid_block - 1``
+Mamba layers (``models.mamba``), an ssm stack is RWKV layers
+(``models.rwkv``).  The encdec family loads its config but raises
+``NotImplementedError`` naming its ROADMAP.md Queue 1 item.
 ``forward`` writes into no tensor in place and reads no value back to the
-host, so it runs under ``torch.func.vmap`` with autograd (the federated LM
-and MoE cohorts).
+host, so it runs under ``torch.func.vmap`` with autograd (the federated LM,
+MoE, Mamba and RWKV cohorts).
 """
 from __future__ import annotations
 
@@ -39,8 +44,10 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
+from repro_torch.models import rwkv as rwk
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import apply_norm, embed, embedding_init, norm_init, unembed
 
@@ -67,9 +74,9 @@ def block_spec(cfg: ModelConfig) -> Tuple[List[LayerSpec], int]:
     return specs, n_blocks
 
 
-PORTED_FAMILIES = ("dense", "vlm", "moe")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm")
 # the families not ported yet, and the ROADMAP.md Queue 1 item of each
-QUEUED_FAMILIES = {"hybrid": "10c, Mamba and RWKV", "ssm": "10c, Mamba and RWKV", "encdec": "10d, encdec"}
+QUEUED_FAMILIES = {"encdec": "10d, encdec"}
 
 # from this many tokens in one call an MoE layer takes the capacity dispatch
 GROUPED_DISPATCH_TOKENS = 4096
@@ -80,7 +87,7 @@ def require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP.md Queue 1 item "
-            f"{QUEUED_FAMILIES.get(cfg.family, '10')}); the port runs attention stacks (dense, vlm and moe)"
+            f"{QUEUED_FAMILIES.get(cfg.family, '10')}); the port runs the {', '.join(PORTED_FAMILIES)} families"
         )
 
 
@@ -100,13 +107,16 @@ def _layer(block, l: int):
 # ---------------------------------------------------------------------------
 # single layer init/apply
 # ---------------------------------------------------------------------------
+_MIXER_INIT = {"attn": attn.attn_init, "mamba": mam.mamba_init, "rwkv": rwk.rwkv_init}
+
+
 def layer_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec):
-    if spec.kind != "attn" or spec.cross:
-        raise NotImplementedError(f"layer {spec} is not ported yet (ROADMAP.md Queue 1 items 10c-10d)")
+    if spec.cross:
+        raise NotImplementedError(f"layer {spec} is not ported yet (ROADMAP.md Queue 1 item 10d)")
     dt, dev = cfg.param_dtype, gen.device
     return {
         "norm1": norm_init(cfg.d_model, dt, cfg.norm, device=dev),
-        "mixer": attn.attn_init(gen, cfg),
+        "mixer": _MIXER_INIT[spec.kind](gen, cfg),
         "norm2": norm_init(cfg.d_model, dt, cfg.norm, device=dev),
         "ffn": moem.moe_init(gen, cfg) if spec.is_moe else mlpm.mlp_init(gen, cfg),
     }
@@ -143,7 +153,12 @@ def layer_apply_full(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, wind
     """Full-sequence layer. Returns (x, aux, z); aux and z, the MoE losses,
     are 0 for a dense layer."""
     h = apply_norm(p["norm1"], x, cfg.norm_eps)
-    h = attn.full_attention(p["mixer"], cfg, h, positions, window=window)
+    if spec.kind == "attn":
+        h = attn.full_attention(p["mixer"], cfg, h, positions, window=window)
+    elif spec.kind == "mamba":
+        h = mam.mamba_mixer(p["mixer"], cfg, h)
+    else:
+        h = rwk.rwkv_mixer(p["mixer"], cfg, h)
     x = x + h
     h = apply_norm(p["norm2"], x, cfg.norm_eps)
     if not spec.is_moe:
@@ -166,8 +181,9 @@ def _ffn_serve(p, cfg: ModelConfig, spec: LayerSpec, h, *, capacity: bool):
 
 
 def layer_apply_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, position, *, window=None, slot=None):
-    """One-token decode. ``cache`` is this layer's ``{"k", "v"}`` dict of
-    (B, S, Hkv, D) views; returns (x, cache).
+    """One-token decode. ``cache`` is this layer's dict of views: ``{"k",
+    "v"}`` (B, S, Hkv, D) for attention, the recurrent state otherwise;
+    returns (x, cache).
 
     ``position`` (B,) is each row's logical token position (RoPE + validity);
     ``slot`` (B,) its cache-buffer slot — they differ for left-padded ragged
@@ -175,20 +191,27 @@ def layer_apply_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, position,
     row i's token logically sits at ``len_i + step``.  Defaults to
     ``position``.
 
-    The reference returns a new cache (``.at[bidx, slot].set``); here the
-    token's k and v are written into the cache in place, which saves a copy
+    The reference returns a new cache (``.at[bidx, slot].set``, or the
+    mixer's new state); here the token's k and v, or the new recurrent
+    state, are written into the cache's views in place, which saves a copy
     of the whole cache per layer and step.
     """
     if slot is None:
         slot = position
     h = apply_norm(p["norm1"], x, cfg.norm_eps)
-    # one projection for q, k and v (the reference projects twice, through
-    # project_decode_kv and decode_attention, and XLA merges the two)
-    q, k_new, v_new = attn.qkv_project(p["mixer"], cfg, h, positions=position[..., None])
-    bidx = torch.arange(x.shape[0], device=x.device)
-    cache["k"][bidx, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][bidx, slot] = v_new[:, 0].to(cache["v"].dtype)
-    h = attn.decode_attend(p["mixer"], q, cache["k"], cache["v"], position, window=window, slot=slot)
+    if spec.kind == "attn":
+        # one projection for q, k and v (the reference projects twice, through
+        # project_decode_kv and decode_attention, and XLA merges the two)
+        q, k_new, v_new = attn.qkv_project(p["mixer"], cfg, h, positions=position[..., None])
+        bidx = torch.arange(x.shape[0], device=x.device)
+        cache["k"][bidx, slot] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][bidx, slot] = v_new[:, 0].to(cache["v"].dtype)
+        h = attn.decode_attend(p["mixer"], q, cache["k"], cache["v"], position, window=window, slot=slot)
+    else:
+        step = mam.mamba_decode_step if spec.kind == "mamba" else rwk.rwkv_decode_step
+        h, new_state = step(p["mixer"], cfg, h, cache)
+        for key, value in new_state.items():
+            cache[key].copy_(value)
     x = x + h
     h = apply_norm(p["norm2"], x, cfg.norm_eps)
     return x + _ffn_serve(p, cfg, spec, h, capacity=False), cache
@@ -251,17 +274,23 @@ def forward(params, cfg: ModelConfig, tokens):
 # prefill: full-sequence forward that also fills the decode caches
 # ---------------------------------------------------------------------------
 def layer_apply_prefill(p, cfg: ModelConfig, spec: LayerSpec, x, positions, max_seq, *, pad_mask=None):
-    """Full-sequence layer that returns (x, cache) for decode handoff: the
-    layer's k and v, zero-padded to ``max_seq`` slots, in the param dtype."""
+    """Full-sequence layer that returns (x, cache) for decode handoff: an
+    attention layer's k and v, zero-padded to ``max_seq`` slots, in the
+    param dtype; a recurrent layer's final state."""
     h = apply_norm(p["norm1"], x, cfg.norm_eps)
-    h, k, v = attn.full_attention(
-        p["mixer"], cfg, h, positions, window=cfg.sliding_window, return_kv=True, pad_mask=pad_mask
-    )
-    pad = max_seq - x.shape[1]
-    cache = {
-        "k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)).to(cfg.param_dtype),
-        "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)).to(cfg.param_dtype),
-    }
+    if spec.kind == "mamba":
+        h, cache = mam.mamba_mixer(p["mixer"], cfg, h, return_state=True)
+    elif spec.kind == "rwkv":
+        h, cache = rwk.rwkv_mixer(p["mixer"], cfg, h, return_state=True)
+    else:
+        h, k, v = attn.full_attention(
+            p["mixer"], cfg, h, positions, window=cfg.sliding_window, return_kv=True, pad_mask=pad_mask
+        )
+        pad = max_seq - x.shape[1]
+        cache = {
+            "k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)).to(cfg.param_dtype),
+            "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)).to(cfg.param_dtype),
+        }
     x = x + h
     hh = apply_norm(p["norm2"], x, cfg.norm_eps)
     return x + _ffn_serve(p, cfg, spec, hh, capacity=True), cache
@@ -275,7 +304,10 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None, positions=None, p
         left-padded ragged batches pass ``max(slot - n_pads_row, 0)`` so RoPE
         sees each row's true token positions.
     pad_mask: (B, S) bool, True at real tokens — excludes left-pad slots
-        from the attention key set.
+        from the attention key set.  Only attention-only stacks take it:
+        pad tokens would enter a Mamba or RWKV recurrence whatever the
+        mask, so such stacks serve exact-length batches (``ServeEngine``'s
+        buckets) and a mask raises ``ValueError``.
     """
     require_ported(cfg)
     specs, n_blocks = block_spec(cfg)
@@ -294,8 +326,8 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None, positions=None, p
             x, c = layer_apply_prefill(
                 _layer(params["blocks"][pos], l), cfg, spec, x, positions, max_seq, pad_mask=pad_mask
             )
-            cache[pos]["k"][l] = c["k"]
-            cache[pos]["v"][l] = c["v"]
+            for key, value in c.items():
+                cache[pos][key][l] = value
     x = apply_norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     head = params.get("lm_head", params["embed"])
     return unembed(head, x), cache
@@ -305,16 +337,25 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None, positions=None, p
 # decode caches + serve step
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device="cuda"):
-    """Zeroed per-block-position caches (leading n_blocks axis)."""
+    """Zeroed per-block-position caches (leading n_blocks axis): k and v in
+    the param dtype, the recurrent states in fp32.  Every leaf is its own
+    zeroed tensor (the reference broadcasts one state over the blocks; a
+    decode step here writes into the views, so no two rows or layers may
+    share memory)."""
     require_ported(cfg)
     dev = resolve_device(device)
     specs, n_blocks = block_spec(cfg)
     shape = (n_blocks, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
-    return tuple(
-        {"k": torch.zeros(shape, dtype=cfg.param_dtype, device=dev),
-         "v": torch.zeros(shape, dtype=cfg.param_dtype, device=dev)}
-        for _ in specs
-    )
+    caches = []
+    for spec in specs:
+        if spec.kind == "attn":
+            caches.append({"k": torch.zeros(shape, dtype=cfg.param_dtype, device=dev),
+                           "v": torch.zeros(shape, dtype=cfg.param_dtype, device=dev)})
+        else:
+            state = (mam.mamba_init_state if spec.kind == "mamba" else rwk.rwkv_init_state)(
+                cfg, n_blocks * batch, device=dev)
+            caches.append({k: v.reshape((n_blocks, batch) + tuple(v.shape[1:])) for k, v in state.items()})
+    return tuple(caches)
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, position, *, slot=None):

@@ -1,8 +1,9 @@
 """Batched serving engine: static-batch prefill + greedy lock-step decode.
 
 The port of ``src/repro/serving/engine.py``.  Fixed-capacity batch slots,
-greedy sampling, per-slot stop lengths.  Prefill fills the KV caches for a
-batch of prompts; decode steps all active slots in lock-step.
+greedy sampling, per-slot stop lengths.  Prefill fills the KV and
+recurrent-state caches for a batch of prompts; decode steps all active
+slots in lock-step.
 
 Ragged batches (mixed prompt lengths) are exact — batched output is
 token-identical to serving each request alone: an attention-only stack
@@ -10,9 +11,12 @@ runs ONE left-padded prefill with a pad mask and per-slot position
 offsets, then decodes with a shared buffer slot but per-row logical
 positions.  A uniform batch (one prompt length) runs the plain prefill,
 which is where ``cfg.use_flash`` sends attention to the flash kernel; the
-pad-masked prefill never does.  Stacks with recurrent layers need one
-exact-length prefill per distinct length (``_prefill_bucketed``), which is
-not ported yet.
+pad-masked prefill never does.  Stacks with recurrent layers (hybrid
+Mamba, RWKV) cannot mask pads out of a data-dependent recurrence, so their
+prompts are bucketed by exact length (``_prefill_bucketed``): one plain
+prefill per distinct length (where ``cfg.use_flash`` reaches the kernel
+again), the per-bucket caches concatenated on the batch axis and restored
+to request order; decode then writes each row's own slot.
 
 An MoE stack keeps the reference's one exception to that exactness: from
 4096 tokens in one prefill call its layers take the capacity dispatch, in
@@ -125,11 +129,25 @@ class ServeEngine:
         return self._prefill(toks, positions=self._tokens(positions), pad_mask=pad_mask)
 
     def _prefill_bucketed(self, requests, lens):
-        """Exact-length prefill per distinct prompt length (recurrent stacks)."""
-        raise NotImplementedError(
-            "exact-length bucketed prefill serves recurrent stacks, which are not ported yet "
-            "(ROADMAP.md Queue 1 item 11b)"
+        """Exact-length prefill per distinct prompt length (recurrent stacks).
+
+        Pads never enter the recurrence; the per-bucket caches are
+        concatenated along the batch axis (every cache leaf is (n_blocks,
+        B, ...)) and restored to request order."""
+        order, logits_parts, cache_parts = [], [], []
+        for length in sorted(set(lens.tolist())):
+            idx = [i for i, n in enumerate(lens) if n == length]
+            order += idx
+            lg, ch = self._prefill(np.stack([requests[i].prompt for i in idx]))
+            logits_parts.append(lg)
+            cache_parts.append(ch)
+        inv = self._tokens(np.argsort(np.asarray(order)))
+        logits = torch.cat(logits_parts, dim=0)[inv]
+        cache = tuple(
+            {key: torch.cat([part[pos][key] for part in cache_parts], dim=1)[:, inv] for key in layer}
+            for pos, layer in enumerate(cache_parts[0])
         )
+        return logits, cache
 
     # -- serving --------------------------------------------------------
     def run(self, requests: List[Request]) -> List[Request]:

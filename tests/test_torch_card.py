@@ -953,3 +953,111 @@ def test_moe_bf16_layer_on_card_matches_cpu(cuda, dispatch):
     np.testing.assert_allclose(_f32(card[0]), _f32(cpu[0]), atol=2e-2, rtol=0)
     for got, want in zip(card[1:], cpu[1:]):
         assert float(got) == pytest.approx(float(want), abs=1e-5)
+
+
+RECURRENT = ["jamba-1.5-large-398b", "rwkv6-7b"]
+
+
+def _recurrent_leaves(cache):
+    return [t for c in cache for key, t in c.items() if key not in ("k", "v")]
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_chunked_prefill_equals_stepwise_decode_on_card(cuda, arch):
+    """The hybrid (jamba) and ssm (rwkv6) smoke stacks on the card: a
+    16-token prefill equals a 1-token prefill followed by 15 decode steps
+    over the same tokens (last logits and every recurrent state 1e-4), and
+    the chunked prefill's logits match the CPU's on the same parameters
+    (1e-4)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import decode_step, prefill
+
+    cfg = get_smoke_config(arch)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    on_card = _to(params, cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 16)))
+    with torch.inference_mode():
+        want, want_cache = prefill(on_card, cfg, toks.to(cuda), max_seq=24)
+        cpu, _ = prefill(params, cfg, toks, max_seq=24)
+        logits, cache = prefill(on_card, cfg, toks[:, :1].to(cuda), max_seq=24)
+        for t in range(1, 16):
+            logits, cache = decode_step(on_card, cfg, toks[:, t : t + 1].to(cuda), cache,
+                                        torch.full((3,), t, device=cuda))
+    np.testing.assert_allclose(_f32(want), _f32(cpu), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(_f32(logits), _f32(want), atol=1e-4, rtol=0)
+    for got, ref in zip(_recurrent_leaves(cache), _recurrent_leaves(want_cache), strict=True):
+        np.testing.assert_allclose(_f32(got), _f32(ref), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_decode_advances_state_in_place_on_card(cuda, arch):
+    """``init_cache`` on the card gives every recurrent row and layer its
+    own zeroed fp32 memory; a ``decode_step`` (queueing no host sync,
+    sync-debug "error") writes each layer's new state into the cache it was
+    given, and each row of a batch advances as that row alone would (no
+    aliased rows: 1e-5)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import decode_step, init_cache, prefill
+
+    cfg = get_smoke_config(arch)
+    params = _to(init_params(torch.Generator().manual_seed(1), cfg), cuda)
+    leaves = _recurrent_leaves(init_cache(cfg, 3, 12, device=cuda))
+    assert all(t.dtype == torch.float32 and t.is_contiguous() and not bool(t.any()) for t in leaves)
+    ptrs = {t[l, b].data_ptr() for t in leaves for l in range(t.shape[0]) for b in range(t.shape[1])}
+    assert len(ptrs) == sum(t.shape[0] * t.shape[1] for t in leaves)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 8)), device=cuda)
+    with torch.inference_mode():
+        logits, cache = prefill(params, cfg, toks, max_seq=12)
+        before = [t.clone() for t in _recurrent_leaves(cache)]
+        tok, pos = logits.argmax(-1), torch.full((3,), 8, device=cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, returned = decode_step(params, cfg, tok, cache, pos)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert returned is cache
+        assert all(not torch.equal(a, b) for a, b in zip(_recurrent_leaves(cache), before))
+        for row in range(3):
+            _, c1 = prefill(params, cfg, toks[row : row + 1], max_seq=12)
+            one, c1 = decode_step(params, cfg, tok[row : row + 1], c1, pos[:1])
+            np.testing.assert_allclose(_f32(out[row]), _f32(one[0]), atol=1e-5, rtol=0)
+            for got, ref in zip(_recurrent_leaves(cache), _recurrent_leaves(c1), strict=True):
+                np.testing.assert_allclose(_f32(got[:, row]), _f32(ref[:, 0]), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_bucketed_ragged_batch_equals_solo_on_card(cuda, arch):
+    """A ragged batch (lengths 5, 9, 9, 3) on the card goes through one
+    exact-length prefill per distinct length: token-identical to each
+    request served alone and to the CPU's batch.  With ``use_flash`` the
+    jamba stack launches one fp32 flash kernel per attention layer and
+    bucket, and ``topk_gating`` once per MoE layer and bucket or step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import block_spec
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_smoke_config(arch), use_flash=True)
+    params = init_params(torch.Generator().manual_seed(2), cfg)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 9, 9, 3)]
+    new = 6
+    card = ServeEngine(cfg, params=_to(params, cuda), max_seq=24, device=cuda)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    batched = [r.out for r in card.run([Request(p.copy(), max_new_tokens=new) for p in prompts])]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    specs, n_blocks = block_spec(cfg)
+    attn_layers = n_blocks * sum(s.kind == "attn" for s in specs)
+    moe_layers = n_blocks * sum(s.is_moe for s in specs)
+    assert counts["flash_attention"] == 3 * attn_layers
+    assert counts["topk_gating"] == moe_layers * (3 + new - 1)
+    cpu = ServeEngine(cfg, params=params, max_seq=24, device="cpu")
+    want = [r.out for r in cpu.run([Request(p.copy(), max_new_tokens=new) for p in prompts])]
+    for i, p in enumerate(prompts):
+        np.testing.assert_array_equal(batched[i], want[i])
+        np.testing.assert_array_equal(batched[i], card.run([Request(p.copy(), max_new_tokens=new)])[0].out)

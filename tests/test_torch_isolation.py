@@ -126,3 +126,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     lm = build_scenario("lm", scale=0.05, n_test_per_class=2, device="cpu")
     with pytest.raises(RuntimeError, match="device="):
         lm.simulate(lm.assign("dba", device="cpu").lam, cloud_rounds=1)
+
+    for name in ("mamba", "rwkv"):
+        with pytest.raises(RuntimeError, match="device="):
+            build_scenario("lm", model=name, scale=0.05, n_test_per_class=2)
+        with pytest.raises(RuntimeError, match="device="):
+            build_scenario("lm", lazy=True, n_eus=20, model=name, n_test_per_class=4)
+    with pytest.raises(RuntimeError, match="device="):
+        build_scenario("lm", model_mix={"lm": 6, "mamba": 3, "rwkv": 3}, scale=0.05, n_test_per_class=2)
+    for arch in ("rwkv6-7b", "jamba-1.5-large-398b"):
+        with pytest.raises(RuntimeError, match="device="):
+            ServeEngine(get_smoke_config(arch), max_seq=16)
+        with pytest.raises(RuntimeError, match="device="):
+            serve_launch.main(["--arch", arch, "--batch", "1", "--prompt-len", "2", "--tokens", "1"])
+        ServeEngine(get_smoke_config(arch), max_seq=16, device="cpu")

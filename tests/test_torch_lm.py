@@ -7,10 +7,10 @@ the reference's to 1e-6; ``LMProgram`` federates on the readable
 simulator, both sync pipelines, async and the lazy streaming engine and is
 held by ``check_run`` (accuracy 1e-6, loss 1e-5, parameters 5e-3, traffic
 exact) from the reference's initial parameters; serving under traffic
-scores next-token accuracy.  "mamba" and "rwkv" stay queued and raise
-naming their ROADMAP.md item (the MoE program is
-``tests/test_torch_moe.py``'s); a vlm config serves as the dense stack it
-is.
+scores next-token accuracy.  "mamba" and "rwkv" build their populations
+as the reference's (their programs are ``tests/test_torch_recurrent.py``'s,
+the MoE program ``tests/test_torch_moe.py``'s); a vlm config serves as the
+dense stack it is.
 """
 import dataclasses
 
@@ -275,18 +275,28 @@ def test_lazy_lm_matches_reference_stream():
     check_run(want, got, param_tol=1e-4)
 
 
-# -- what stays queued, and the vlm stack --------------------------------------
+# -- the recurrent programs' populations, and the vlm stack --------------------
 @pytest.mark.parametrize("name,item", [("mamba", "10c"), ("rwkv", "10c")])
 def test_unported_sequence_programs_raise(name, item):
-    """"mamba" and "rwkv" raise naming their item, as ``model=``, in a
-    ``model_mix`` (beside "lm") and in the lazy population."""
-    match = f"ROADMAP.md .Queue 1 item {item}"
-    with pytest.raises(NotImplementedError, match=match):
-        build_scenario(model=name, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        build_scenario("lm", model_mix={"lm": 6, name: 6}, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        build_scenario("lm", lazy=True, n_eus=20, model=name, device="cpu")
+    """"mamba" and "rwkv" (ported by Queue 1 item ``item``) build as the
+    reference's, as ``model=``, in a ``model_mix`` beside "lm" (hetero, one
+    public token pool per edge, byte-equal) and in the lazy population;
+    their training runs are ``tests/test_torch_recurrent.py``'s."""
+    assert item == "10c"
+    kw = dict(scale=0.1, n_test_per_class=8)
+    ref, sc = ref_build(model=name, **kw), build_scenario(model=name, device="cpu", **kw)
+    assert sc.name == ref.name == name and sc.model_bits == ref.model_bits
+    assert sc.class_counts.tobytes() == np.asarray(ref.class_counts).tobytes()
+    mix = {"lm": 6, name: 6}
+    ref, sc = ref_build("lm", model_mix=mix, **kw), build_scenario("lm", model_mix=mix, device="cpu", **kw)
+    assert sc.is_hetero and sc.name == ref.name == f"mix(lm+{name})" and sc.model_bits == ref.model_bits
+    assert [c.program.name for c in sc.clients] == [c.program.name for c in ref.clients]
+    for a, b in zip(sc.public, ref.public, strict=True):
+        _datasets_equal(a, b)
+    lazy = dict(lazy=True, n_eus=20, model=name)
+    ref, sc = ref_build("lm", **lazy), build_scenario("lm", device="cpu", **lazy)
+    assert sc.name == ref.name == f"lm-stream-{name}" and sc.program == PROGRAMS.get(name)()
+    assert sc.edge_of.tobytes() == ref.edge_of.tobytes()
 
 
 def test_vlm_smoke_serves_as_the_reference():

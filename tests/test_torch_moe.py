@@ -487,7 +487,19 @@ def test_ragged_batch_serves_as_the_reference_and_solo(model_pair):
 
 @pytest.mark.parametrize("arch,item", [("jamba-1.5-large-398b", "10c"), ("rwkv6-7b", "10c"), ("whisper-tiny", "10d")])
 def test_queued_families_name_their_item(arch, item):
-    """With the MoE family ported, the hybrid (MoE plus Mamba) and ssm
-    families still raise naming item 10c, encdec 10d."""
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        ServeEngine(get_smoke_config(arch), params={}, device="cpu")
+    """The families after MoE: the hybrid (MoE plus Mamba) and ssm families,
+    ported by item 10c, serve a uniform batch token-identical to the
+    reference's on the same parameters; encdec still raises naming item
+    10d."""
+    if item == "10d":
+        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+            ServeEngine(get_smoke_config(arch), params={}, device="cpu")
+        return
+    rcfg, cfg = ref_smoke(arch), get_smoke_config(arch)
+    jp = ref_init_params(jax.random.PRNGKey(1), rcfg)
+    prompts = list(np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    ref = _serve(RefServeEngine(rcfg, params=jp, max_seq=24), prompts, 4, RefRequest)
+    out = _serve(ServeEngine(cfg, params=params_from_numpy(jax.tree.map(np.asarray, jp)), max_seq=24, device="cpu"),
+                 prompts, 4, Request)
+    for a, b in zip(out, ref, strict=True):
+        np.testing.assert_array_equal(a, b)

@@ -104,11 +104,12 @@ def test_fedsgd_quantize_upload_matches_reference(grad_bits):
 
 
 def test_program_registry_matches_reference():
-    """``PROGRAMS`` carries "cnn", "mlp", "lm", "moe" and "fedsgd", whose
-    factories build the same configurations as the reference's; "mamba"
-    and "rwkv" are not registered yet."""
-    assert list(PROGRAMS.names()) == ["cnn", "fedsgd", "lm", "mlp", "moe"]
-    assert set(PROGRAMS.names()) < set(REF_PROGRAMS.names())
+    """``PROGRAMS`` carries every name of the reference's registry ("cnn",
+    "mlp", "lm", "moe", "mamba", "rwkv" and "fedsgd"), whose factories
+    build the same configurations as the reference's; an unknown name
+    raises as the reference's."""
+    assert list(PROGRAMS.names()) == ["cnn", "fedsgd", "lm", "mamba", "mlp", "moe", "rwkv"]
+    assert set(PROGRAMS.names()) == set(REF_PROGRAMS.names())
     mlp, ref_mlp = PROGRAMS.get("mlp")(hidden=32), REF_PROGRAMS.get("mlp")(hidden=32)
     assert (mlp.feat, mlp.classes, mlp.hidden, mlp.name) == (ref_mlp.feat, ref_mlp.classes, ref_mlp.hidden, ref_mlp.name)
     sgd, ref_sgd = PROGRAMS.get("fedsgd")(base="mlp", grad_bits=16), REF_PROGRAMS.get("fedsgd")(base="mlp", grad_bits=16)
@@ -121,8 +122,14 @@ def test_program_registry_matches_reference():
     moe, ref_moe = PROGRAMS.get("moe")(n_experts=8, z_weight=0.0), REF_PROGRAMS.get("moe")(n_experts=8, z_weight=0.0)
     assert reference_program(moe) == ref_moe and moe.name == ref_moe.name == "moe"
     assert dataclasses.asdict(moe.cfg) == dataclasses.asdict(ref_moe.cfg)
+    for name in ("mamba", "rwkv"):
+        prog, ref_prog = PROGRAMS.get(name)(d_ff=48), REF_PROGRAMS.get(name)(d_ff=48)
+        assert reference_program(prog) == ref_prog and prog.name == ref_prog.name == name
+        assert dataclasses.asdict(prog.cfg) == dataclasses.asdict(ref_prog.cfg)
     with pytest.raises(KeyError, match="available"):
-        PROGRAMS.get("mamba")
+        PROGRAMS.get("s4")
+    with pytest.raises(KeyError, match="available"):
+        REF_PROGRAMS.get("s4")
 
 
 @pytest.fixture(scope="module")

@@ -30,14 +30,18 @@ from repro.federated.client import FLClient as RefFLClient
 from repro.federated.programs import CNNProgram as RefCNNProgram
 from repro.federated.programs import FedSGDProgram as RefFedSGDProgram
 from repro.federated.programs import LMProgram as RefLMProgram
+from repro.federated.programs import MambaProgram as RefMambaProgram
 from repro.federated.programs import MLPProgram as RefMLPProgram
 from repro.federated.programs import MoEProgram as RefMoEProgram
+from repro.federated.programs import RWKVProgram as RefRWKVProgram
 from repro.federated.simulation import HeteroHFLSimulation as RefHeteroHFLSimulation
 from repro.federated.simulation import HFLSimulation as RefHFLSimulation
 from repro.federated.simulation import centralized_baseline as ref_centralized_baseline
 from repro.models.cnn1d import CNNConfig as RefCNNConfig
 from repro.models.config import ModelConfig as RefModelConfig
 from repro.models.config import MoEConfig as RefMoEConfig
+from repro.models.config import RWKVConfig as RefRWKVConfig
+from repro.models.config import SSMConfig as RefSSMConfig
 from repro.utils.tree import tree_ravel as ref_tree_ravel
 from repro.wireless.channel import Topology as RefTopology
 from repro.wireless.channel import WirelessParams as RefWirelessParams
@@ -45,29 +49,37 @@ from repro.wireless.channel import build_cost_matrices as ref_build_cost_matrice
 from repro_torch.convert import params_from_numpy
 from repro_torch.engine.flatten import FlatPack
 from repro_torch.faults import FaultState
-from repro_torch.federated.programs import CNNProgram, FedSGDProgram, LMProgram, MLPProgram, MoEProgram
+from repro_torch.federated.programs import (
+    CNNProgram,
+    FedSGDProgram,
+    LMProgram,
+    MambaProgram,
+    MLPProgram,
+    MoEProgram,
+    RWKVProgram,
+)
 
 
 def reference_model_config(cfg) -> RefModelConfig:
-    """The reference's ``ModelConfig`` equal to a port one (its ``moe``
-    block included)."""
+    """The reference's ``ModelConfig`` equal to a port one (its ``moe``,
+    ``ssm`` and ``rwkv`` blocks included)."""
     fields = dataclasses.asdict(cfg)
-    if cfg.moe is not None:
-        fields["moe"] = RefMoEConfig(**fields["moe"])
+    for key, ref_cls in (("moe", RefMoEConfig), ("ssm", RefSSMConfig), ("rwkv", RefRWKVConfig)):
+        if fields[key] is not None:
+            fields[key] = ref_cls(**fields[key])
     return RefModelConfig(**fields)
 
 
 def reference_program(program):
     """The reference's program of the same config as a port CNN, MLP, LM,
-    MoE or FedSGD over any of them."""
+    MoE, Mamba, RWKV or FedSGD over any of them."""
     if isinstance(program, FedSGDProgram):
         return RefFedSGDProgram(base=reference_program(program.base), grad_bits=program.grad_bits)
     if isinstance(program, CNNProgram):
         return RefCNNProgram(RefCNNConfig(**dataclasses.asdict(program.cfg)))
-    if isinstance(program, LMProgram):
-        return RefLMProgram(
-            cfg=reference_model_config(program.cfg), seq_len=program.seq_len, n_topics=program.n_topics
-        )
+    for cls, ref_cls in ((LMProgram, RefLMProgram), (MambaProgram, RefMambaProgram), (RWKVProgram, RefRWKVProgram)):
+        if isinstance(program, cls):
+            return ref_cls(cfg=reference_model_config(program.cfg), seq_len=program.seq_len, n_topics=program.n_topics)
     if isinstance(program, MoEProgram):
         return RefMoEProgram(
             cfg=reference_model_config(program.cfg), seq_len=program.seq_len,
@@ -151,11 +163,11 @@ def _ref_init(self, generator):
 
 @contextlib.contextmanager
 def reference_inits():
-    """Within the block, ``CNNProgram.init``, ``MLPProgram.init``,
-    ``LMProgram.init`` and ``MoEProgram.init`` (and so ``FedSGDProgram.init``
-    over any of them) return the reference's parameters."""
+    """Within the block, the ``init`` of every port program (the CNN, MLP,
+    LM, MoE, Mamba and RWKV programs, and so ``FedSGDProgram.init`` over
+    any of them) returns the reference's parameters."""
     with pytest.MonkeyPatch.context() as mp:
-        for cls in (CNNProgram, MLPProgram, LMProgram, MoEProgram):
+        for cls in (CNNProgram, MLPProgram, LMProgram, MoEProgram, MambaProgram, RWKVProgram):
             mp.setattr(cls, "init", _ref_init)
         yield
 
