@@ -212,7 +212,37 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    accounting), both FedAvg kernels at their shapes, then
    ``model_mix={"lm": 6, "mamba": 3, "rwkv": 3}`` for 1 device round (3 +
    3 launches) held to the host pipeline (accuracy within 2 test samples,
-   parameters 5e-3, equal accounting).
+   parameters 5e-3, equal accounting);
+11. encdec serving and LM training at full width, every number printed
+   with the card's name and power limit, and the phase's seconds: (a)
+   ``ServeEngine`` on whisper-tiny at published widths (4 + 4 layers,
+   d_model 384, 6 heads of 64, vocab 51,865, 1500 audio frames, bf16,
+   random weights from seed 0, ``use_flash=True``; its 36,448,128
+   parameters and 72,896,256 bytes): a uniform batch of 4 prompts of 384
+   tokens with 64 new each (launch counts zeroed just before and read just
+   after: 4 ``wgmma`` flash launches, one per decoder layer of the prefill,
+   none in the encoder or the decode; prefill seconds, decode tokens/s,
+   peak memory, the serve spans' analytic FLOPs), ``use_flash=False`` on
+   the same parameters (prefill-logit difference, token agreement), a
+   ragged batch through the pad-mask path (no flash launch; each row's
+   agreement with its request alone), one prefill and 4 decode steps
+   under ``torch.profiler``, and the same weights in fp32 (flash on = off,
+   ragged = solo, token for token); (b) whisper-tiny's smoke config card against
+   CPU (prefill logits 1e-4, identical greedy tokens, uniform and ragged);
+   (c) phi3-mini-3.8b at published widths (3,821,079,552 bf16 parameters)
+   trained by ``make_train_step`` with the in-place ``adam`` for 3 steps
+   of 1 x 1024 tokens (each step's seconds, loss and gradient norm, peak
+   memory; no kernel launch), and one more under ``torch.profiler``; (d) ``make_train_step`` card against CPU on
+   the qwen3-14b, granite-moe and whisper smoke configs (fp32, 3 steps,
+   ``grad_accum=2``, ``remat=True``), a checkpoint round trip on the card
+   (fp32 and bf16, bit-exact) and (e) the kernels' no-gradient guard on
+   CUDA tensors; (f) ``launch.serve --arch whisper-tiny --full-config`` and
+   ``launch.train --arch phi3-mini-3.8b --full-config --steps 3 --batch 1
+   --seq 1024``, each in its own process.
+
+The serve phases (8, 9a, 10a, 11a) serve their timed shapes once before
+timing them, so the serve spans' analytic cost (counted on meta copies
+the first time a shape is seen, inside its span) is not in the times.
 
 With ``--wrappers ROOT`` the script times only the launch floor and the
 segment, aggregate and top-k kernels and their wrappers' whole calls, for
@@ -230,6 +260,7 @@ beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -692,6 +723,16 @@ def _profile_round(sc, lam) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _report_profile(prof, plain_wall, wall, "profile: round")
+
+
+def _warm_serve_cost(engine, prompts, **kw) -> None:
+    """Serve ``prompts`` once for 2 tokens, so the telemetry's analytic
+    cost of the serve spans (``jit_cost``, counted on meta copies the
+    first time each shape is seen, inside its span) is cached before the
+    timed run of the same shapes."""
+    from repro_torch.serving import Request
+
+    engine.run([Request(p, max_new_tokens=2) for p in prompts], **kw)
 
 
 def _report_profile(prof, plain_wall: float, wall: float, label: str) -> None:
@@ -1662,6 +1703,7 @@ def _paths_only(root: Path) -> int:
     rng = np.random.default_rng(0)
     engine.run([Request(rng.integers(0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=2)])
     prompts = rng.integers(0, cfg.vocab_size, (4, 2048)).astype(np.int32)
+    _warm_serve_cost(engine, prompts)
     engine.run([Request(p, max_new_tokens=32) for p in prompts])
     torch.cuda.synchronize()
     pre = [sp for sp in tel.tracer.spans if sp.name == "prefill"][-1]
@@ -1703,7 +1745,8 @@ def _flash_phase(rates) -> dict:
     ``simt``); device times of the ``wgmma`` kernel at (a) the qwen3-14b
     serve prefill, (b) starcoder2-3b's heads at 8192 tokens with its
     4096 window and (c) the granite-moe-3b-a800m prefill of phase 9a (Hq
-    24, Hkv 8, d 64), and of the SIMT kernel at the "fp32" case, at phase 7's
+    24, Hkv 8, d 64) and (d) whisper-tiny's decoder prefill of phase 11a (B 4,
+    S 384, Hq 6, Hkv 6, d 64), and of the SIMT kernel at the "fp32" case, at phase 7's
     shape (qwen3-14b widths in fp32) and at phase 9b's (granite-moe widths
     in fp32: B 4, S 512, Hq 24, Hkv 8, d 64), with the name of the CUDA kernel that
     ``scaled_dot_product_attention`` ran for each fp32 case."""
@@ -1722,6 +1765,7 @@ def _flash_phase(rates) -> dict:
         # label, B, S, Hq, Hkv, D, window, dtype, timed
         ("qwen3-14b prefill", 4, 2048, 40, 8, 128, None, bf16, "wgmma"),
         ("granite-moe-3b-a800m prefill (phase 9a)", 4, 2048, 24, 8, 64, None, bf16, "granite"),
+        ("whisper-tiny decoder prefill (phase 11a)", WHISPER_B, WHISPER_S, 6, 6, 64, None, bf16, "whisper"),
         ("starcoder2-3b window", 1, 8192, 24, 2, 128, 4096, bf16, "window"),
         ("fp32", 2, 1024, 16, 4, 128, None, f32, "simt"),
         ("fp32 qwen3-14b widths (phase 7)", 4, 1536, 40, 8, 128, None, f32, "simt_phase7"),
@@ -2010,6 +2054,7 @@ def _serve_path():
         return pre, dec
 
     prompts = rng.integers(0, cfg.vocab_size, (4, 2048)).astype(np.int32)
+    _warm_serve_cost(engine, prompts)
     reqs = [Request(p, max_new_tokens=32) for p in prompts]
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -2116,6 +2161,7 @@ def _moe_serve(smi: str) -> dict:
     rng = np.random.default_rng(0)
     engine.run([Request(rng.integers(0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=2)])  # warm-up
     prompts = rng.integers(0, cfg.vocab_size, (4, 2048)).astype(np.int32)
+    _warm_serve_cost(engine, prompts)
     toks = torch.as_tensor(prompts, device="cuda")
 
     with torch.inference_mode():
@@ -2470,6 +2516,7 @@ def _rwkv_serve(smi: str) -> dict:
     rng = np.random.default_rng(0)
     engine.run([Request(rng.integers(0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=2)])  # warm-up
     prompts = rng.integers(0, cfg.vocab_size, (4, 2048)).astype(np.int32)
+    _warm_serve_cost(engine, prompts)
     toks = torch.as_tensor(prompts, device="cuda")
     with torch.inference_mode():
         torch.cuda.synchronize()
@@ -2752,6 +2799,428 @@ def _recurrent_phase(rate: float, smi: str) -> dict:
     return out
 
 
+# phase 11: encdec serving (whisper-tiny) and LM training at full width
+WHISPER_ARCH = "whisper-tiny"
+WHISPER_PARAMS, WHISPER_BYTES = 36_448_128, 72_896_256
+# the decoder prefill of phase 11a: 4 prompts of 384 tokens (+ 64 new = max_seq 448)
+WHISPER_B, WHISPER_S, WHISPER_NEW = 4, 384, 64
+TRAIN_ARCH = "phi3-mini-3.8b"
+TRAIN_PARAMS = 3_821_079_552
+TRAIN_SEQ, TRAIN_STEPS = 1024, 3
+# card against CPU (phase 11d): smoke configs in fp32, 3 steps, grad_accum 2, remat
+TRAIN_SMOKE_ARCHS = ("qwen3-14b", "granite-moe-3b-a800m", "whisper-tiny")
+# Adam's first steps move a parameter by ~lr * g / |g|, so a 1e-7 gradient
+# difference on a near-zero gradient becomes ~1e-4 (the CPU suite holds the
+# port to the JAX package at 1e-4 after 2 steps for the same reason)
+TRAIN_CARD_TOL = 5e-4
+
+
+def _frames(cfg, b: int, seed: int = 2, device="cuda"):
+    """Frame embeddings (b, n_audio_frames, d_model) in the param dtype,
+    drawn as ``launch/serve.py`` draws them."""
+    import torch
+
+    gen = torch.Generator(device).manual_seed(seed)
+    return torch.randn((b, cfg.n_audio_frames, cfg.d_model), generator=gen, device=device).to(cfg.param_dtype)
+
+
+def _whisper_serve(smi: str) -> dict:
+    """Phase 11a: whisper-tiny at published widths through ``ServeEngine``
+    (bf16, random weights from seed 0, ``use_flash=True``): its parameter
+    count and bytes; a uniform batch of 4 x 384 tokens with 64 new each
+    (launch counts zeroed just before and read just after: one ``wgmma``
+    flash launch per decoder layer of the prefill, none in the encoder or
+    the decode); prefill seconds, decode tokens/s, peak memory, the serve
+    spans' analytic FLOPs; ``use_flash=False`` on the same parameters
+    (prefill-logit difference, token agreement); a ragged batch through the
+    pad-mask path (no flash launch; each row's agreement with its request
+    alone); one prefill and 4 decode steps under ``torch.profiler``; then
+    the same weights in fp32: the uniform batch with ``use_flash`` on (one
+    fp32 flash launch per decoder layer) and off gives the same tokens, and
+    the ragged batch the same tokens as each request alone."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import prefill
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.telemetry import Telemetry
+
+    card = f"[{smi}]"
+    cfg = dataclasses.replace(get_config(WHISPER_ARCH), use_flash=True)
+    max_seq = WHISPER_S + WHISPER_NEW
+    _require(max_seq == cfg.max_seq, f"{cfg.name}: {WHISPER_S} + {WHISPER_NEW} is not its max_seq {cfg.max_seq}")
+    t0 = time.perf_counter()
+    tel = Telemetry()
+    engine = ServeEngine(cfg, max_seq=max_seq, seed=0, device="cuda", telemetry=tel)
+    torch.cuda.synchronize()
+    leaves = _leaves(engine.params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"whisper: {cfg.name} {cfg.n_encoder_layers}+{cfg.n_layers} layers d_model {cfg.d_model} heads "
+          f"{cfg.n_heads} x {cfg.d_head} vocab {cfg.vocab_size} frames {cfg.n_audio_frames} {cfg.dtype}: {n_params} "
+          f"parameters, {n_bytes} bytes, drawn in {time.perf_counter() - t0:.3f}s {card}", flush=True)
+    _require(n_params == WHISPER_PARAMS and n_bytes == WHISPER_BYTES,
+             f"{cfg.name}: {n_params} parameters / {n_bytes} bytes, not {WHISPER_PARAMS} / {WHISPER_BYTES}")
+    rng = np.random.default_rng(0)
+    frames = _frames(cfg, WHISPER_B)
+    prompts = rng.integers(0, cfg.vocab_size, (WHISPER_B, WHISPER_S)).astype(np.int32)
+    _warm_serve_cost(engine, prompts, enc_embeds=frames)
+
+    def spans():
+        return tuple([s for s in tel.tracer.spans if s.name == name][-1] for name in ("prefill", "decode"))
+
+    reqs = [Request(p, max_new_tokens=WHISPER_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    engine.run(reqs, enc_embeds=frames)
+    torch.cuda.synchronize()
+    counts, variants = launch_counts(), dict(flash_attention.launches_by_variant)
+    pre, dec = spans()
+    out = {"n_params": n_params, "n_bytes": n_bytes, "prefill_s": pre.duration,
+           "decode_tok_s": dec.attrs["tokens"] / dec.duration, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "flash_wgmma": variants["wgmma"], "prefill_flops": pre.attrs.get("flops"),
+           "decode_step_flops": dec.attrs.get("flops")}
+    print(f"whisper: uniform {WHISPER_B} x {WHISPER_S}, {WHISPER_NEW} new tokens: prefill {pre.duration:.4f}s, decode "
+          f"{dec.attrs['steps']} steps {dec.duration:.4f}s = {out['decode_tok_s']:.2f} tok/s; max_memory_allocated "
+          f"{out['peak_bytes']} bytes; launches {json.dumps(counts)} flash by variant {json.dumps(variants)} {card}",
+          flush=True)
+    print(f"whisper: analytic cost (jit_cost on meta copies): prefill {pre.attrs.get('flops')} flops "
+          f"{pre.attrs.get('bytes_moved')} bytes, decode step {dec.attrs.get('flops')} flops "
+          f"{dec.attrs.get('bytes_moved')} bytes {card}", flush=True)
+    _require(counts["flash_attention"] == cfg.n_layers and variants["wgmma"] == cfg.n_layers,
+             f"whisper serve: flash launches {counts} {variants}, not one wgmma per decoder layer ({cfg.n_layers})")
+    _require(counts["topk_gating"] == 0, "whisper serve launched topk_gating")
+    _require(bool(out["prefill_flops"]) and bool(out["decode_step_flops"]), "whisper: the serve spans carry no flops")
+    for r in reqs:
+        _require(r.out.shape == (WHISPER_NEW,) and 0 <= r.out.min() and r.out.max() < cfg.vocab_size,
+                 "whisper: bad tokens")
+
+    plain_cfg = dataclasses.replace(cfg, use_flash=False)
+    toks = torch.as_tensor(prompts, device="cuda")
+    with torch.inference_mode():
+        lf = prefill(engine.params, cfg, toks, max_seq=max_seq, enc_embeds=frames)[0]
+        lp = prefill(engine.params, plain_cfg, toks, max_seq=max_seq, enc_embeds=frames)[0]
+    _require(bool(torch.isfinite(lf).all() and torch.isfinite(lp).all()), "whisper: non-finite prefill logits")
+    out["flash_vs_plain_logits"] = float((lf - lp).abs().max())
+    argmax_same = int((lf.argmax(-1) == lp.argmax(-1)).sum())
+    del lf, lp
+    plain = ServeEngine(plain_cfg, params=engine.params, max_seq=max_seq, device="cuda")
+    plain_out = [r.out for r in plain.run([Request(p, max_new_tokens=WHISPER_NEW) for p in prompts],
+                                          enc_embeds=frames)]
+    out["leading_tokens_equal"] = [int(np.sum(np.cumprod(a == b))) for a, b in zip((r.out for r in reqs), plain_out)]
+    print(f"whisper: bf16 use_flash on vs off, same params: prefill logits max |diff| "
+          f"{out['flash_vs_plain_logits']:.4g}, first tokens equal {argmax_same}/{WHISPER_B}, leading tokens equal per "
+          f"row {out['leading_tokens_equal']} of {WHISPER_NEW} {card}", flush=True)
+
+    lens = [WHISPER_S, 300, 217, 100]
+    ragged = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    reset_launch_counts()
+    batched = [r.out for r in engine.run([Request(p, max_new_tokens=WHISPER_NEW) for p in ragged], enc_embeds=frames)]
+    torch.cuda.synchronize()
+    pre, dec = spans()
+    ragged_flash = launch_counts()["flash_attention"]
+    # bf16: a row alone runs other GEMM shapes than in the batch, so its
+    # tokens may part from the batch's at a near-tie; exactness is held in fp32 below
+    solo = [engine.run([Request(p, max_new_tokens=WHISPER_NEW)], enc_embeds=frames[i:i + 1])[0].out
+            for i, p in enumerate(ragged)]
+    out["ragged_solo_leading_equal"] = [int(np.sum(np.cumprod(a == b))) for a, b in zip(batched, solo)]
+    print(f"whisper: ragged {lens}, {WHISPER_NEW} new tokens: prefill {pre.duration:.4f}s, decode "
+          f"{dec.attrs['tokens'] / dec.duration:.2f} tok/s; flash launches {ragged_flash}; bf16 leading tokens equal "
+          f"to each request served alone {out['ragged_solo_leading_equal']} of {WHISPER_NEW} {card}", flush=True)
+    _require(ragged_flash == 0, "the pad-mask prefill launched the flash kernel")
+
+    short = [Request(p, max_new_tokens=5) for p in prompts]
+    engine.run(short, enc_embeds=frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run(short, enc_embeds=frames)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run(short, enc_embeds=frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report_profile(prof, plain_wall, wall, f"whisper profile: prefill + 4 decode steps {card}")
+
+    # the same weights in fp32 (146 MB): the fp32 flash kernel, flash on = off
+    # and ragged = solo token for token (launch counts zeroed just before and
+    # read just after the uniform batch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _tree_to(engine.params, torch.float32)
+    frames32 = frames.float()
+    flash32 = ServeEngine(cfg32, params=params32, max_seq=max_seq, device="cuda")
+    plain32 = ServeEngine(dataclasses.replace(cfg32, use_flash=False), params=params32, max_seq=max_seq,
+                          device="cuda")
+
+    def serve(eng, prompts, emb):
+        return [r.out for r in eng.run([Request(p, max_new_tokens=WHISPER_NEW) for p in prompts], enc_embeds=emb)]
+
+    reset_launch_counts()
+    a = serve(flash32, list(prompts), frames32)
+    variants32 = dict(flash_attention.launches_by_variant)
+    _require(variants32["simt"] == cfg.n_layers, f"whisper fp32 uniform prefill: flash launches {variants32}")
+    _require(all(np.array_equal(x, y) for x, y in zip(a, serve(plain32, list(prompts), frames32))),
+             "whisper fp32: use_flash on and off give different tokens")
+    batched32 = serve(flash32, ragged, frames32)
+    for i, p in enumerate(ragged):
+        _require(np.array_equal(batched32[i], serve(flash32, [p], frames32[i:i + 1])[0]),
+                 f"whisper fp32 ragged row {i} (len {lens[i]}) differs from solo")
+    print(f"whisper exact: fp32, uniform {WHISPER_B} x {WHISPER_S}: use_flash on/off tokens identical, flash by "
+          f"variant {json.dumps(variants32)}; ragged {lens} token-identical to each request served alone {card}",
+          flush=True)
+    del engine, plain, frames, toks, flash32, plain32, params32, frames32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _whisper_card_vs_cpu(smi: str) -> None:
+    """Phase 11b: whisper-tiny's smoke config (fp32) with the same
+    parameters and frame embeddings on the card and on the CPU: prefill
+    logits 1e-4, identical greedy tokens, uniform and ragged."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import prefill
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = get_smoke_config(WHISPER_ARCH)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    frames = _frames(cfg, 3, device="cpu")
+    rng = np.random.default_rng(0)
+    uniform = list(rng.integers(0, cfg.vocab_size, (3, 40)).astype(np.int32))
+    ragged = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (40, 23, 31)]
+    logits, outs = {}, {}
+    for d in ("cuda", "cpu"):
+        p, f = _tree_to(params, d), frames.to(d)
+        with torch.inference_mode():
+            logits[d] = prefill(p, cfg, torch.as_tensor(np.stack(uniform), device=d), max_seq=cfg.max_seq,
+                                enc_embeds=f)[0].cpu()
+        eng = ServeEngine(cfg, params=p, max_seq=cfg.max_seq, device=d)
+        outs[d] = [r.out for batch in (uniform, ragged)
+                   for r in eng.run([Request(x, max_new_tokens=16) for x in batch], enc_embeds=f)]
+    diff = float((logits["cuda"] - logits["cpu"]).abs().max())
+    same = all(np.array_equal(a, b) for a, b in zip(outs["cuda"], outs["cpu"]))
+    print(f"card-vs-cpu serve {cfg.name}: prefill logits max |diff| {diff:.3g}, greedy tokens identical (uniform and "
+          f"ragged) {same} [{smi}]", flush=True)
+    _require(diff <= 1e-4, "whisper smoke: card and CPU prefill logits disagree")
+    _require(same, "whisper smoke: card and CPU greedy tokens disagree")
+
+
+def _train_full(rate: float, smi: str) -> dict:
+    """Phase 11c: phi3-mini-3.8b at published widths (bf16, random weights
+    from seed 0) trained by ``make_train_step`` with ``adam(1e-3)`` (its
+    in-place update; fp32 moments) on ``TokenStream`` batches of 1 x 1024
+    tokens for 3 steps: each step's seconds, loss and gradient norm (the
+    first loss within 0.5 of ln(vocab) + d_model * 0.02^2 / 2, the
+    cross entropy of the random init, every loss finite),
+    peak memory, no kernel launch (launch counts zeroed just before and
+    read just after); then one more step under ``torch.profiler`` (busy
+    share, top kernels)."""
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.device import upload
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.training import adam, init_train_state, make_train_step
+
+    card = f"[{smi}]"
+    cfg = get_config(TRAIN_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    leaves = _leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"train: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} heads {cfg.n_heads} x {cfg.d_head} d_ff "
+          f"{cfg.d_ff} vocab {cfg.vocab_size} {cfg.dtype}: {n_params} parameters, {n_bytes} bytes, drawn in "
+          f"{time.perf_counter() - t0:.3f}s (memory allocated before: {base} bytes) {card}", flush=True)
+    _require(n_params == TRAIN_PARAMS, f"{cfg.name}: {n_params} parameters, not {TRAIN_PARAMS}")
+    opt = adam(1e-3)
+    state = init_train_state(params, opt)
+    del params, leaves
+    step = make_train_step(cfg, opt)
+    stream = TokenStream(cfg.vocab_size, seed=0)
+    out = {"n_params": n_params, "n_bytes": n_bytes, "step_s": [], "loss": [], "grad_norm": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        batch = {k: upload(v.astype(np.int64), torch.device("cuda"))
+                 for k, v in stream.train_batch(1, TRAIN_SEQ).items()}
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["total_loss"])  # waits for the step
+        out["step_s"].append(time.perf_counter() - t0)
+        out["loss"].append(loss)
+        out["grad_norm"].append(float(m["grad_norm"]))
+        print(f"train: step {i + 1}: {out['step_s'][-1]:.4f}s loss {loss:.4f} grad_norm {out['grad_norm'][-1]:.4g} "
+              f"{card}", flush=True)
+    counts = launch_counts()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["launches"] = counts
+    batch = {k: upload(v.astype(np.int64), torch.device("cuda")) for k, v in stream.train_batch(1, TRAIN_SEQ).items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["total_loss"])
+        wall = time.perf_counter() - t0
+    _report_profile(prof, out["step_s"][-1], wall, f"train profile: one more step {card}")
+    # at random init a logit is a sum of d_model products of the unit-RMS
+    # final hidden state with N(0, 0.02^2) head weights (both packages'
+    # embedding_init), so the cross entropy starts near ln(V) + d_model *
+    # 0.02^2 / 2 (10.99 at phi3-mini's widths; the JAX package gives 11.006
+    # for them at one layer), not at ln(V) (10.38)
+    init_loss = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+    print(f"train: 1 x {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps: max_memory_allocated {out['peak_bytes']} bytes "
+          f"({out['peak_bytes'] / 1e9:.2f} GB); launches {json.dumps(counts)}; ln(vocab) "
+          f"{math.log(cfg.vocab_size):.4f}, random-init expectation {init_loss:.4f} {card}", flush=True)
+    _require(all(math.isfinite(x) for x in out["loss"] + out["grad_norm"]), "train: a non-finite loss or norm")
+    _require(abs(out["loss"][0] - init_loss) < 0.5,
+             f"train: first loss {out['loss'][0]} not within 0.5 of {init_loss:.4f}, the random-init expectation")
+    _require(not any(counts.values()), f"train: kernel launches {counts} (the training path launches none)")
+    _require(out["peak_bytes"] < 80e9, "train: peak memory over 80 GB")
+    del state, step, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_card_vs_cpu(smi: str) -> dict:
+    """Phase 11d: ``make_train_step`` with ``adam(1e-3)``, ``grad_accum=2``
+    and ``remat=True`` on the qwen3-14b, granite-moe-3b-a800m and
+    whisper-tiny smoke configs (fp32), 3 steps from the same parameters and
+    batches on the card and on the CPU (parameters ``TRAIN_CARD_TOL``,
+    losses 1e-5); then a checkpoint round trip on the card, fp32 and bf16,
+    bit-exact; then the kernels' no-gradient guard on CUDA tensors."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention, topk_gating
+    from repro_torch.models import init_params
+    from repro_torch.training import adam, init_train_state, load_checkpoint, make_train_step, save_checkpoint
+    from repro_torch.utils.tree import tree_leaves
+
+    card = f"[{smi}]"
+    out = {}
+    for arch in TRAIN_SMOKE_ARCHS:
+        cfg = get_smoke_config(arch)
+        params = init_params(torch.Generator().manual_seed(0), cfg)
+        rng = np.random.default_rng(0)
+        batches = []
+        for _ in range(3):
+            t = rng.integers(0, cfg.vocab_size, (4, 33))
+            b = {"tokens": torch.as_tensor(t[:, :-1]), "labels": torch.as_tensor(t[:, 1:])}
+            if cfg.family == "encdec":
+                b["enc_embeds"] = torch.as_tensor(rng.standard_normal((4, cfg.n_audio_frames, cfg.d_model)),
+                                                  dtype=torch.float32)
+            batches.append(b)
+        final, losses = {}, {}
+        for d in ("cuda", "cpu"):
+            opt = adam(1e-3)
+            state = init_train_state(_tree_to(params, d), opt)
+            step = make_train_step(cfg, opt, grad_accum=2, remat=True)
+            losses[d] = []
+            for b in batches:
+                state, m = step(state, {k: v.to(d) for k, v in b.items()})
+                losses[d].append(float(m["total_loss"]))
+            final[d] = state.params
+        perr = max(float((a.cpu() - b).abs().max()) for a, b in zip(_leaves(final["cuda"]), _leaves(final["cpu"])))
+        lerr = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+        out[arch] = {"param_err": perr, "loss_err": lerr}
+        print(f"card-vs-cpu train {cfg.name}: 3 steps grad_accum 2 remat: parameters max |diff| {perr:.3g}, losses "
+              f"max |diff| {lerr:.3g} {card}", flush=True)
+        _require(perr <= TRAIN_CARD_TOL and lerr <= 1e-5, f"train {cfg.name}: card and CPU disagree")
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in (torch.float32, torch.bfloat16):
+            cfg = dataclasses.replace(get_smoke_config(WHISPER_ARCH), dtype=str(dtype).split(".")[1])
+            tree = init_params(torch.Generator("cuda").manual_seed(3), cfg)
+            path = f"{tmp}/ck_{cfg.dtype}.npz"
+            save_checkpoint(path, tree, step=3)
+            back = load_checkpoint(path, init_params(torch.Generator("cuda").manual_seed(4), cfg))
+            same = all(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+                       for a, b in zip(tree_leaves(tree), tree_leaves(back), strict=True))
+            print(f"checkpoint: {cfg.name} {cfg.dtype} on the card: round trip bit-exact {same} {card}", flush=True)
+            _require(same, f"checkpoint round trip ({cfg.dtype}) is not bit-exact")
+    gen = torch.Generator("cuda").manual_seed(0)
+    q, k, v = (torch.randn((1, 128, 2, 64), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    logits = torch.randn((4, 40), generator=gen, device="cuda")
+    for name, call in (("flash_attention", lambda: flash_attention(q.requires_grad_(True), k, v)),
+                       ("topk_gating", lambda: topk_gating(logits.requires_grad_(True), 8))):
+        try:
+            call()
+        except RuntimeError as e:
+            _require("no gradient" in str(e), f"{name}: unexpected error {e}")
+            print(f"guard: {name} on CUDA inputs that require grad raises: {e} {card}", flush=True)
+        else:
+            raise AssertionError(f"{name} returned an output under autograd on the card")
+    return out
+
+
+def _launchers(smi: str) -> dict:
+    """Phase 11f: the serve launcher on whisper-tiny at published widths and
+    the train launcher on phi3-mini-3.8b at published widths (3 steps of 1 x
+    1024), each in its own process (the kernel library is built already)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+    out = {}
+    for label, args in (
+        ("serve", ["-m", "repro_torch.launch.serve", "--arch", WHISPER_ARCH, "--full-config"]),
+        ("train", ["-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--full-config", "--steps",
+                   str(TRAIN_STEPS), "--batch", "1", "--seq", str(TRAIN_SEQ)]),
+    ):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *args], capture_output=True, text=True, env=env, timeout=300)
+        out[label] = time.perf_counter() - t0
+        for line in proc.stdout.strip().splitlines():
+            print(f"launcher {label}: {line} [{smi}]", flush=True)
+        _require(proc.returncode == 0, f"launcher {label} failed ({proc.returncode}): {proc.stderr[-2000:]}")
+        print(f"launcher {label}: {out[label]:.1f}s", flush=True)
+    return out
+
+
+def _encdec_train_phase(rate: float, smi: str) -> dict:
+    """Phase 11: every number printed with the card's name and power limit,
+    and the phase's seconds."""
+    t_phase = time.perf_counter()
+    out = {"serve": _whisper_serve(smi)}
+    _whisper_card_vs_cpu(smi)
+    out["train"] = _train_full(rate, smi)
+    out["card_vs_cpu"] = _train_card_vs_cpu(smi)
+    out["launchers"] = _launchers(smi)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"encdec+train: phase 11 {out['phase_s']:.1f}s [{smi}]", flush=True)
+    return out
+
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -2932,6 +3401,9 @@ def main(argv) -> int:
     lap("phases 7-8")
     moe_run = _moe_phase(rates[0], smi)
     rec = _recurrent_phase(rates[0], smi)
+    lap("phases 9-10")
+    encdec = _encdec_train_phase(rates[0], smi)
+    lap("phase 11")
     rec_smoke = rec["smoke"][JAMBA_ARCH]
     flash = kern["flash"]
     record = []
@@ -2979,9 +3451,11 @@ def main(argv) -> int:
             mode = max(async_run["flush_rows"], key=lambda n: (async_run["flush_rows"][n], -n))
             entry["async_flush"] = k["by_n"].get(mode, {"N": mode, "ms": "not measured"})
         entry.update({key: k[key] for key in _EXTRA_KEYS if key in k})
-        if variant == "wgmma":  # phase 9a's prefill: its shape timed in phase 3, launches per prefill
+        if variant == "wgmma":  # phases 9a's and 11a's prefills: shapes timed in phase 3, launches per prefill
             entry["granite"] = {"shape": "B 4, S 2048, Hq 24, Hkv 8, d 64, bf16 (phase 9a)",
                                 "launches": moe_run["serve"]["flash_wgmma"], **flash["granite"]}
+            entry["whisper"] = {"shape": f"B {WHISPER_B}, S {WHISPER_S}, Hq 6, Hkv 6, d 64, bf16 (phase 11a)",
+                                "launches": encdec["serve"]["flash_wgmma"], **flash["whisper"]}
         if fn_name == "topk_gating":  # phase 9: the decode shape's launches; phase 9b's prefill and decode
             entry["shape"] = "T 4, E 40, k 8 (phase 9a decode)"
             entry["launches_per_decode_step"] = moe_run["serve"]["launches"] // moe_run["serve"]["decode_steps"]

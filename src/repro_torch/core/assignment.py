@@ -8,13 +8,15 @@ Pipeline (Sec. 5.2):
      (marginal KLD contribution), give each the least bandwidth meeting the
      latency constraint (20), stop when B_j^m is exhausted.
 
-Baselines: ``dba_assignment`` (nearest edge) and ``random_assignment``.
+Baselines: ``dba_assignment`` (nearest edge) and ``random_assignment``;
+``optimal_ilp`` is the brute-force exact optimum, a test oracle.
 The objectives are scored in float32 on the host, as the reference scores
 them; only the LP runs on the device.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Optional
 
 import numpy as np
@@ -360,3 +362,25 @@ def random_assignment(class_counts: np.ndarray, n_edges: int, seed: int = 0) -> 
     lam = np.zeros((m, n_edges))
     lam[np.arange(m), rng.integers(0, n_edges, m)] = 1.0
     return _finish(lam, None, class_counts)
+
+
+def optimal_ilp(class_counts: np.ndarray, feasible: np.ndarray, objective: str = "kld") -> AssignmentResult:
+    """Brute-force exact optimum over all feasible integer assignments
+    (one edge per EU), scored by the P1 objective (``"kld"``) or eq. 29's
+    (anything else) in float32; the first assignment in
+    ``itertools.product`` order wins unless a later one is lower by more
+    than 1e-12.  Exponential in M: only for test oracles (M <= 12)."""
+    m, n = feasible.shape
+    if m > 12:
+        raise ValueError("optimal_ilp is a brute-force oracle; M too large")
+    choices = [np.nonzero(feasible[i])[0] for i in range(m)]
+    score = total_kld_uniform if objective == "kld" else pairwise_l1_objective
+    cc = _f32(class_counts)
+    best, best_val = None, np.inf
+    for combo in itertools.product(*choices):
+        lam = np.zeros((m, n))
+        lam[np.arange(m), list(combo)] = 1.0
+        val = float(score(_f32(lam), cc))
+        if val < best_val - 1e-12:
+            best_val, best = val, lam
+    return _finish(best, None, class_counts)

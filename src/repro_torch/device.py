@@ -11,13 +11,18 @@ import numpy as np
 import torch
 
 
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda", *, meta: bool = False) -> torch.device:
     """``device`` ("cuda", "cuda:N", "cpu" or a ``torch.device``) -> device.
 
     Raises ``RuntimeError`` when a CUDA device is asked for and none is
-    available, and ``ValueError`` for any other device type.
+    available, and ``ValueError`` for any other device type.  ``meta=True``
+    lets a meta device (shapes without storage) through, for a function
+    that allocates on its caller's device inside a program
+    ``Telemetry.jit_cost`` counts on meta copies (a prefill's state cache).
     """
     dev = torch.device(device)
+    if meta and dev.type == "meta":
+        return dev
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

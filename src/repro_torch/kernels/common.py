@@ -12,6 +12,19 @@ UPDATE_DTYPES = (torch.float32, torch.bfloat16)
 PLAIN_DEVICES = ("cpu", "meta")
 
 
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise ``RuntimeError`` when autograd would differentiate through a
+    kernel that defines no gradient (the reference's kernel has none): a
+    CUDA launch writes into a fresh tensor, so its output would be silently
+    detached on the card while the plain version is differentiable on the
+    CPU.  Raised on every device, so the CPU shows what the card would do."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} defines no gradient (the reference's kernel has none): call it under "
+            "torch.no_grad() or torch.inference_mode(), or on inputs that do not require grad"
+        )
+
+
 def check_updates(updates, name: str) -> None:
     """The (N, D) update matrix: a contiguous 2-D fp32 or bf16 tensor."""
     if not isinstance(updates, torch.Tensor):

@@ -35,6 +35,12 @@ Both skip key tiles outside the causal band or the window, read q, k and
 v through their strides (the last axis must be contiguous) and write a
 contiguous output.  Nothing falls back: an input neither kernel takes
 raises.
+
+No gradient: the reference defines none for its kernel (``jax.grad``
+through it fails), and a CUDA launch writes into a fresh tensor autograd
+cannot see through.  So a call under autograd with an input that
+requires a gradient raises ``RuntimeError`` on every device, rather than
+return an output detached on the card and differentiable on the CPU.
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.common import check_launch, ptr, stream_of
+from repro_torch.kernels.common import PLAIN_DEVICES, check_launch, check_no_grad, ptr, stream_of
 
 NEG_INF = -1e30
 # head dims the fp32 SIMT kernel is instantiated for (csrc/flash_attention.cu):
@@ -159,20 +165,22 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) with Hq % Hkv == 0, float32 or
     bfloat16.  Returns (B, S, Hq, D) in q's dtype.
 
-    CPU tensors take the plain version; CUDA tensors launch a kernel (and
+    CPU and meta tensors take the plain version; CUDA tensors launch a kernel (and
     count one launch in ``flash_attention.launches`` and one in
     ``flash_attention.launches_by_variant[variant]``) or raise: bf16 the
     ``"wgmma"`` kernel, fp32 the ``"simt"`` one.  A shape the dtype's kernel
     does not take raises ``ValueError`` (a head dim outside
     ``WGMMA_HEAD_DIMS`` / ``KERNEL_HEAD_DIMS``, a last axis that is not
-    contiguous, bf16 strides or addresses off TMA's 16-byte grid).
+    contiguous, bf16 strides or addresses off TMA's 16-byte grid).  Under
+    autograd an input that requires a gradient raises ``RuntimeError``.
     """
     name = "flash_attention"
     _check(q, k, v, window, name)
-    if q.device.type == "cpu":
+    check_no_grad(name, q, k, v)
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
-        raise ValueError(f"{name}: tensors must lie on the CPU or a CUDA device, got {q.device}")
+        raise ValueError(f"{name}: tensors must lie on the CPU, a CUDA device or meta, got {q.device}")
     variant = VARIANTS[q.dtype]
     b, s, hq, d = q.shape
     if any(t.stride(3) != 1 for t in (q, k, v)):

@@ -35,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.common import check_launch, ptr, stream_of
+from repro_torch.kernels.common import PLAIN_DEVICES, check_launch, check_no_grad, ptr, stream_of
 
 MAX_EXPERTS = 1024  # 32 lanes x 32 registers (csrc/topk_gating.cu)
 
@@ -85,16 +85,19 @@ def topk_gating(logits, k: int) -> torch.Tensor:
     """logits: (T, E) float32 or bfloat16 -> combine weights (T, E) fp32,
     zero off the chosen experts.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count one launch in ``topk_gating.launches``) or raise, also for
-    E > ``MAX_EXPERTS`` or non-contiguous logits.
+    CPU and meta tensors take the plain version; CUDA tensors launch the
+    kernel (and count one launch in ``topk_gating.launches``) or raise, also
+    for E > ``MAX_EXPERTS`` or non-contiguous logits.  It defines no
+    gradient: under autograd, logits that require one raise
+    ``RuntimeError`` on every device.
     """
     name = "topk_gating"
     k = _check(logits, k, name)
-    if logits.device.type == "cpu":
+    check_no_grad(name, logits)
+    if logits.device.type in PLAIN_DEVICES:
         return topk_gating_ref(logits, k)
     if logits.device.type != "cuda":
-        raise ValueError(f"{name}: logits must lie on the CPU or a CUDA device, got {logits.device}")
+        raise ValueError(f"{name}: logits must lie on the CPU, a CUDA device or meta, got {logits.device}")
     t, e = logits.shape
     if e > MAX_EXPERTS:
         raise ValueError(f"{name}: the CUDA kernel takes at most {MAX_EXPERTS} experts, got {e}")

@@ -1,17 +1,21 @@
-"""Serving launcher: batched prefill + decode for a dense, vlm, MoE, hybrid
-(Mamba) or ssm (RWKV) --arch.
+"""Serving launcher: batched prefill + decode for any --arch.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --tokens 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --full-config
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --full-config --prompt-len 2048 --tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --full-config
 
 ``--full-config`` draws the published widths: rwkv6-7b's 6,997,811,200
 bf16 parameters fit one 80 GB card; jamba-1.5-large-398b's ~398B do not,
 so jamba serves its smoke config.  A jamba prompt over 128 tokens must be a
 multiple of 128 (its Mamba layers hand their state over from whole
-chunks, as the reference's do).  whisper-tiny (encdec) is not ported yet.
+chunks, as the reference's do).  whisper-tiny (encdec) takes frame
+embeddings (batch, n_audio_frames, d_model) in the param dtype, drawn from
+``torch.Generator`` seeded with 2 (the reference draws them from
+``PRNGKey(2)``: the same shapes, not the same values); its prompts are
+``--prompt-len`` decoder tokens.
 
 The port of ``repro.launch.serve``, with the same flags plus ``--device``
 (default ``cuda``; without CUDA it raises unless ``--device cpu`` is
@@ -56,8 +60,13 @@ def main(argv=None) -> None:
     prompts = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)
     ).astype(np.int32)
+    kw = {}
+    if cfg.family == "encdec":
+        gen = torch.Generator(engine.device).manual_seed(2)
+        kw["enc_embeds"] = torch.randn((args.batch, cfg.n_audio_frames, cfg.d_model), generator=gen,
+                                       device=engine.device).to(cfg.param_dtype)
     reqs = [Request(prompt=prompts[i], max_new_tokens=args.tokens) for i in range(args.batch)]
-    engine.run(reqs)
+    engine.run(reqs, **kw)
     decode = [s for s in tel.tracer.spans if s.name == "decode"][-1]
     prefill = [s for s in tel.tracer.spans if s.name == "prefill"][-1]
     # every emitted token counts: the prefill span holds the first output

@@ -1,11 +1,19 @@
-"""Training launcher: the paper's hierarchical-FL healthcare experiment.
+"""Training launcher.
+
+Two modes:
+  * --paper      : the paper's hierarchical-FL healthcare experiment;
+  * --arch <id>  : LM training of one sequence model on the synthetic token
+                   stream (its smoke config, or ``--full-config`` for the
+                   published widths: phi3-mini-3.8b's fits one 80 GB card).
 
   PYTHONPATH=src python -m repro_torch.launch.train --paper --rounds 4
   PYTHONPATH=src python -m repro_torch.launch.train --paper --device cpu --telemetry out/
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b --steps 20 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b --full-config --steps 3 --batch 1 --seq 1024
 
-The port of ``repro.launch.train``'s ``--paper`` mode, with the same flags
-plus ``--device`` (default ``cuda``; without CUDA it raises unless
-``--device cpu`` is given).  ``--telemetry DIR`` records the run's spans,
+The port of ``repro.launch.train``, with the same flags plus ``--device``
+(default ``cuda``; without CUDA it raises unless ``--device cpu`` is
+given).  ``--telemetry DIR`` records the run's spans,
 metrics and round records and writes ``trace.json``, ``trace.jsonl``,
 ``rounds.jsonl``, ``metrics.json`` and ``summary.txt`` there;
 ``--engine`` picks the simulation engine; ``--faults chaos`` runs under
@@ -19,9 +27,15 @@ each cloud round and drives it with Q deterministic queries drawn from the
 scenario's own shards (``--serve-batch`` a batch, a swap every
 ``--swap-every`` rounds), printing serve_acc, qps and staleness per round.
 
-The reference's ``--arch`` mode (LM training of one sequence model outside
-the federation) waits for ROADMAP.md Queue 1 items 10 and 13 and raises
-``NotImplementedError``.
+``--arch`` trains with ``adam(--lr)`` through ``make_train_step`` (its
+in-place update), weights drawn from ``torch.Generator`` seeded by
+``--seed`` (not the reference's ``jax.random`` draws), batches from the
+port's ``TokenStream`` (the reference's, draw for draw); the first step's
+``train_step`` span carries its analytic cost, and the loss is read inside
+each span.  ``--checkpoint PATH`` saves the parameters in the reference's
+format (``repro_torch.training.checkpoint``).  An encdec --arch needs frame
+embeddings the token stream does not give, and raises, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -99,6 +113,46 @@ def run_paper(args) -> None:
             print("telemetry artifacts in", args.telemetry)
 
 
+def run_lm(args) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import TokenStream
+    from repro_torch.device import configure_numerics, resolve_device, upload
+    from repro_torch.models import init_params
+    from repro_torch.telemetry import Telemetry
+    from repro_torch.training import adam, init_train_state, make_train_step, save_checkpoint
+
+    dev = resolve_device(args.device)
+    configure_numerics(dev)
+    cfg = get_config(args.arch) if args.full_config else get_smoke_config(args.arch)
+    params = init_params(torch.Generator(dev).manual_seed(args.seed), cfg)
+    opt = adam(args.lr)
+    state = init_train_state(params, opt)
+    step = make_train_step(cfg, opt, grad_accum=args.grad_accum)
+    stream = TokenStream(cfg.vocab_size, seed=args.seed)
+    tel = Telemetry(out_dir=args.telemetry or None)
+    for i in range(1, args.steps + 1):
+        batch = {k: upload(v.astype(np.int64), dev) for k, v in stream.train_batch(args.batch, args.seq).items()}
+        with tel.span("train_step", step=i) as sp:
+            if i == 1:
+                cost = tel.jit_cost("train_step", step, state, batch)
+                if cost:
+                    sp.set(**cost)
+            state, m = step(state, batch)
+            loss = float(m["total_loss"])  # host sync inside the span
+        if i % max(1, args.steps // 10) == 0:
+            ds = tel.tracer.durations("train_step")
+            print(f"step {i:4d} loss={loss:.4f} ({sum(ds) / len(ds):.2f}s/step)")
+    if args.telemetry:
+        for k, p in tel.flush().items():
+            print(f"  wrote {k}: {p}")
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, state.params, step=args.steps)
+        print("saved", args.checkpoint)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--paper", action="store_true")
@@ -124,18 +178,22 @@ def main(argv=None) -> None:
     ap.add_argument("--serve-batch", type=int, default=32, help="serving batch size for --serve")
     ap.add_argument("--swap-every", type=int, default=1,
                     help="hot-swap the served model every K cloud rounds (serve_staleness_rounds)")
-    ap.add_argument("--arch", default="",
-                    help="LM training of a sequence model (not ported: ROADMAP.md Queue 1 items 10 and 13)")
+    ap.add_argument("--arch", default="", help="LM training of a sequence model (without --paper)")
+    ap.add_argument("--full-config", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--checkpoint", default="")
     ap.add_argument("--telemetry", default="", metavar="DIR", help="record telemetry; write artifacts to DIR")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.arch and not args.paper:
-        raise NotImplementedError(
-            "--arch (LM training of a sequence model) is not ported to repro_torch yet; it is queued in "
-            "ROADMAP.md (Queue 1 item 10, sequence models, and item 13, the training step and launchers)"
-        )
-    run_paper(args)
+    if args.paper or not args.arch:
+        run_paper(args)
+    else:
+        run_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Grouped-query attention with RoPE, qk-norm, QKV bias, sliding window.
 
 The port of ``src/repro/models/attention.py``, in its layout: heads are
-(B, S, H, D) at every public function.  Two execution modes:
+(B, S, H, D) at every public function.  Three execution modes:
 
   * full sequence (prefill): causal (+ optional sliding window) attention,
     through one of three branches of :func:`full_attention` — a pad mask
@@ -9,14 +9,14 @@ The port of ``src/repro/models/attention.py``, in its layout: heads are
     takes the hand-written kernel ``repro_torch.kernels.flash_attention``;
     otherwise :func:`blockwise_attention` above 1024 tokens and :func:`sdpa`
     below, both plain PyTorch;
-  * decode: one new token attending to the KV cache.
+  * decode: one new token attending to the KV cache;
+  * cross: encoder-decoder cross-attention (whisper), plain :func:`sdpa`
+    over the encoder's K and V, unmasked, as the reference computes it.
 
 Masked logits take the finite value -1e30, never -inf: a fully masked row
 (a pad query) then stays finite, and a NaN in a pad slot's v cannot leak
 into real rows through 0 * NaN.  Logits are computed in fp32 from the
 inputs' values (the reference's ``preferred_element_type=f32``).
-Cross-attention (encoder-decoder models) is not ported yet (ROADMAP.md
-Queue 1 item 10d).
 """
 from __future__ import annotations
 
@@ -32,7 +32,9 @@ from repro_torch.models.modules import apply_norm, apply_rope, dense, dense_init
 NEG_INF = -1e30
 
 
-def attn_init(gen: torch.Generator, cfg: ModelConfig):
+def attn_init(gen: torch.Generator, cfg: ModelConfig, *, cross: bool = False):
+    """q, k, v and output projections; qk-norm scales where configured,
+    except for cross-attention (``cross``), as in the reference."""
     dt = cfg.param_dtype
     dh = cfg.d_head
     p = {
@@ -41,7 +43,7 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig):
         "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * dh, dt, bias=cfg.qkv_bias),
         "wo": dense_init(gen, cfg.n_heads * dh, cfg.d_model, dt),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = norm_init(dh, dt, device=gen.device)
         p["k_norm"] = norm_init(dh, dt, device=gen.device)
     return p
@@ -183,6 +185,23 @@ def full_attention(p, cfg: ModelConfig, x, positions, *, window=None, return_kv=
     if return_kv:
         return out, k, v
     return out
+
+
+def cross_attention(p, cfg: ModelConfig, x, enc_kv):
+    """Decoder->encoder attention; enc_kv = (k, v) precomputed from the
+    encoder output (:func:`encoder_kv`).  No RoPE, no mask."""
+    q = _split_heads(dense(p["wq"], x), cfg.n_heads, cfg.d_head)
+    k, v = enc_kv
+    out = sdpa(q, _repeat_kv(k, cfg.q_per_kv), _repeat_kv(v, cfg.q_per_kv), mask=None)
+    return dense(p["wo"], _merge_heads(out))
+
+
+def encoder_kv(p, cfg: ModelConfig, enc_out):
+    """Cross-attention K, V of one encoder output (B, F, d), computed once
+    per sequence: (B, F, Hkv, D) each."""
+    k = _split_heads(dense(p["wk"], enc_out), cfg.n_kv_heads, cfg.d_head)
+    v = _split_heads(dense(p["wv"], enc_out), cfg.n_kv_heads, cfg.d_head)
+    return k, v
 
 
 def project_decode_kv(p, cfg: ModelConfig, x, position):

@@ -29,6 +29,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import _normal, dense, dense_init
 
@@ -128,9 +129,11 @@ def mamba_mixer(p, cfg: ModelConfig, u: torch.Tensor, *, return_state: bool = Fa
     return out, {"h": h, "conv": tail}
 
 
-def mamba_init_state(cfg: ModelConfig, batch: int, *, device="cpu"):
+def mamba_init_state(cfg: ModelConfig, batch: int, *, device="cuda"):
     """Zeroed decode state: ``h`` (B, d_inner, d_state), ``conv`` (B,
-    d_conv - 1, d_inner)."""
+    d_conv - 1, d_inner), on ``device`` (default ``"cuda"``, which raises
+    without CUDA: ``repro_torch.device``)."""
+    device = resolve_device(device, meta=True)
     s = cfg.ssm
     d_inner = s.expand * cfg.d_model
     return {

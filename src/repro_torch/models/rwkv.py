@@ -30,6 +30,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import _normal, apply_norm, dense, dense_init, norm_init
 
@@ -153,8 +154,11 @@ def rwkv_mixer(p, cfg: ModelConfig, x: torch.Tensor, chunk: int = 64, *, return_
     return out
 
 
-def rwkv_init_state(cfg: ModelConfig, batch: int, *, device="cpu"):
-    """Zeroed decode state: ``s`` (B, nh, hs, hs), ``x_prev`` (B, d_model)."""
+def rwkv_init_state(cfg: ModelConfig, batch: int, *, device="cuda"):
+    """Zeroed decode state: ``s`` (B, nh, hs, hs), ``x_prev`` (B, d_model),
+    on ``device`` (default ``"cuda"``, which raises without CUDA:
+    ``repro_torch.device``)."""
+    device = resolve_device(device, meta=True)
     nh, hs = _n_heads(cfg), cfg.rwkv.head_size
     return {
         "s": torch.zeros((batch, nh, hs, hs), dtype=torch.float32, device=device),

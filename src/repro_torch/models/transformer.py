@@ -1,4 +1,5 @@
-"""Model assembly for the dense, vlm, MoE, hybrid (Mamba) and ssm (RWKV) stacks.
+"""Model assembly for every family: dense, vlm, MoE, hybrid (Mamba), ssm
+(RWKV) and encdec (whisper).
 
 The port of ``src/repro/models/transformer.py``, in its parameter layout::
 
@@ -8,15 +9,22 @@ The port of ``src/repro/models/transformer.py``, in its parameter layout::
                     element is a dict whose leaves have a leading n_blocks axis,
       "final_norm": {...},
       "lm_head":    {"emb": (V, d)} (absent if tied),
+      # encdec only:
+      "enc_blocks": a one-tuple of n_encoder_layers stacked layers,
+      "enc_final_norm": {...},
     }
 
 Caches mirror it: a tuple over block positions of dicts whose leaves have a
 leading n_blocks axis: ``{"k", "v"}`` (n_blocks, B, max_seq, Hkv, D) for
-an attention layer, ``{"h", "conv"}`` for a Mamba layer and ``{"s",
-"x_prev"}`` for an RWKV layer (the recurrent states in fp32, whatever the
-model's dtype, as the reference's).  Where the reference scans the stacked
-blocks with ``lax.scan``, the port loops over the layer axis in Python,
-taking views of each layer's slice.
+an attention layer (plus ``"cross_k"``, ``"cross_v"`` (n_blocks, B, F,
+Hkv, D), the encoder's cross-attention K and V, for an encdec decoder
+layer), ``{"h", "conv"}`` for a Mamba layer and ``{"s", "x_prev"}`` for an
+RWKV layer (the recurrent states in fp32, whatever the model's dtype, as
+the reference's).  Where the reference scans the stacked blocks with
+``lax.scan``, the port loops over the layer axis in Python, taking views
+of each layer's slice; with ``cfg.remat`` under autograd each layer runs
+under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``, per
+layer).
 
 A vlm config runs as the dense stack it is: as in the reference, no model
 code reads its ``n_patch_tokens``.  An MoE layer's feed-forward block is a
@@ -29,8 +37,11 @@ as the reference does.  The serving functions (``prefill``,
 ``topk_gating`` kernel, ``forward`` from ``router_topk``.  A hybrid stack
 (jamba) repeats a block of one attention layer and ``hybrid_block - 1``
 Mamba layers (``models.mamba``), an ssm stack is RWKV layers
-(``models.rwkv``).  The encdec family loads its config but raises
-``NotImplementedError`` naming its ROADMAP.md Queue 1 item.
+(``models.rwkv``).  An encdec stack (whisper) runs a bidirectional
+encoder over precomputed frame embeddings (``enc_embeds`` (B, F, d), the
+stub frontend's), and each decoder layer adds cross-attention to the
+encoder output after its causal self-attention; ``cfg.use_flash`` sends
+the decoder's self-attention to the kernel, never the encoder's.
 ``forward`` writes into no tensor in place and reads no value back to the
 host, so it runs under ``torch.func.vmap`` with autograd (the federated LM,
 MoE, Mamba and RWKV cohorts).
@@ -41,6 +52,7 @@ import dataclasses
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -49,7 +61,7 @@ from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
 from repro_torch.models import rwkv as rwk
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.modules import apply_norm, embed, embedding_init, norm_init, unembed
+from repro_torch.models.modules import apply_norm, dense, embed, embedding_init, norm_init, unembed
 
 
 # ---------------------------------------------------------------------------
@@ -74,21 +86,10 @@ def block_spec(cfg: ModelConfig) -> Tuple[List[LayerSpec], int]:
     return specs, n_blocks
 
 
-PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm")
-# the families not ported yet, and the ROADMAP.md Queue 1 item of each
-QUEUED_FAMILIES = {"encdec": "10d, encdec"}
-
 # from this many tokens in one call an MoE layer takes the capacity dispatch
 GROUPED_DISPATCH_TOKENS = 4096
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not carry yet, naming its item."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP.md Queue 1 item "
-            f"{QUEUED_FAMILIES.get(cfg.family, '10')}); the port runs the {', '.join(PORTED_FAMILIES)} families"
-        )
+# the encoder's layers: bidirectional self-attention, no cross-attention
+ENCODER_SPEC = LayerSpec(kind="attn", is_moe=False, cross=False)
 
 
 def _tree_map(fn, tree):
@@ -110,22 +111,24 @@ def _layer(block, l: int):
 _MIXER_INIT = {"attn": attn.attn_init, "mamba": mam.mamba_init, "rwkv": rwk.rwkv_init}
 
 
-def layer_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec):
-    if spec.cross:
-        raise NotImplementedError(f"layer {spec} is not ported yet (ROADMAP.md Queue 1 item 10d)")
+def layer_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec, *, causal: bool = True):
     dt, dev = cfg.param_dtype, gen.device
-    return {
+    p = {
         "norm1": norm_init(cfg.d_model, dt, cfg.norm, device=dev),
         "mixer": _MIXER_INIT[spec.kind](gen, cfg),
         "norm2": norm_init(cfg.d_model, dt, cfg.norm, device=dev),
         "ffn": moem.moe_init(gen, cfg) if spec.is_moe else mlpm.mlp_init(gen, cfg),
     }
+    if spec.cross and causal:  # an encdec decoder layer gets cross-attention
+        p["norm_x"] = norm_init(cfg.d_model, dt, cfg.norm, device=dev)
+        p["cross"] = attn.attn_init(gen, cfg, cross=True)
+    return p
 
 
-def _stacked_layers(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec, n: int):
+def _stacked_layers(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec, n: int, *, causal: bool = True):
     """n layers drawn one at a time into preallocated (n, ...) leaves, so
     only one layer's draws are alive beside the stack."""
-    first = layer_init(gen, cfg, spec)
+    first = layer_init(gen, cfg, spec, causal=causal)
     stacked = _tree_map(lambda a: torch.empty((n,) + tuple(a.shape), dtype=a.dtype, device=a.device), first)
 
     def put(dst, src, l):
@@ -137,7 +140,7 @@ def _stacked_layers(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec, n: 
 
     put(stacked, first, 0)
     for l in range(1, n):
-        put(stacked, layer_init(gen, cfg, spec), l)
+        put(stacked, layer_init(gen, cfg, spec, causal=causal), l)
     return stacked
 
 
@@ -149,17 +152,28 @@ def _grouped(h: torch.Tensor) -> bool:
     return h.shape[0] * h.shape[1] >= GROUPED_DISPATCH_TOKENS
 
 
-def layer_apply_full(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, window=None):
+def layer_apply_full(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, enc_kv=None, window=None,
+                     causal=True):
     """Full-sequence layer. Returns (x, aux, z); aux and z, the MoE losses,
-    are 0 for a dense layer."""
+    are 0 for a dense layer.  ``causal=False`` is the encoder's
+    bidirectional attention (plain ``sdpa``, no mask); ``enc_kv``, the
+    encoder's (k, v) for this layer, adds the cross-attention residual."""
     h = apply_norm(p["norm1"], x, cfg.norm_eps)
     if spec.kind == "attn":
-        h = attn.full_attention(p["mixer"], cfg, h, positions, window=window)
+        if causal:
+            h = attn.full_attention(p["mixer"], cfg, h, positions, window=window)
+        else:
+            q, k, v = attn.qkv_project(p["mixer"], cfg, h, positions)
+            o = attn.sdpa(q, attn._repeat_kv(k, cfg.q_per_kv), attn._repeat_kv(v, cfg.q_per_kv), mask=None)
+            h = dense(p["mixer"]["wo"], attn._merge_heads(o))
     elif spec.kind == "mamba":
         h = mam.mamba_mixer(p["mixer"], cfg, h)
     else:
         h = rwk.rwkv_mixer(p["mixer"], cfg, h)
     x = x + h
+    if "cross" in p and enc_kv is not None:
+        h = apply_norm(p["norm_x"], x, cfg.norm_eps)
+        x = x + attn.cross_attention(p["cross"], cfg, h, enc_kv)
     h = apply_norm(p["norm2"], x, cfg.norm_eps)
     if not spec.is_moe:
         return x + mlpm.mlp(p["ffn"], cfg, h), _zeros(x), _zeros(x)
@@ -213,6 +227,9 @@ def layer_apply_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, position,
         for key, value in new_state.items():
             cache[key].copy_(value)
     x = x + h
+    if "cross" in p and "cross_k" in cache:
+        h = apply_norm(p["norm_x"], x, cfg.norm_eps)
+        x = x + attn.cross_attention(p["cross"], cfg, h, (cache["cross_k"], cache["cross_v"]))
     h = apply_norm(p["norm2"], x, cfg.norm_eps)
     return x + _ffn_serve(p, cfg, spec, h, capacity=False), cache
 
@@ -227,7 +244,6 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     the two generators differ.  Tests carry the reference's parameters
     across instead (``repro_torch.convert``)."""
     cfg.validate()
-    require_ported(cfg)
     specs, n_blocks = block_spec(cfg)
     params: Dict[str, Any] = {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, cfg.param_dtype),
@@ -236,6 +252,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = embedding_init(gen, cfg.vocab_size, cfg.d_model, cfg.param_dtype)
+    if cfg.family == "encdec":
+        params["enc_blocks"] = (_stacked_layers(gen, cfg, ENCODER_SPEC, cfg.n_encoder_layers, causal=False),)
+        params["enc_final_norm"] = norm_init(cfg.d_model, cfg.param_dtype, cfg.norm, device=gen.device)
     return params
 
 
@@ -246,26 +265,71 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(tokens.shape[1], device=tokens.device)[None, :]
 
 
-def forward_hidden(params, cfg: ModelConfig, tokens):
-    """Like ``forward`` but stops at the final norm: returns (hidden, aux)."""
-    require_ported(cfg)
-    specs, n_blocks = block_spec(cfg)
-    x = embed(params["embed"], tokens)
-    positions = _positions(tokens)
+def _n_stacked(blocks) -> int:
+    """The leading (layer) axis of a stacked block tuple."""
+    leaf = blocks[0]
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return leaf.shape[0]
+
+
+def _scan_blocks(blocks, cfg: ModelConfig, specs, x, positions, *, enc_out=None, causal=True):
+    """Every layer of the stacked ``blocks`` over x: returns (x, aux, z).
+
+    With ``enc_out`` each layer that has cross-attention computes its
+    encoder K and V from it (inside the layer, as the reference's
+    ``_scan_blocks_with_cross``).  With ``cfg.remat`` under autograd each
+    layer runs under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward instead of kept, as the reference's
+    ``jax.checkpoint`` (per layer, for single- and multi-layer blocks)."""
+    remat = cfg.remat and torch.is_grad_enabled()
     aux = z = _zeros(x)
-    for l in range(n_blocks):
+    for l in range(_n_stacked(blocks)):
         for pos, spec in enumerate(specs):
-            x, a, zz = layer_apply_full(
-                _layer(params["blocks"][pos], l), cfg, spec, x, positions, window=cfg.sliding_window
-            )
+            p = _layer(blocks[pos], l)
+
+            def layer(x, p=p, spec=spec):
+                kv = attn.encoder_kv(p["cross"], cfg, enc_out) if enc_out is not None and "cross" in p else None
+                return layer_apply_full(p, cfg, spec, x, positions, enc_kv=kv, window=cfg.sliding_window,
+                                        causal=causal)
+
+            x, a, zz = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
             aux, z = aux + a, z + zz
+    return x, aux, z
+
+
+def _require_enc(cfg: ModelConfig, enc_embeds) -> None:
+    if enc_embeds is None:
+        raise ValueError(f"{cfg.name}: an encdec model needs enc_embeds (B, n_audio_frames, d_model)")
+
+
+def encode(params, cfg: ModelConfig, enc_embeds):
+    """Whisper encoder over precomputed frame embeddings (B, F, d)."""
+    pos = torch.arange(enc_embeds.shape[1], device=enc_embeds.device)[None, :]
+    x, _, _ = _scan_blocks(params["enc_blocks"], cfg, [ENCODER_SPEC], enc_embeds, pos, causal=False)
+    return apply_norm(params["enc_final_norm"], x, cfg.norm_eps)
+
+
+def forward_hidden(params, cfg: ModelConfig, tokens, *, enc_embeds=None):
+    """Like ``forward`` but stops at the final norm: returns (hidden, aux)."""
+    specs, _ = block_spec(cfg)
+    x = embed(params["embed"], tokens)
+    enc_out = None
+    if cfg.family == "encdec":
+        _require_enc(cfg, enc_embeds)
+        enc_out = encode(params, cfg, enc_embeds.to(x.dtype))
+    x, aux, z = _scan_blocks(params["blocks"], cfg, specs, x, _positions(tokens), enc_out=enc_out)
     x = apply_norm(params["final_norm"], x, cfg.norm_eps)
     return x, {"moe_aux": aux, "moe_z": z}
 
 
-def forward(params, cfg: ModelConfig, tokens):
-    """tokens: (B, S) int -> (logits (B, S, V) fp32, aux_losses dict)."""
-    x, aux = forward_hidden(params, cfg, tokens)
+def forward(params, cfg: ModelConfig, tokens, *, enc_embeds=None):
+    """tokens: (B, S) int -> (logits (B, S, V) fp32, aux_losses dict).
+
+    For encdec, ``enc_embeds`` (B, F, d) are the stub frontend's frame
+    embeddings; each decoder layer computes its cross-attention K and V
+    from the one encoder output."""
+    x, aux = forward_hidden(params, cfg, tokens, enc_embeds=enc_embeds)
     head = params.get("lm_head", params["embed"])
     return unembed(head, x), aux
 
@@ -273,10 +337,12 @@ def forward(params, cfg: ModelConfig, tokens):
 # ---------------------------------------------------------------------------
 # prefill: full-sequence forward that also fills the decode caches
 # ---------------------------------------------------------------------------
-def layer_apply_prefill(p, cfg: ModelConfig, spec: LayerSpec, x, positions, max_seq, *, pad_mask=None):
+def layer_apply_prefill(p, cfg: ModelConfig, spec: LayerSpec, x, positions, max_seq, *, enc_kv=None,
+                        pad_mask=None):
     """Full-sequence layer that returns (x, cache) for decode handoff: an
     attention layer's k and v, zero-padded to ``max_seq`` slots, in the
-    param dtype; a recurrent layer's final state."""
+    param dtype (and, given ``enc_kv``, its cross-attention K and V as
+    ``cross_k``, ``cross_v``); a recurrent layer's final state."""
     h = apply_norm(p["norm1"], x, cfg.norm_eps)
     if spec.kind == "mamba":
         h, cache = mam.mamba_mixer(p["mixer"], cfg, h, return_state=True)
@@ -292,14 +358,21 @@ def layer_apply_prefill(p, cfg: ModelConfig, spec: LayerSpec, x, positions, max_
             "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)).to(cfg.param_dtype),
         }
     x = x + h
+    if "cross" in p and enc_kv is not None:
+        hq = apply_norm(p["norm_x"], x, cfg.norm_eps)
+        x = x + attn.cross_attention(p["cross"], cfg, hq, enc_kv)
+        cache["cross_k"], cache["cross_v"] = enc_kv
     hh = apply_norm(p["norm2"], x, cfg.norm_eps)
     return x + _ffn_serve(p, cfg, spec, hh, capacity=True), cache
 
 
-def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None, positions=None, pad_mask=None):
+def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None, enc_embeds=None, positions=None, pad_mask=None):
     """Process the prompt, returning (last-position logits, decode cache).
 
     max_seq: cache capacity (>= prompt length); defaults to prompt length.
+    enc_embeds: (B, F, d) frame embeddings, required by an encdec model:
+        the encoder runs once, and each decoder layer's cross K and V go
+        into its cache.
     positions: (B, S) per-slot LOGICAL positions (defaults to ``arange``);
         left-padded ragged batches pass ``max(slot - n_pads_row, 0)`` so RoPE
         sees each row's true token positions.
@@ -309,7 +382,6 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None, positions=None, p
         mask, so such stacks serve exact-length batches (``ServeEngine``'s
         buckets) and a mask raises ``ValueError``.
     """
-    require_ported(cfg)
     specs, n_blocks = block_spec(cfg)
     if pad_mask is not None and any(s.kind != "attn" for s in specs):
         raise ValueError(
@@ -320,12 +392,17 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None, positions=None, p
     x = embed(params["embed"], tokens)
     if positions is None:
         positions = _positions(tokens)
-    cache = init_cache(cfg, tokens.shape[0], max_seq, device=tokens.device)
+    enc_out = None
+    if cfg.family == "encdec":
+        _require_enc(cfg, enc_embeds)
+        enc_out = encode(params, cfg, enc_embeds.to(x.dtype))
+    frames = None if enc_out is None else enc_out.shape[1]
+    cache = _zeros_cache(cfg, tokens.shape[0], max_seq, tokens.device, frames=frames)
     for l in range(n_blocks):
         for pos, spec in enumerate(specs):
-            x, c = layer_apply_prefill(
-                _layer(params["blocks"][pos], l), cfg, spec, x, positions, max_seq, pad_mask=pad_mask
-            )
+            p = _layer(params["blocks"][pos], l)
+            kv = attn.encoder_kv(p["cross"], cfg, enc_out) if enc_out is not None and "cross" in p else None
+            x, c = layer_apply_prefill(p, cfg, spec, x, positions, max_seq, enc_kv=kv, pad_mask=pad_mask)
             for key, value in c.items():
                 cache[pos][key][l] = value
     x = apply_norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
@@ -336,26 +413,48 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None, positions=None, p
 # ---------------------------------------------------------------------------
 # decode caches + serve step
 # ---------------------------------------------------------------------------
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device="cuda"):
+def _zeros_cache(cfg: ModelConfig, batch: int, max_seq: int, dev: torch.device, *, frames=None):
     """Zeroed per-block-position caches (leading n_blocks axis): k and v in
-    the param dtype, the recurrent states in fp32.  Every leaf is its own
-    zeroed tensor (the reference broadcasts one state over the blocks; a
-    decode step here writes into the views, so no two rows or layers may
-    share memory)."""
-    require_ported(cfg)
-    dev = resolve_device(device)
+    the param dtype (with ``frames``, also an encdec layer's ``cross_k``
+    and ``cross_v`` over that many encoder frames), the recurrent states in
+    fp32.  Every leaf is its own zeroed tensor (the reference broadcasts one
+    state over the blocks; a decode step here writes into the views, so no
+    two rows or layers may share memory)."""
     specs, n_blocks = block_spec(cfg)
-    shape = (n_blocks, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+    heads = (cfg.n_kv_heads, cfg.d_head)
+    zeros = lambda s: torch.zeros((n_blocks, batch, s) + heads, dtype=cfg.param_dtype, device=dev)  # noqa: E731
     caches = []
     for spec in specs:
         if spec.kind == "attn":
-            caches.append({"k": torch.zeros(shape, dtype=cfg.param_dtype, device=dev),
-                           "v": torch.zeros(shape, dtype=cfg.param_dtype, device=dev)})
+            c = {"k": zeros(max_seq), "v": zeros(max_seq)}
+            if spec.cross and frames is not None:
+                c["cross_k"], c["cross_v"] = zeros(frames), zeros(frames)
+            caches.append(c)
         else:
             state = (mam.mamba_init_state if spec.kind == "mamba" else rwk.rwkv_init_state)(
                 cfg, n_blocks * batch, device=dev)
             caches.append({k: v.reshape((n_blocks, batch) + tuple(v.shape[1:])) for k, v in state.items()})
     return tuple(caches)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, enc_embeds=None, params=None, device="cuda"):
+    """Zeroed per-block-position caches on ``device`` (``_zeros_cache``).
+
+    For encdec, each decoder layer's cross K and V are computed from the
+    encoder output, which needs ``params`` and ``enc_embeds`` (on
+    ``device``)."""
+    dev = resolve_device(device)
+    if cfg.family != "encdec":
+        return _zeros_cache(cfg, batch, max_seq, dev)
+    if params is None:
+        raise ValueError(f"{cfg.name}: an encdec cache needs params to compute its cross K and V")
+    _require_enc(cfg, enc_embeds)
+    enc_out = encode(params, cfg, enc_embeds.to(cfg.param_dtype))
+    caches = _zeros_cache(cfg, batch, max_seq, dev, frames=enc_out.shape[1])
+    for pos, c in enumerate(caches):
+        for l in range(c["k"].shape[0]):
+            c["cross_k"][l], c["cross_v"][l] = attn.encoder_kv(_layer(params["blocks"][pos], l)["cross"], cfg, enc_out)
+    return caches
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, position, *, slot=None):
@@ -366,9 +465,9 @@ def decode_step(params, cfg: ModelConfig, token, cache, position, *, slot=None):
     buffer slot while ``position`` stays per-row.
 
     Returns (logits (B, 1, V) fp32, cache); the cache is updated in place
-    (``layer_apply_decode``) and returned.
+    (``layer_apply_decode``; an encdec layer's cross K and V stay as they
+    are) and returned.
     """
-    require_ported(cfg)
     specs, n_blocks = block_spec(cfg)
     x = embed(params["embed"], token)
     for l in range(n_blocks):

@@ -24,6 +24,12 @@ which left-pad tokens take expert slots, so a ragged batch of that size is
 not token-identical to its requests served alone (in the reference too).
 Below it the dense dispatch treats every token apart, and ragged = solo.
 
+An encdec model (whisper) takes ``run(requests, enc_embeds=...)``: the
+frame embeddings (B, F, d) of each request's audio, row for row; every
+prefill layout passes them (the bucketed one sliced to its bucket's rows)
+to ``prefill``, which puts each decoder layer's cross K and V into the
+cache.
+
 :meth:`swap` repoints the parameter tree between ``run`` calls (hot-swap
 under traffic).
 """
@@ -38,7 +44,7 @@ import torch
 from repro_torch.device import configure_numerics, resolve_device
 from repro_torch.models import init_params
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import block_spec, decode_step, prefill, require_ported
+from repro_torch.models.transformer import block_spec, decode_step, prefill
 from repro_torch.telemetry import NULL_TELEMETRY, coerce_telemetry
 
 
@@ -87,7 +93,6 @@ class ServeEngine:
             raise ValueError(f"on_overflow must be 'error'|'truncate', got {on_overflow!r}")
         self.device = resolve_device(device)
         configure_numerics(self.device)
-        require_ported(cfg)
         self.cfg = cfg
         if params is None:
             params = init_params(torch.Generator(self.device).manual_seed(seed), cfg)
@@ -112,11 +117,25 @@ class ServeEngine:
     def _tokens(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
 
-    def _prefill(self, toks, **kw):
-        return prefill(self.params, self.cfg, self._tokens(toks), max_seq=self.max_seq, **kw)
+    def _prefill(self, params, tokens, **kw):
+        return prefill(params, self.cfg, tokens, max_seq=self.max_seq, **kw)
+
+    def _step(self, params, tok, cache, pos, slot):
+        return decode_step(params, self.cfg, tok, cache, pos, slot=slot)
+
+    def _enc_embeds(self, enc_embeds) -> dict:
+        """The prefill's keyword for an encdec model: its frame embeddings
+        on the engine's device (a tensor, or a numpy array)."""
+        if self.cfg.family != "encdec":
+            return {}
+        if enc_embeds is None:
+            raise ValueError(f"{self.cfg.name}: an encdec model is served with run(requests, enc_embeds=...)")
+        if not isinstance(enc_embeds, torch.Tensor):
+            enc_embeds = torch.as_tensor(np.asarray(enc_embeds))
+        return {"enc_embeds": enc_embeds.to(self.device)}
 
     # -- prefill layouts ------------------------------------------------
-    def _prefill_ragged_attn(self, requests, lens, plen):
+    def _prefill_ragged_attn(self, requests, lens, plen, kw):
         """One left-padded prefill with pad mask + per-slot position offsets."""
         b = len(requests)
         offs = plen - lens  # (B,) left-pad count per row
@@ -126,9 +145,10 @@ class ServeEngine:
         slots = np.arange(plen)[None, :]
         positions = np.maximum(slots - offs[:, None], 0)
         pad_mask = torch.as_tensor(slots >= offs[:, None], device=self.device)
-        return self._prefill(toks, positions=self._tokens(positions), pad_mask=pad_mask)
+        return self._prefill(self.params, self._tokens(toks), positions=self._tokens(positions), pad_mask=pad_mask,
+                             **kw)
 
-    def _prefill_bucketed(self, requests, lens):
+    def _prefill_bucketed(self, requests, lens, kw):
         """Exact-length prefill per distinct prompt length (recurrent stacks).
 
         Pads never enter the recurrence; the per-bucket caches are
@@ -138,7 +158,8 @@ class ServeEngine:
         for length in sorted(set(lens.tolist())):
             idx = [i for i, n in enumerate(lens) if n == length]
             order += idx
-            lg, ch = self._prefill(np.stack([requests[i].prompt for i in idx]))
+            bkw = {k: v[self._tokens(idx)] for k, v in kw.items()}  # enc_embeds: the bucket's rows
+            lg, ch = self._prefill(self.params, self._tokens(np.stack([requests[i].prompt for i in idx])), **bkw)
             logits_parts.append(lg)
             cache_parts.append(ch)
         inv = self._tokens(np.argsort(np.asarray(order)))
@@ -150,7 +171,9 @@ class ServeEngine:
         return logits, cache
 
     # -- serving --------------------------------------------------------
-    def run(self, requests: List[Request]) -> List[Request]:
+    def run(self, requests: List[Request], *, enc_embeds=None) -> List[Request]:
+        """Serve ``requests`` (filling each one's ``out``); an encdec model
+        takes ``enc_embeds`` (B, F, d), one row per request."""
         if not requests:
             return requests
         tel = self.tel
@@ -192,17 +215,20 @@ class ServeEngine:
             r.truncated = bool(budgets[i] < want[i])
         if (budgets < 1).any() or (starts >= self.max_seq).any():
             raise ValueError(f"no cache room to generate any token (max_seq={self.max_seq})")
+        kw = self._enc_embeds(enc_embeds)
         with torch.inference_mode():
             with tel.span("prefill", model=self.cfg.name, batch=b, prompt_len=plen) as sp:
                 if not ragged:
-                    cost = tel.jit_cost("serve_prefill", self._prefill)
+                    toks = self._tokens(np.stack([r.prompt for r in requests]))
+                    # counted on meta copies: nothing launches, nothing is written
+                    cost = tel.jit_cost("serve_prefill", self._prefill, self.params, toks, **kw)
                     if cost:
                         sp.set(**cost)
-                    logits, cache = self._prefill(np.stack([r.prompt for r in requests]))
+                    logits, cache = self._prefill(self.params, toks, **kw)
                 elif self._recurrent:
-                    logits, cache = self._prefill_bucketed(requests, lens)
+                    logits, cache = self._prefill_bucketed(requests, lens, kw)
                 else:
-                    logits, cache = self._prefill_ragged_attn(requests, lens, plen)
+                    logits, cache = self._prefill_ragged_attn(requests, lens, plen, kw)
                 tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
                 outs = [tok[:, 0].cpu().numpy()]  # host sync: the span covers real prefill work
                 sp.set(tokens=b)  # prefill emits one token per slot
@@ -218,11 +244,11 @@ class ServeEngine:
                     # keep stepping (lock-step batch) — clamp them in-bounds,
                     # their outputs are sliced away below
                     slot = torch.clamp(starts_t + i, max=self.max_seq - 1)
-                    if steps == 0:
-                        cost = tel.jit_cost("serve_decode_step", decode_step)
+                    if steps == 0:  # on meta copies: the real cache is not advanced
+                        cost = tel.jit_cost("serve_decode_step", self._step, self.params, tok, cache, pos, slot)
                         if cost:
                             sp.set(**cost)
-                    logits, cache = decode_step(self.params, self.cfg, tok, cache, pos, slot=slot)
+                    logits, cache = self._step(self.params, tok, cache, pos, slot)
                     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
                     outs.append(tok[:, 0].cpu().numpy())
                     steps += 1

@@ -105,6 +105,8 @@ def _to_meta(a):
 
     if isinstance(a, torch.Tensor):
         return torch.empty_strided(a.size(), a.stride(), dtype=a.dtype, device="meta")
+    if isinstance(a, tuple) and hasattr(a, "_fields"):  # a NamedTuple (the train step's state)
+        return type(a)(*(_to_meta(x) for x in a))
     if isinstance(a, (tuple, list)):
         return type(a)(_to_meta(x) for x in a)
     if isinstance(a, dict):
@@ -248,8 +250,10 @@ class Telemetry:
         arguments), so later calls are dict lookups, and set the gauges
         ``analytic_flops/<key>`` and ``analytic_bytes/<key>``.  Returns
         ``None`` when the program cannot be analysed: it raises on meta
-        tensors, or it is given no tensor to count on (the serving engine's
-        ``serve_prefill`` and ``serve_decode_step`` calls, which pass none).
+        tensors, or it is given no tensor to count on.  A program that
+        writes into its arguments (the serving engine's decode step
+        advances its cache; the train step updates its parameters) writes
+        into the meta copies only.
         """
         ck = (key, tuple(_arg_key(a) for a in args),
               tuple(sorted((k, _arg_key(v)) for k, v in kwargs.items())))

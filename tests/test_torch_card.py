@@ -1061,3 +1061,128 @@ def test_recurrent_bucketed_ragged_batch_equals_solo_on_card(cuda, arch):
     for i, p in enumerate(prompts):
         np.testing.assert_array_equal(batched[i], want[i])
         np.testing.assert_array_equal(batched[i], card.run([Request(p.copy(), max_new_tokens=new)])[0].out)
+
+
+# -- encdec serving and LM training on the card ---------------------------------------
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_whisper_smoke_serves_as_on_cpu_on_card(cuda, use_flash):
+    """whisper-tiny's smoke config (fp32) with the same parameters and frame
+    embeddings: prefill logits 1e-4 and greedy tokens equal to the CPU's,
+    uniform and ragged; with ``use_flash`` one fp32 flash launch per decoder
+    layer of the uniform prefill, none in the encoder, the decode or the
+    pad-mask prefill."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import prefill
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_smoke_config("whisper-tiny"), use_flash=use_flash)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    frames = torch.randn((3, cfg.n_audio_frames, cfg.d_model), generator=torch.Generator().manual_seed(2))
+    rng = np.random.default_rng(0)
+    uniform = list(rng.integers(0, cfg.vocab_size, (3, 40)).astype(np.int32))
+    ragged = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (40, 23, 31)]
+    logits, outs, launches = {}, {}, {}
+    for d in ("cuda", "cpu"):
+        p, f = _tree_to(params, d), frames.to(d)
+        with torch.inference_mode():
+            logits[d] = prefill(p, cfg, torch.as_tensor(np.stack(uniform), device=d), max_seq=cfg.max_seq,
+                                enc_embeds=f)[0].cpu()
+        eng = ServeEngine(cfg, params=p, max_seq=cfg.max_seq, device=d)
+        outs[d] = []
+        for batch in (uniform, ragged):
+            reset_launch_counts()
+            outs[d] += [r.out for r in eng.run([Request(x, max_new_tokens=8) for x in batch], enc_embeds=f)]
+            launches[d, len(set(map(len, batch)))] = launch_counts()["flash_attention"]
+    assert float((logits["cuda"] - logits["cpu"]).abs().max()) <= 1e-4
+    for a, b in zip(outs["cuda"], outs["cpu"], strict=True):
+        np.testing.assert_array_equal(a, b)
+    assert launches["cuda", 1] == (cfg.n_layers if use_flash else 0)
+    assert launches["cuda", 3] == 0 and launches["cpu", 1] == 0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "granite-moe-3b-a800m", "whisper-tiny"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """``make_train_step`` (in-place Adam, ``grad_accum=2``, ``remat=True``)
+    for 3 steps on the same parameters and batches: parameters within 5e-4
+    of the CPU's (Adam turns 1e-7 gradient differences on near-zero
+    gradients into ~1e-4), losses 1e-5; no kernel launch."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.training import adam, init_train_state, make_train_step
+
+    cfg = get_smoke_config(arch)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(3):
+        t = rng.integers(0, cfg.vocab_size, (4, 17))
+        b = {"tokens": torch.as_tensor(t[:, :-1]), "labels": torch.as_tensor(t[:, 1:])}
+        if cfg.family == "encdec":
+            b["enc_embeds"] = torch.as_tensor(rng.standard_normal((4, cfg.n_audio_frames, cfg.d_model)),
+                                              dtype=torch.float32)
+        batches.append(b)
+    final, losses = {}, {}
+    reset_launch_counts()
+    for d in ("cuda", "cpu"):
+        opt = adam(1e-3)
+        state = init_train_state(_tree_to(params, d), opt)
+        step = make_train_step(cfg, opt, grad_accum=2, remat=True)
+        losses[d] = []
+        for b in batches:
+            state, m = step(state, {k: v.to(d) for k, v in b.items()})
+            losses[d].append(float(m["total_loss"]))
+        final[d] = state.params
+    assert not any(launch_counts().values())
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-5, rtol=0)
+    for a, b in zip(_leaves(final["cuda"]), _leaves(final["cpu"]), strict=True):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=5e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_checkpoint_round_trip_on_card(cuda, dtype, tmp_path):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.training import load_checkpoint, save_checkpoint
+
+    cfg = dataclasses.replace(get_smoke_config("whisper-tiny"), dtype=dtype)
+    tree = init_params(torch.Generator("cuda").manual_seed(3), cfg)
+    save_checkpoint(str(tmp_path / "ck.npz"), tree, step=1)
+    back = load_checkpoint(str(tmp_path / "ck.npz"), init_params(torch.Generator("cuda").manual_seed(4), cfg))
+    for a, b in zip(_leaves(tree), _leaves(back), strict=True):
+        assert a.dtype == b.dtype and b.is_cuda and torch.equal(a, b)
+
+
+def test_kernels_refuse_autograd_on_card(cuda):
+    """A CUDA launch writes into a fresh tensor, so under autograd the
+    wrappers raise instead of returning an output detached from the graph;
+    without grad they launch."""
+    gen = torch.Generator("cuda").manual_seed(0)
+    q, k, v = (torch.randn((1, 128, 2, 64), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    logits = torch.randn((4, 40), generator=gen, device="cuda")
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        flash_attention(q.requires_grad_(True), k, v)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        topk_gating(logits.requires_grad_(True), 8)
+    assert launch_counts() == {k: 0 for k in launch_counts()}
+    with torch.no_grad():
+        flash_attention(q, k, v)
+        topk_gating(logits, 8)
+    assert launch_counts()["flash_attention"] == 1 and launch_counts()["topk_gating"] == 1

@@ -488,18 +488,20 @@ def test_ragged_batch_serves_as_the_reference_and_solo(model_pair):
 @pytest.mark.parametrize("arch,item", [("jamba-1.5-large-398b", "10c"), ("rwkv6-7b", "10c"), ("whisper-tiny", "10d")])
 def test_queued_families_name_their_item(arch, item):
     """The families after MoE: the hybrid (MoE plus Mamba) and ssm families,
-    ported by item 10c, serve a uniform batch token-identical to the
-    reference's on the same parameters; encdec still raises naming item
-    10d."""
-    if item == "10d":
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-            ServeEngine(get_smoke_config(arch), params={}, device="cpu")
-        return
+    ported by item 10c, and encdec (whisper), ported by item 10d, serve a
+    uniform batch token-identical to the reference's on the same
+    parameters (whisper on the same frame embeddings)."""
     rcfg, cfg = ref_smoke(arch), get_smoke_config(arch)
     jp = ref_init_params(jax.random.PRNGKey(1), rcfg)
-    prompts = list(np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32))
-    ref = _serve(RefServeEngine(rcfg, params=jp, max_seq=24), prompts, 4, RefRequest)
-    out = _serve(ServeEngine(cfg, params=params_from_numpy(jax.tree.map(np.asarray, jp)), max_seq=24, device="cpu"),
-                 prompts, 4, Request)
+    rng = np.random.default_rng(5)
+    prompts = list(rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    kw, ref_kw = {}, {}
+    if item == "10d":
+        kw["enc_embeds"] = rng.standard_normal((2, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+        ref_kw["enc_embeds"] = jnp.asarray(kw["enc_embeds"])
+    ref = [r.out for r in RefServeEngine(rcfg, params=jp, max_seq=24).run(
+        [RefRequest(p.copy(), max_new_tokens=4) for p in prompts], **ref_kw)]
+    out = [r.out for r in ServeEngine(cfg, params=params_from_numpy(jax.tree.map(np.asarray, jp)), max_seq=24,
+                                      device="cpu").run([Request(p.copy(), max_new_tokens=4) for p in prompts], **kw)]
     for a, b in zip(out, ref, strict=True):
         np.testing.assert_array_equal(a, b)

@@ -124,4 +124,4 @@ def test_serve_launcher_token_count(capsys):
     assert m, out
     assert int(m.group(1)) == 2  # exactly one emitted token per request
     assert float(m.group(2)) > 0.0
-    assert "flops" not in out  # no analytic cost without HLO
+    assert "flops" not in out  # --tokens 1 runs no decode step, so no decode-step cost line

@@ -572,12 +572,13 @@ def test_train_cli_paper_writes_artifacts(tmp_path):
 
 
 def test_train_cli_refuses_unported_modes(monkeypatch):
-    """``--arch`` names Queue 1 items 10 and 13, and the default device is
-    the card (``--serve`` is ported: ``tests/test_torch_serve_traffic.py``)."""
+    """Both modes default to the card: without CUDA, ``--arch`` (ported:
+    ``tests/test_torch_train.py``) and ``--paper`` raise naming the device
+    (``--serve`` is ported: ``tests/test_torch_serve_traffic.py``)."""
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="item 10.*item 13"):
-        train.main(["--arch", "qwen3-14b"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device="):
+        train.main(["--arch", "qwen3-14b", "--steps", "1"])
     with pytest.raises(RuntimeError, match="device="):
         train.main(["--paper", "--rounds", "1"])

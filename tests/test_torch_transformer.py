@@ -57,19 +57,13 @@ def test_registry_matches_reference():
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b", "whisper-tiny"])
 def test_unported_families_raise(arch):
-    """encdec (whisper-tiny) still raises naming its ROADMAP item; the
-    recurrent families (ported) draw a tree of the reference's structure,
-    shapes and per-leaf dtypes, in fp32 and in bf16, and build a
-    ``ServeEngine``."""
+    """The families ported last, the recurrent ones and encdec
+    (whisper-tiny, with its encoder stack and each decoder layer's
+    cross-attention), draw a tree of the reference's structure, shapes and
+    per-leaf dtypes, in fp32 and in bf16, and build a ``ServeEngine``."""
     from repro_torch.serving import ServeEngine
 
     cfg = get_smoke_config(arch)
-    if cfg.family == "encdec":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_params(torch.Generator().manual_seed(0), cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServeEngine(cfg, params={}, device="cpu")
-        return
     for dtype in ("float32", "bfloat16"):
         want = jax.eval_shape(lambda k: ref_init_params(k, dataclasses.replace(ref_smoke(arch), dtype=dtype)),
                               jax.random.PRNGKey(0))
