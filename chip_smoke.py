@@ -238,7 +238,31 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (fp32 and bf16, bit-exact) and (e) the kernels' no-gradient guard on
    CUDA tensors; (f) ``launch.serve --arch whisper-tiny --full-config`` and
    ``launch.train --arch phi3-mini-3.8b --full-config --steps 3 --batch 1
-   --seq 1024``, each in its own process.
+   --seq 1024``, each in its own process;
+12. the edge mesh, every number printed with the card's name and power
+   limit, and the phase's seconds: (a) the heartbeat scenario of phase 5
+   under EARA-SCA with ``HFLSchedule(1, 2)`` for 2 cloud rounds on the
+   device pipeline and through ``simulate(engine="sync", pipeline="mesh",
+   mesh=1)`` in this process (a one-rank NCCL group; launch counts zeroed
+   just before and read just after each run): per-round accuracy and
+   final parameters bit-equal, the same launches, equal to the engine's
+   own count of edge FedAvg calls and cloud reduces, ``comm_report()``
+   (no cross-edge byte), seconds a cloud round of both; (b) the same run
+   at ``mesh=5``, one edge a rank, five ranks spawned on this card
+   (``repro_torch.distributed.run_ranks``, gloo; they load the library
+   phase 2 built): every rank's history and parameters identical, against
+   (a) accuracy within 2 test samples and parameters within 1e-5, the
+   ledger's structure (no collective byte in the edge programs, the cloud
+   reduce once a cloud round, cross-edge bytes within 5% of one payload a
+   cloud round and of half of it an edge round), each rank's peak memory
+   and launches, seconds a cloud round (the ranks share one card: a
+   topology and accounting check, not a speedup); (c)
+   ``make_hfl_train_step`` (E 2, ``adam(1e-3)``) card against CPU on the
+   phi3-mini smoke config (fp32; local, local, sync: parameters 5e-4,
+   losses 1e-5, replicas equal after the sync, one ``hier_aggregate`` a
+   leaf in the sync), then at phi3-mini-3.8b's widths cut to 4 layers
+   (bf16, 1 x 512 tokens an edge): the seconds of a local and of a sync
+   step, peak memory.
 
 The serve phases (8, 9a, 10a, 11a) serve their timed shapes once before
 timing them, so the serve spans' analytic cost (counted on meta copies
@@ -494,6 +518,8 @@ def _kernel_phase(rate: float, d_model: int, host_n: int, mix_ids) -> dict:
         ("edge FedAvg (SCA)", sca, 5, d_model, "main"),
         ("DCA starts", dca, 18, d_model, "timed"),
         ("stream edge FedAvg", stream_ids, STREAM_EDGES, d_model, "stream"),
+        # the edge mesh at MESH_RANKS ranks (phase 12b): one edge a rank, its largest membership into E 1
+        ("mesh rank edge FedAvg", np.zeros(host_n, int), 1, d_model, "mesh"),
         *((f"mix group edge FedAvg (D {d})", ids, 5, d, "mix") for ids, d in mix_ids),
         ("ragged", np.array([0, 0, 0, 1, 3, 3, 3, 3, 4]), 5, 257, None),
         ("one segment", np.zeros(9, int), 1, 1000, None),
@@ -539,6 +565,8 @@ def _kernel_phase(rate: float, d_model: int, host_n: int, mix_ids) -> dict:
                     result["seg"].update(t)
                 elif timed == "stream":
                     result["seg"]["stream"] = {"N": n, "E": e, "D": d, "max_abs_err": err, **t}
+                elif timed == "mesh":
+                    result["seg"]["mesh"] = {"N": n, "E": e, "D": d, "max_abs_err": err, **t}
                 elif timed == "mix":
                     result["seg"].setdefault("mix", []).append({"N": n, "E": e, "D": d, "max_abs_err": err, **t})
                 line += " " + _fmt(t)
@@ -3335,6 +3363,218 @@ def _wrappers_only(root: Path) -> int:
     return 0
 
 
+# phase 12: the edge mesh
+MESH_RANKS = 5  # one heartbeat edge per rank
+MESH_SCHEDULE = (1, 2)  # one local epoch an edge round, T 2 edge rounds a cloud round
+MESH_ROUNDS = 2
+MESH_RANK_TIMEOUT = 300.0
+HFL_SMOKE_TOL = 5e-4  # phase 11d's card-vs-CPU parameter tolerance for make_train_step
+HFL_LAYERS, HFL_SEQ = 4, 512  # phi3-mini-3.8b's widths, depth cut to 4 layers, 1 x 512 tokens an edge
+
+
+def _mesh_run(sc, lam, label: str, **kw):
+    """One heartbeat run of phase 12 (launch counts zeroed just before and
+    read just after) -> (result, launches, peak bytes)."""
+    import torch
+
+    from repro_torch.core import HFLSchedule
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = sc.simulate(lam, MESH_ROUNDS, engine="sync", schedule=HFLSchedule(*MESH_SCHEDULE), **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for h in res.history:
+        print(f"mesh: {label} round {h.cloud_round} acc {h.test_acc:.6f} loss {h.mean_local_loss:.6f} "
+              f"seconds {h.wall_seconds:.4f}", flush=True)
+    print(f"mesh: {label} launches {json.dumps(counts)}", flush=True)
+    return res, counts, torch.cuda.max_memory_allocated()
+
+
+def _mesh_rank(lam) -> dict:
+    """Phase 12b's rank program (run by ``run_ranks`` in its own process on
+    the card, in a gloo group of ``MESH_RANKS``): the full heartbeat
+    scenario over the edge mesh; host copies of what the parent compares."""
+    import torch
+
+    from repro_torch.federated import build_scenario
+
+    sc = build_scenario("heartbeat")
+    res, counts, peak = _mesh_run(sc, lam, f"rank {torch.distributed.get_rank()}", pipeline="mesh",
+                                  mesh=MESH_RANKS)
+    return {"accs": [h.test_acc for h in res.history], "losses": [h.mean_local_loss for h in res.history],
+            "seconds": [h.wall_seconds for h in res.history], "params": _flat_row(res.final_params).cpu(),
+            "report": res.comm_report, "launches": counts, "peak_bytes": peak, "n_test": len(sc.test)}
+
+
+def _mesh_engine_phase(sc, lam, smi: str) -> dict:
+    """Phases 12a-12b: the heartbeat path over an edge mesh of one rank (in
+    this process, a one-rank NCCL group) and of ``MESH_RANKS`` ranks
+    (spawned, gloo, all on this card)."""
+    import torch
+
+    from repro_torch.distributed import run_ranks
+
+    card = f"[{smi}]"
+    out = {}
+    # 12a: one rank against the device pipeline, bit for bit
+    dev_res, dev_counts, _ = _mesh_run(sc, lam, "12a device pipeline", pipeline="device")
+    one, counts, peak = _mesh_run(sc, lam, "12a mesh k 1", pipeline="mesh", mesh=1)
+    rep = one.comm_report
+    progs = rep["programs"]
+    print(f"mesh: 12a comm_report {json.dumps({k: v for k, v in rep.items() if k != 'simulated'})}", flush=True)
+    _require([h.test_acc for h in one.history] == [h.test_acc for h in dev_res.history],
+             "12a: mesh k 1 accuracies differ from the device pipeline's")
+    _require(torch.equal(_flat_row(one.final_params), _flat_row(dev_res.final_params)),
+             "12a: mesh k 1 parameters are not the device pipeline's bit for bit")
+    _require(counts == dev_counts, f"12a: launches {counts} differ from the device pipeline's {dev_counts}")
+    _require(counts["hier_segment_aggregate"] == progs["edge_agg"]["calls"] > 0,
+             f"12a: {counts['hier_segment_aggregate']} segment launches, the engine made {progs['edge_agg']['calls']}")
+    _require(counts["hier_aggregate"] == progs["cloud_reduce"]["calls"] == MESH_ROUNDS,
+             f"12a: {counts['hier_aggregate']} aggregate launches for {progs['cloud_reduce']['calls']} cloud reduces")
+    _require(rep["cross_edge_total_bytes"] == 0.0, "12a: cross-edge bytes at one rank")
+    out["k1"] = {"launches": counts, "seconds_per_cloud_round": one.history[-1].wall_seconds,
+                 "device_seconds_per_cloud_round": dev_res.history[-1].wall_seconds, "peak_bytes": peak}
+    print(f"mesh: 12a bit-equal to the device pipeline; round {MESH_ROUNDS} seconds mesh k 1 "
+          f"{out['k1']['seconds_per_cloud_round']:.4f} device pipeline "
+          f"{out['k1']['device_seconds_per_cloud_round']:.4f}; peak {peak} bytes {card}", flush=True)
+    torch.distributed.destroy_process_group()  # the one-rank group 12a created
+    # 12b: MESH_RANKS ranks on this card (gloo), one edge each
+    t0 = time.perf_counter()
+    ranks = run_ranks(_mesh_rank, MESH_RANKS, (lam,), backend="gloo", timeout=MESH_RANK_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    first = ranks[0]
+    for r, run in enumerate(ranks):
+        _require(run["accs"] == first["accs"] and run["losses"] == first["losses"]
+                 and torch.equal(run["params"], first["params"]), f"12b: rank {r} differs from rank 0")
+    acc_diff = max(abs(a - b) for a, b in zip(first["accs"], [h.test_acc for h in one.history]))
+    param_diff = float((first["params"] - _flat_row(one.final_params).cpu()).abs().max())
+    rep5 = first["report"]
+    progs5 = rep5["programs"]
+    payload = rep5["payload_bytes"]
+    print(f"mesh: 12b comm_report {json.dumps({k: v for k, v in rep5.items() if k != 'simulated'})}", flush=True)
+    for name in ("edge_starts", "cohort_epoch", "edge_agg"):
+        _require(progs5[name]["coll_bytes_per_call"] == 0.0 and progs5[name]["cross_edge_bytes_total"] == 0.0,
+                 f"12b: {name} hands bytes to a collective")
+    _require(progs5["cloud_reduce"]["calls"] == MESH_ROUNDS, "12b: cloud_reduce not once per cloud round")
+    per_cloud, per_edge = rep5["cross_edge_bytes_per_cloud_round"], rep5["cross_edge_bytes_per_edge_round"]
+    _require(abs(per_cloud - payload) <= 0.05 * payload, f"12b: {per_cloud} cross-edge bytes a cloud round")
+    _require(abs(per_edge - payload / MESH_SCHEDULE[1]) <= 0.05 * payload / MESH_SCHEDULE[1],
+             f"12b: {per_edge} cross-edge bytes an edge round")
+    _require(acc_diff <= 2.0 / first["n_test"] + 1e-6, f"12b: accuracy {acc_diff} from 12a")
+    launches = {k: sum(run["launches"][k] for run in ranks) for k in first["launches"]}
+    out["k5"] = {
+        "launches": launches, "launches_per_rank": first["launches"],
+        "seconds_per_cloud_round": max(run["seconds"][-1] for run in ranks),
+        "peak_bytes_per_rank": [run["peak_bytes"] for run in ranks], "param_diff_vs_k1": param_diff,
+        "acc_diff_vs_k1": acc_diff, "cross_edge_bytes_per_cloud_round": per_cloud,
+        "cross_edge_bytes_per_edge_round": per_edge, "payload_bytes": payload, "spawn_s": spawn_s,
+    }
+    print(f"mesh: 12b {MESH_RANKS} ranks (gloo, all on this one card: a topology and accounting check, not a "
+          f"speedup): identical on every rank; vs 12a accuracy {acc_diff:.3g} parameters {param_diff:.3g}; "
+          f"cross-edge bytes {per_cloud:.0f} a cloud round ({per_cloud / payload:.4f} payloads), {per_edge:.0f} an "
+          f"edge round; round {MESH_ROUNDS} seconds {out['k5']['seconds_per_cloud_round']:.4f}; peak bytes per rank "
+          f"{out['k5']['peak_bytes_per_rank']}; launches {json.dumps(launches)}; {spawn_s:.1f}s with the spawn "
+          f"{card}", flush=True)
+    _require(param_diff <= 1e-5, f"12b: parameters {param_diff} from 12a")
+    return out
+
+
+def _hfl_phase(smi: str) -> dict:
+    """Phase 12c: ``make_hfl_train_step`` (E 2, ``adam(1e-3)``) on the card
+    against the CPU at the phi3-mini smoke config (fp32; steps local, local,
+    sync: parameters ``HFL_SMOKE_TOL``, losses 1e-5, the replicas equal to
+    1e-6 after the sync), then at phi3-mini-3.8b's published widths with the
+    depth cut to ``HFL_LAYERS`` layers (bf16, random weights from seed 0),
+    1 x ``HFL_SEQ`` tokens an edge: the seconds of a local and of a sync
+    step, and peak memory."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.distributed import init_hfl_state, make_hfl_train_step
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.training import adam
+
+    card = f"[{smi}]"
+    cfg = get_smoke_config(TRAIN_ARCH)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    t = rng.integers(0, cfg.vocab_size, (2, 4, 17))
+    batch = {"tokens": torch.as_tensor(t[..., :-1]), "labels": torch.as_tensor(t[..., 1:])}
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        opt = adam(1e-3)
+        state = init_hfl_state(_tree_to(params, dev), opt, 2)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        reset_launch_counts()
+        losses = []
+        for sync in (False, False, True):
+            state, m = make_hfl_train_step(cfg, opt, sync=sync)(state, b)
+            losses.append(float(m["total_loss"]))
+        runs[dev] = (state, losses, launch_counts())
+    (cpu, cpu_loss, _), (gpu, gpu_loss, counts) = runs["cpu"], runs["cuda"]
+    param_diff = max(float((p.cpu() - q).abs().max()) for p, q in zip(_leaves(gpu.params), _leaves(cpu.params)))
+    loss_diff = max(abs(a - b) for a, b in zip(gpu_loss, cpu_loss))
+    spread = max(float((x[0] - x[1]).abs().max()) for x in _leaves(gpu.params))
+    print(f"hfl: {cfg.name} smoke E 2: card vs CPU parameters {param_diff:.3g} losses {loss_diff:.3g}; replicas "
+          f"after sync {spread:.3g}; launches on the card {json.dumps(counts)} {card}", flush=True)
+    _require(param_diff <= HFL_SMOKE_TOL, f"hfl: parameters {param_diff} card vs CPU")
+    _require(loss_diff <= 1e-5, f"hfl: losses {loss_diff} card vs CPU")
+    _require(spread <= 1e-6, f"hfl: replicas differ by {spread} after the sync")
+    _require(counts["hier_aggregate"] == len(_leaves(gpu.params)), f"hfl: sync launches {counts}")
+    out = {"smoke": {"param_diff": param_diff, "loss_diff": loss_diff, "launches": counts}}
+    # published widths, depth cut
+    full = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=HFL_LAYERS)
+    del runs, cpu, gpu, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = adam(1e-3)
+    state = init_hfl_state(init_params(torch.Generator("cuda").manual_seed(0), full), opt, 2)
+    n_params = sum(x.numel() for x in _leaves(state.params)) // 2
+    tok = torch.as_tensor(rng.integers(0, full.vocab_size, (2, 1, HFL_SEQ + 1)), device="cuda")
+    b = {"tokens": tok[..., :-1], "labels": tok[..., 1:]}
+    local, sync = make_hfl_train_step(full, opt, sync=False), make_hfl_train_step(full, opt, sync=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = {}
+    for label, step in (("warm-up local", local), ("local", local), ("sync", sync)):
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        loss = float(m["total_loss"])  # waits for the step
+        secs[label] = time.perf_counter() - t0
+        _require(np.isfinite(loss), f"hfl: {label} step loss {loss}")
+    peak = torch.cuda.max_memory_allocated()
+    spread = max(float((x[0].float() - x[1].float()).abs().max()) for x in _leaves(state.params))
+    print(f"hfl: {full.name} widths cut to {HFL_LAYERS} layers ({n_params} parameters a replica, {full.dtype}), E 2, "
+          f"1 x {HFL_SEQ} tokens an edge: local step {secs['local']:.4f}s, sync step {secs['sync']:.4f}s "
+          f"(warm-up {secs['warm-up local']:.4f}s), peak {peak} bytes, replicas after sync {spread:.3g} {card}",
+          flush=True)
+    _require(spread == 0.0, "hfl: replicas differ after the sync step")
+    out["full"] = {"layers": HFL_LAYERS, "n_params_per_replica": n_params, "local_s": secs["local"],
+                   "sync_s": secs["sync"], "peak_bytes": peak}
+    del state, b, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_phase(sc, lam, smi: str) -> dict:
+    """Phase 12, with its seconds."""
+    t_phase = time.perf_counter()
+    out = _mesh_engine_phase(sc, lam, smi)
+    out["hfl"] = _hfl_phase(smi)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"mesh: phase 12 {out['phase_s']:.1f}s [{smi}]", flush=True)
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -3404,6 +3644,8 @@ def main(argv) -> int:
     lap("phases 9-10")
     encdec = _encdec_train_phase(rates[0], smi)
     lap("phase 11")
+    mesh_run = _mesh_phase(sc, sca_lam, smi)
+    lap("phase 12")
     rec_smoke = rec["smoke"][JAMBA_ARCH]
     flash = kern["flash"]
     record = []
@@ -3443,6 +3685,16 @@ def main(argv) -> int:
                 entry[program] = {**run["kernels"][fn_name], "launches": run["launches"][fn_name]}
             entry["recurrent_mix"] = {"shapes": {g: t[fn_name] for g, t in rec["mix"]["kernels"].items()},
                                       "launches": rec["mix"]["launches"][fn_name]}
+        if fn_name in HEARTBEAT_KERNELS:  # phase 12: the edge mesh's launches at 1 and MESH_RANKS ranks
+            ranks = mesh_run["k5"]
+            entry["mesh"] = {
+                "launches_k1": mesh_run["k1"]["launches"][fn_name], "launches_k5": ranks["launches"][fn_name],
+                "launches_per_rank_k5": ranks["launches_per_rank"][fn_name],
+                "shape_k1": "the device pipeline's (the record's main shape)",
+                "shape_k5": k["mesh"] if fn_name == "hier_segment_aggregate" else k["by_n"][1],
+            }
+            if fn_name == "hier_aggregate":
+                entry["mesh"]["launches_hfl_sync_smoke"] = mesh_run["hfl"]["smoke"]["launches"][fn_name]
         if fn_name == "hier_aggregate":  # phases 6b (host pipeline) and 6c (async), beside phase 5's count
             entry["launches_host_pipeline"] = host_launches
             entry["launches_async_2_rounds"] = async_run["launches_2_rounds"]

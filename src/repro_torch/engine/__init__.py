@@ -21,6 +21,12 @@ module                role
 ``sync_sim``          ``BatchedSyncEngine`` — the reference's synchronous
                       semantics; ``pipeline="device"`` (default) or
                       ``"host"`` (per-edge ``flat_mean`` loop)
+``mesh_sim``          ``MeshSyncEngine`` — the device pipeline with the
+                      edges split over the ranks of an edge mesh (one
+                      process per rank; the cloud reduce is the one
+                      collective); ``MeshCommLedger`` counts the bytes
+                      each program hands to collectives;
+                      ``mesh_segment_mean`` is its edge FedAvg alone
 ``events``            ``EventQueue`` — the (time, seq) heap of the async
                       engine (copied from the reference)
 ``async_sim``         ``AsyncHFLEngine`` — quorum flushes, staleness
@@ -65,6 +71,7 @@ from repro_torch.engine.flatten import (
     flat_mean,
     flat_segment_mean,
 )
+from repro_torch.engine.mesh_sim import MeshCommLedger, MeshSyncEngine, mesh_segment_mean
 from repro_torch.engine.store import DeviceShardStore, PagedShardStore
 from repro_torch.engine.stream_sim import StreamSyncEngine
 from repro_torch.engine.sync_sim import PIPELINES, BatchedSyncEngine
@@ -80,6 +87,8 @@ __all__ = [
     "EventQueue",
     "FlatPack",
     "LocalJob",
+    "MeshCommLedger",
+    "MeshSyncEngine",
     "PIPELINES",
     "PagedShardStore",
     "StreamCohortPlan",
@@ -94,6 +103,7 @@ __all__ = [
     "flat_segment_mean",
     "kd_loss",
     "make_job",
+    "mesh_segment_mean",
     "pack_for",
     "run_cohorts",
     "soft_targets",

@@ -237,7 +237,7 @@ class BatchedSyncEngine:
         self._data_sizes = np.array([c.data_size for c in clients], np.float32)
         self._build_pair_structure(assignment)
         if pipeline == "device":
-            self.store = DeviceShardStore(clients, self.device)
+            self.store = self._make_store(clients)
             self._plan = CohortPlan(clients, self.program)
         else:
             # the host pipeline's FedAvg weights, on the device once per run:
@@ -273,6 +273,16 @@ class BatchedSyncEngine:
         self._single_edge = bool((asn.sum(axis=1) <= 1).all())
         self._client_edge = np.where(self._has_edge, asn.argmax(axis=1), 0).astype(np.int64)
 
+    @property
+    def engine_name(self) -> str:
+        """The ``engine`` field of the cloud round's span and record."""
+        return f"sync-{self.pipeline}"
+
+    def _make_store(self, clients: List[FLClient]) -> DeviceShardStore:
+        """The device pipeline's shard store: every client's shard (the mesh
+        engine overrides this to upload only its rank's clients)."""
+        return DeviceShardStore(clients, self.device)
+
     def _maybe_repair(self, b: int) -> bool:
         """Re-repair the assignment when channel drift invalidated
         memberships, rebuilding the pair structure; True when it changed."""
@@ -307,9 +317,20 @@ class BatchedSyncEngine:
                 self.tel.metrics.inc("faults_dropped", int(failed.sum()))
         return participating, failed
 
+    def _broadcast_rows(self, global_rows: List[torch.Tensor], n: int) -> List[torch.Tensor]:
+        """Per-group (E, D) edge matrices seeded from the global rows at the
+        top of a cloud round (the mesh engine's hold its rank's edges)."""
+        return [row[None, :].expand(n, -1) for row in global_rows]
+
     def _cloud_mean(self, edge_mat: torch.Tensor, weights) -> torch.Tensor:
-        """Cloud FedAvg of one group's (E, D) edge matrix (paper eq. 9)."""
+        """Cloud FedAvg of one group's (E, D) edge matrix (paper eq. 9); the
+        mesh engine's is a partial sum per rank and one ``all_reduce``."""
         return flat_mean(edge_mat, weights, backend=self.backend)
+
+    def _mean_loss(self, chunks: Sequence[torch.Tensor]) -> float:
+        """The cloud round's mean local loss from its device-pipeline loss
+        chunks (the mesh engine gathers every rank's first)."""
+        return _mean_loss(chunks)
 
     def _client_starts(self, edge_mat: torch.Tensor) -> torch.Tensor:
         """(M, D) DCA start rows: each client's unweighted mean of its edges'
@@ -570,7 +591,7 @@ class BatchedSyncEngine:
         global_rows = [pk.ravel(t) for pk, t in zip(self.packs, self.group_params)]
         edge_sizes = self._cloud_weights()
         cloud_bits = None if n_groups == 1 else float(sum(self._group_bits))
-        engine_name = f"sync-{self.pipeline}"
+        engine_name = self.engine_name
         comm = CommDelta(self.accountant) if self.tel.enabled else None
         wall_accum = sim_accum = 0.0
         for b in range(1, cloud_rounds + 1):
@@ -590,7 +611,7 @@ class BatchedSyncEngine:
                 chunks: List[torch.Tensor] = []
                 losses: List[float] = []
                 if self.pipeline == "device":
-                    edge_mats = [row[None, :].expand(n, -1) for row in global_rows]
+                    edge_mats = self._broadcast_rows(global_rows, n)
                     for k in range(self.schedule.edge_per_cloud):
                         self._er = k + 1
                         edge_mats, round_chunks = self._edge_round_device(edge_mats)
@@ -619,7 +640,7 @@ class BatchedSyncEngine:
                         for g in range(n_groups)
                     ]
                 if self.pipeline == "device":
-                    loss_host = _mean_loss(chunks)
+                    loss_host = self._mean_loss(chunks)
                 else:
                     loss_host = float(np.mean(losses)) if losses else 0.0
                 self.accountant.on_cloud_sync(n, bits=cloud_bits)

@@ -63,7 +63,6 @@ from repro_torch.federated.simulation import (
     RoundMetrics,
     SimResult,
     centralized_baseline,
-    not_ported,
 )
 from repro_torch.federated.stream import build_stream_scenario
 from repro_torch.models.cnn1d import HEARTBEAT_CNN, SEIZURE_CNN
@@ -161,10 +160,15 @@ class Scenario:
                   its clock).
         pipeline: the sync engine's round: "device" (fixed-shape segment
                   kernel programs, shard store) | "host" (per-client jobs,
-                  one ``flat_mean`` per edge).  The reference's "mesh" and
-                  ``mesh=`` raise ``NotImplementedError`` under
-                  ``engine="sync"``, the one engine that reads them; the
-                  other engines ignore both, as in the reference.
+                  one ``flat_mean`` per edge) | "mesh" (``MeshSyncEngine``:
+                  the device pipeline with the edges split over the ranks
+                  of an edge mesh; the result carries ``comm_report``).
+        mesh:     the mesh engine's edge mesh: a rank count, a
+                  ``DeviceMesh`` with an "edge" dimension, or None (the
+                  largest rank count of the default process group that
+                  divides the edge count).  Given, it selects the mesh
+                  engine under ``engine="sync"``; the other engines ignore
+                  ``pipeline="mesh"`` and ``mesh``, as in the reference.
         backend:  the engines' aggregation path, "kernel" (the CUDA
                   kernels on the card, their plain versions on the CPU) |
                   "reference"; the readable simulator ignores it.
@@ -215,11 +219,6 @@ class Scenario:
         """
         if engine not in ("reference", "sync", "async"):
             raise ValueError(f"unknown engine {engine!r} (reference | sync | async)")
-        if engine == "sync":
-            if pipeline == "mesh":
-                raise not_ported("pipeline='mesh'")
-            if mesh is not None:
-                raise not_ported("mesh")
         distill = distill if distill is not None else self.distill
         hetero = self.is_hetero
         if hetero and (cohort is not None or server_momentum):
@@ -248,16 +247,19 @@ class Scenario:
             sim = self._engine(
                 assignment, schedule, seed, upp, track_divergence, wall_clock, engine, backend, compression,
                 staleness_decay, quorum, pipeline, distill, fault_state, tel, cohort, server_momentum, serve_state,
-                device,
+                mesh, device,
             )
-            return sim.run(cloud_rounds, eval_every=eval_every)
+            res = sim.run(cloud_rounds, eval_every=eval_every)
+            if hasattr(sim, "comm_report"):  # the mesh engine's collective bytes
+                res.comm_report = sim.comm_report()
+            return res
         finally:
             if tel is not None and tel.out_dir is not None:
                 tel.flush()
 
     def _engine(
         self, assignment, schedule, seed, upp, track_divergence, wall_clock, engine, backend, compression,
-        staleness_decay, quorum, pipeline, distill, fault_state, tel, cohort, server_momentum, serve, device,
+        staleness_decay, quorum, pipeline, distill, fault_state, tel, cohort, server_momentum, serve, mesh, device,
     ):
         """The engine ``simulate`` runs, built from its checked options."""
         hetero = self.is_hetero
@@ -329,8 +331,30 @@ class Scenario:
                 serve=serve,
                 device=device,
             )
+        from repro_torch.engine.mesh_sim import MeshSyncEngine
         from repro_torch.engine.sync_sim import BatchedSyncEngine
 
+        if pipeline == "mesh" or mesh is not None:
+            return MeshSyncEngine(
+                self.clients,
+                assignment,
+                self.program,
+                self.test,
+                schedule=schedule,
+                seed=seed,
+                upp=upp,
+                track_divergence=track_divergence,
+                cost_latency=cost_latency,
+                backend=backend,
+                compression=compression,
+                faults=fault_state,
+                telemetry=tel,
+                cohort=cohort,
+                server_momentum=server_momentum,
+                mesh=mesh,
+                serve=serve,
+                device=device,
+            )
         return BatchedSyncEngine(
             self.clients,
             assignment,

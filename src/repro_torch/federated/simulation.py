@@ -48,20 +48,6 @@ from repro_torch.telemetry import NULL_TELEMETRY, coerce_telemetry
 from repro_torch.telemetry.report import CommDelta
 from repro_torch.utils.tree import tree_add, tree_leaves, tree_map, tree_size_bytes, tree_sub
 
-# where each reference option not carried by this port is queued (ROADMAP.md)
-QUEUED = {
-    "pipeline='mesh'": "Queue 1 item 12, mesh",
-    "mesh": "Queue 1 item 12, mesh",
-}
-
-
-def not_ported(option: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported to repro_torch yet; it is queued in ROADMAP.md "
-        f"({QUEUED[option]})"
-    )
-
-
 def check_cohort(cohort, upp: float) -> None:
     """A cohort and UPP are both participation models: a ``CohortSpec``
     runs with ``upp=1.0`` only (``ValueError`` otherwise), as in the
@@ -95,6 +81,9 @@ class SimResult:
     # serve_staleness_rounds, serve_acc) when the run carried query traffic
     # (``Scenario.simulate(serve=TrafficSpec(...))``), else None
     serve_history: Optional[List[dict]] = None
+    # the mesh engine's collective bytes beside its simulated accounting
+    # (``MeshSyncEngine.comm_report()``) when the run went over an edge mesh
+    comm_report: Optional[dict] = None
 
     def rounds_to_accuracy(self, target: float) -> Optional[int]:
         for m in self.history:

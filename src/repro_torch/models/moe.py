@@ -32,7 +32,8 @@ Where the reference differs from PyTorch's idiom:
     product with an fp32 output on the card (``torch.bmm(..., out_dtype=)``)
     and an upcast on the CPU, which lacks that product;
   * the reference's sharding hints (``constrain``) have no counterpart:
-    the mesh is ROADMAP.md Queue 1 item 12.
+    they wait for the sharding half of the distributed package, ROADMAP.md
+    Queue 1 item 13.
 """
 from __future__ import annotations
 

@@ -1186,3 +1186,42 @@ def test_kernels_refuse_autograd_on_card(cuda):
         flash_attention(q, k, v)
         topk_gating(logits, 8)
     assert launch_counts()["flash_attention"] == 1 and launch_counts()["topk_gating"] == 1
+
+
+@pytest.mark.parametrize("n,e", [(1, 1), (3, 1), (5, 1), (9, 2), (18, 5)])
+def test_segment_kernel_at_mesh_rank_shapes_on_card(cuda, n, e):
+    """The mesh engine's per-rank edge FedAvg: one heartbeat edge's EUs into
+    E 1 (five ranks), two edges a rank, and one rank's 18 into 5; fp32 at
+    1e-5, one launch."""
+    x, w = _inputs(n, 25141, seed=n)
+    seg = np.sort(np.random.default_rng(n).integers(0, e, n))
+    u, wt, s = torch.tensor(x, device=cuda), torch.tensor(w, device=cuda), torch.tensor(seg, device=cuda)
+    reset_launch_counts()
+    out = hier_segment_aggregate(u, s, wt, e)
+    assert launch_counts()["hier_segment_aggregate"] == 1
+    np.testing.assert_allclose(_f32(out), _f32(hier_segment_aggregate_ref(u, s, wt, e)), atol=1e-5, rtol=1e-5)
+
+
+def test_mesh_one_rank_is_the_device_pipeline_on_card(cuda):
+    """``simulate(pipeline="mesh", mesh=1)`` on the card (a one-rank NCCL
+    group): the device pipeline's history and parameters bit for bit, with
+    the segment kernel launched once an edge round and ``hier_aggregate``
+    once a cloud round, as the device pipeline launches them."""
+    from repro_torch.core import HFLSchedule
+    from repro_torch.federated import build_scenario
+    from repro_torch.utils.tree import tree_leaves
+
+    sc = build_scenario("heartbeat", scale=0.02, seed=0, n_test_per_class=10)
+    lam = sc.assign("eara-sca").lam
+    runs = {}
+    for pipeline in ("device", "mesh"):
+        reset_launch_counts()
+        res = sc.simulate(lam, 2, engine="sync", pipeline=pipeline, schedule=HFLSchedule(1, 2))
+        runs[pipeline] = (res, launch_counts())
+    (want, want_counts), (got, counts) = runs["device"], runs["mesh"]
+    assert counts == want_counts and counts["hier_segment_aggregate"] == 4 and counts["hier_aggregate"] == 2
+    assert [(m.test_acc, m.mean_local_loss) for m in got.history] == [
+        (m.test_acc, m.mean_local_loss) for m in want.history]
+    for a, b in zip(tree_leaves(got.final_params), tree_leaves(want.final_params), strict=True):
+        assert a.is_cuda and torch.equal(a, b)
+    assert got.comm_report["cross_edge_total_bytes"] == 0.0

@@ -167,27 +167,30 @@ def test_cloud_weights_go_to_the_device_once_per_run(pair, lam, backend, monkeyp
 
 
 @pytest.mark.parametrize(
-    "kw,raises",
+    "kw,raises,match",
     [
-        ({"engine": "sync", "pipeline": "mesh"}, NotImplementedError),
-        ({"engine": "sync", "mesh": 4}, NotImplementedError),
-        ({"engine": "reference", "pipeline": "mesh", "mesh": 4}, None),
-        ({"engine": "async", "pipeline": "mesh", "mesh": 4}, None),
-        ({"serve": object()}, TypeError),
+        ({"engine": "sync", "pipeline": "mesh"}, None, None),
+        ({"engine": "sync", "mesh": 4}, ValueError, "n_devices"),
+        ({"engine": "reference", "pipeline": "mesh", "mesh": 4}, None, None),
+        ({"engine": "async", "pipeline": "mesh", "mesh": 4}, None, None),
+        ({"serve": object()}, TypeError, "TrafficSpec"),
     ],
     ids=["pipeline", "mesh", "reference-ignores-mesh", "async-ignores-mesh", "serve"],
 )
-def test_unported_options_raise(pair, lam, kw, raises):
-    """The mesh pipeline is refused, naming its ROADMAP.md item, under
-    ``engine="sync"``, the one engine of the reference that reads
-    ``pipeline`` and ``mesh``; the readable simulator and async ignore both,
-    as in the reference.  A ``serve`` that is not a ``TrafficSpec`` raises
-    the reference's ``TypeError``."""
+def test_unported_options_raise(pair, lam, kw, raises, match):
+    """The mesh options, which only ``engine="sync"`` reads (as in the
+    reference): ``pipeline="mesh"`` runs the mesh engine (one rank here)
+    and sets ``comm_report``; ``mesh=4`` in a one-rank process raises the
+    reference's ``ValueError`` (its ``edge_mesh`` bound).  The readable
+    simulator and async ignore both.  A ``serve`` that is not a
+    ``TrafficSpec`` raises the reference's ``TypeError``."""
     _, sc = pair
     if raises is None:
-        assert len(sc.simulate(lam, cloud_rounds=1, device="cpu", **kw).history) == 1
+        res = sc.simulate(lam, cloud_rounds=1, device="cpu", **kw)
+        assert len(res.history) == 1
+        assert (res.comm_report is not None) == (kw.get("engine") == "sync")
         return
-    with pytest.raises(raises, match="ROADMAP" if raises is NotImplementedError else "TrafficSpec"):
+    with pytest.raises(raises, match=match):
         sc.simulate(lam, cloud_rounds=1, device="cpu", **kw)
 
 
