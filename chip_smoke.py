@@ -3105,6 +3105,7 @@ def _train_full(rate: float, smi: str) -> dict:
     counts = launch_counts()
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["launches"] = counts
+    out["checksum"] = _bits_checksum(state.params)  # phase 13a's sharded step is held to these bits
     batch = {k: upload(v.astype(np.int64), torch.device("cuda")) for k, v in stream.train_batch(1, TRAIN_SEQ).items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3529,7 +3530,10 @@ def _hfl_phase(smi: str) -> dict:
     _require(loss_diff <= 1e-5, f"hfl: losses {loss_diff} card vs CPU")
     _require(spread <= 1e-6, f"hfl: replicas differ by {spread} after the sync")
     _require(counts["hier_aggregate"] == len(_leaves(gpu.params)), f"hfl: sync launches {counts}")
-    out = {"smoke": {"param_diff": param_diff, "loss_diff": loss_diff, "launches": counts}}
+    from repro_torch.utils.tree import tree_leaves
+
+    out = {"smoke": {"param_diff": param_diff, "loss_diff": loss_diff, "launches": counts,
+                     "params": [x.cpu() for x in tree_leaves(gpu.params)], "losses": gpu_loss}}
     # published widths, depth cut
     full = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=HFL_LAYERS)
     del runs, cpu, gpu, params
@@ -3575,15 +3579,329 @@ def _mesh_phase(sc, lam, smi: str) -> dict:
     return out
 
 
+# phase 13: the sharded train step and the dry run
+DIST_RANKS = 2  # 13b: gloo ranks on the one card, one edge replica each
+# 13c in this script: train_4k on the (16, 16) fake mesh, and three
+# shapes on (2, 16, 16); rwkv6-7b's and jamba's train_4k, the prefill_32k
+# pairs (~5 minutes of fake run each at the card's 512-token attention
+# tiles) and the rest of the sweep run through the CLI (PERF.md's dry-run
+# table).  The heavy pairs first: each worker takes every DRY_JOBS-th pair.
+DRY_TRAIN_ARCHS = ("qwen3-14b", "dbrx-132b", "chameleon-34b", "phi3-mini-3.8b", "qwen1.5-4b", "starcoder2-3b",
+                   "granite-moe-3b-a800m", "whisper-tiny")
+DRY_MULTI_ARCHS = ("qwen3-14b", "dbrx-132b")
+DRY_MULTI_SHAPES = ("train_4k", "decode_32k", "long_500k")
+DRY_JOBS = (6, 2)  # worker processes of the two sweeps, run side by side on the host's 8 cores
+DRY_TIMEOUT = 600.0
+
+
+def _bits_checksum(params) -> list:
+    """Per leaf (in the tree's sorted-path order) two exact integer sums of
+    its raw bit patterns, plain and position-weighted, on the card: equal
+    checksums are the parameters bit for bit but for a cancellation no
+    update makes.  A DTensor leaf is checked by its local shard."""
+    import torch
+
+    from repro_torch.utils.tree import tree_leaves
+
+    out = []
+    for x in tree_leaves(params):
+        x = x.to_local() if hasattr(x, "to_local") else x
+        bits = x.detach().reshape(-1).view({2: torch.int16, 4: torch.int32}[x.element_size()])
+        plain = weighted = 0
+        for i in range(0, bits.numel(), 1 << 26):
+            b = bits[i:i + (1 << 26)].to(torch.int64)
+            w = torch.arange(i, i + b.numel(), device=b.device, dtype=torch.int64) % 1_000_003
+            plain += int(b.sum())
+            weighted += int((b * w).sum())
+        out.append((plain, weighted))
+    return out
+
+
+def _one_rank_nccl() -> None:
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+
+
+def _sharded_train_full(smi: str, want: dict) -> dict:
+    """Phase 13a: phase 11c's phi3-mini-3.8b step at published widths as a
+    one-rank sharded step: ``param_pspec`` from ``param_specs(cfg, ...,
+    "fsdp", mesh)`` on a (1, 1) ("data", "model") mesh over a one-rank NCCL
+    group, the state laid out as DTensors (``shard_train_state``), the same
+    seed-0 weights and ``TokenStream`` batches: losses, gradient norms and
+    the parameters' bits (``_bits_checksum``) equal to 11c's, no kernel
+    launch; seconds a step and peak memory beside 11c's."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.device import upload
+    from repro_torch.distributed.sharding import param_specs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.training import adam, init_train_state, make_train_step, shard_train_state
+
+    card = f"[{smi}]"
+    _one_rank_nccl()
+    mesh = DeviceMesh("cuda", [[0]], mesh_dim_names=("data", "model"))
+    cfg = get_config(TRAIN_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    spec = param_specs(cfg, params, "fsdp", mesh)
+    opt = adam(1e-3)
+    state = shard_train_state(init_train_state(params, opt), spec, mesh)
+    del params
+    step = make_train_step(cfg, opt, param_pspec=spec)
+    stream = TokenStream(cfg.vocab_size, seed=0)
+    out = {"step_s": [], "loss": [], "grad_norm": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        batch = {k: upload(v.astype(np.int64), torch.device("cuda"))
+                 for k, v in stream.train_batch(1, TRAIN_SEQ).items()}
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["total_loss"])  # waits for the step
+        out["step_s"].append(time.perf_counter() - t0)
+        out["loss"].append(loss)
+        out["grad_norm"].append(float(m["grad_norm"]))
+        print(f"dist: 13a sharded step {i + 1}: {out['step_s'][-1]:.4f}s loss {loss:.6f} grad_norm "
+              f"{out['grad_norm'][-1]:.6g} (11c: {want['step_s'][i]:.4f}s loss {want['loss'][i]:.6f} grad_norm "
+              f"{want['grad_norm'][i]:.6g}) {card}", flush=True)
+    counts = launch_counts()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    same = _bits_checksum(state.params) == want["checksum"]
+    print(f"dist: 13a {cfg.name} on a (1, 1) mesh (fsdp specs, NCCL): losses and norms equal to 11c "
+          f"{out['loss'] == want['loss'] and out['grad_norm'] == want['grad_norm']}, parameter bits equal {same}; "
+          f"peak {out['peak_bytes']} bytes (11c {want['peak_bytes']}); launches {json.dumps(counts)} {card}",
+          flush=True)
+    _require(out["loss"] == want["loss"] and out["grad_norm"] == want["grad_norm"],
+             "13a: the one-rank sharded step's losses or norms differ from 11c's")
+    _require(same, "13a: the one-rank sharded step's parameters differ from 11c's")
+    _require(not any(counts.values()), f"13a: kernel launches {counts}")
+    out["launches"] = counts
+    del state, step, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _hfl_smoke_inputs():
+    """Phase 12c's smoke config, seed-0 weights and (E 2, 4, 16) batch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+
+    cfg = get_smoke_config(TRAIN_ARCH)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    t = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 4, 17))
+    return cfg, params, {"tokens": torch.as_tensor(t[..., :-1]), "labels": torch.as_tensor(t[..., 1:])}
+
+
+def _hfl_dtensor_run(k: int, rank: int) -> dict:
+    """``make_hfl_train_step`` (local, local, sync) on an edge mesh of the
+    default group's ``k`` ranks, the state this rank's E/k replicas as
+    DTensors built by ``DTensor.from_local`` on ``hfl_param_specs``'
+    placements (no collective); ``hier_aggregate``'s launches zeroed just
+    before the steps and read just after.  Host copies of the rank's
+    replicas (sorted-path order), its launches and the losses."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import edge_mesh, hfl_param_specs, init_hfl_state, make_hfl_train_step
+    from repro_torch.distributed.sharding import param_specs, to_placements
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.training import TrainState, adam
+    from repro_torch.training.train_step import _spec_leaves
+    from repro_torch.utils.tree import tree_leaves, tree_paths, tree_unflatten
+
+    cfg, params, batch = _hfl_smoke_inputs()
+    mesh = edge_mesh(k, device="cuda")
+    specs = hfl_param_specs(param_specs(cfg, params, "tp", mesh))
+    opt = adam(1e-3)
+    local = init_hfl_state(_tree_to(params, "cuda"), opt, 2, mesh=mesh)
+
+    def wrap(tree):
+        paths = tree_paths(tree)
+        return tree_unflatten(paths, [DTensor.from_local(x, mesh, to_placements(sp, mesh), run_check=False)
+                                      for x, sp in zip(tree_leaves(tree), _spec_leaves(specs, paths))])
+
+    state = TrainState(wrap(local.params), tuple(wrap(o) for o in local.opt_state), 0)
+    e = 2 // k
+    b = {key: v[rank * e:(rank + 1) * e].cuda() for key, v in batch.items()}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses = []
+    for sync in (False, False, True):
+        state, m = make_hfl_train_step(cfg, opt, sync=sync, mesh=mesh)(state, b)
+        losses.append(float(m["total_loss"]))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    leaves = tree_leaves(state.params)
+    return {"replicas": [x.to_local().cpu() for x in leaves], "launches": counts, "losses": losses,
+            "n_leaves": len(leaves), "sizes": [x[0].numel() for x in tree_leaves(local.params)]}
+
+
+def _hfl_dist_rank() -> dict:
+    """Phase 13b's rank program (``run_ranks``, gloo, on this card)."""
+    import torch
+
+    return _hfl_dtensor_run(torch.distributed.get_world_size(), torch.distributed.get_rank())
+
+
+def _hfl_dist(smi: str, want: dict, rate: float) -> dict:
+    """Phase 13b: phase 12c's smoke HFL run with the state as DTensors on
+    ``hfl_param_specs``' placements, at 1 rank (NCCL, this process) and at
+    ``DIST_RANKS`` gloo ranks (spawned, all on this card: gloo reduces CUDA
+    tensors, so the step issues ``all_reduce`` only): parameters within
+    1e-6 of 12c's, one ``hier_aggregate`` launch a leaf at the sync on each
+    rank; the kernel at the sync's per-leaf shapes (N = the rank's
+    replicas, D = the leaf) against its plain version and ``wn @ x``."""
+    import importlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import run_ranks
+    from repro_torch.kernels import hier_aggregate, hier_aggregate_ref
+
+    card = f"[{smi}]"
+    _one_rank_nccl()
+    one = _hfl_dtensor_run(1, 0)
+    dist.destroy_process_group()
+    diff1 = max(float((a - b).abs().max()) for a, b in zip(one["replicas"], want["params"]))
+    t0 = time.perf_counter()
+    ranks = run_ranks(_hfl_dist_rank, DIST_RANKS, (), backend="gloo", timeout=MESH_RANK_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    joined = [torch.cat([r["replicas"][i] for r in ranks]) for i in range(len(want["params"]))]
+    diff2 = max(float((a - b).abs().max()) for a, b in zip(joined, want["params"]))
+    n = one["n_leaves"]
+    print(f"dist: 13b make_hfl_train_step on DTensor replicas: 1 rank (NCCL) {diff1:.3g} from 12c, launches "
+          f"{json.dumps(one['launches'])}; {DIST_RANKS} ranks (gloo) {diff2:.3g} from 12c, launches per rank "
+          f"{[r['launches']['hier_aggregate'] for r in ranks]} ({n} leaves); losses 1 rank {one['losses']} "
+          f"{DIST_RANKS} ranks {ranks[0]['losses']}; {spawn_s:.1f}s with the spawn {card}", flush=True)
+    _require(diff1 <= 1e-6 and diff2 <= 1e-6, f"13b: parameters {diff1}, {diff2} from 12c")
+    _require(one["launches"]["hier_aggregate"] == n and all(r["launches"]["hier_aggregate"] == n for r in ranks),
+             "13b: not one hier_aggregate launch a leaf at the sync")
+    # the sync's shapes: N replicas of the largest leaf
+    agg_mod = importlib.import_module("repro_torch.kernels.hier_aggregate")
+    d = max(one["sizes"])
+    rng = np.random.default_rng(13)
+    shapes = {}
+    for rows in sorted({2, 2 // DIST_RANKS}):
+        x = torch.as_tensor(rng.standard_normal((rows, d)), dtype=torch.float32, device="cuda")
+        w = torch.full((rows,), 0.5, device="cuda")
+        err = _close(hier_aggregate(x, w), hier_aggregate_ref(x, w), TOL["float32"])
+        wn = w / w.sum()
+        t = _timings(kernel=lambda: agg_mod._launch(x, w), wrapper=lambda: hier_aggregate(x, w),
+                     plain=lambda: hier_aggregate_ref(x, w), library=lambda: wn @ x,
+                     nbytes=(rows + 1) * d * 4 + rows * 4, rate=rate)
+        shapes[rows] = {"N": rows, "D": d, "max_abs_err": err, **t}
+        print(f"dist: 13b hier_aggregate at the sync's shape N={rows} D={d} torch.float32: max_abs_err={err:.3g} "
+              f"{_fmt(t)} {card}", flush=True)
+    return {"launches_k1": one["launches"]["hier_aggregate"],
+            "launches_per_rank_k2": [r["launches"]["hier_aggregate"] for r in ranks], "leaves": n,
+            "param_diff_k1": diff1, "param_diff_k2": diff2, "shapes": shapes, "spawn_s": spawn_s}
+
+
+def _dry_sweeps():
+    """Phase 13c's two sweeps (the dry-run CLI in worker processes), started
+    side by side: train_4k of ``DRY_TRAIN_ARCHS`` on (16, 16) and
+    ``DRY_MULTI_SHAPES`` of ``DRY_MULTI_ARCHS`` on (2, 16, 16)."""
+    import subprocess
+
+    root = Path(__file__).resolve().parent
+    out_dir = root / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    runs = []
+    for label, extra, jobs in (("16x16", ["--arch", ",".join(DRY_TRAIN_ARCHS), "--shape", "train_4k"], DRY_JOBS[0]),
+                               ("2x16x16", ["--multi-pod", "--arch", ",".join(DRY_MULTI_ARCHS),
+                                            "--shape", ",".join(DRY_MULTI_SHAPES)], DRY_JOBS[1])):
+        path = out_dir / f"dryrun_{label}.json"
+        log = open(out_dir / f"dryrun_{label}.log", "w")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *extra, "--jobs", str(jobs), "--out", str(path)]
+        runs.append((label, path, log, subprocess.Popen(cmd, env=env, stdout=log, stderr=subprocess.STDOUT)))
+    return runs
+
+
+def _dry_results(runs, smi: str) -> dict:
+    """Phase 13c: wait for the sweeps; per pair its seconds, per-rank GB,
+    dominant term and collective bytes by kind; every pair ok."""
+    card = f"[{smi}]"
+    deadline = time.perf_counter() + DRY_TIMEOUT
+    out = {}
+    for label, path, log, proc in runs:
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except Exception:
+            proc.kill()
+            proc.wait()
+            raise
+        finally:
+            log.close()
+        results = json.loads(path.read_text())
+        for r in results:
+            mem, rl = r["memory"] or {}, r["roofline"] or {}
+            print(f"dist: 13c {label} {r['arch']} {r['shape']} ok {r['ok']} {r['seconds']:.1f}s per-rank "
+                  f"{mem.get('total_bytes_per_device', 0) / 1e9:.2f} GB (arguments "
+                  f"{mem.get('argument_size_in_bytes', 0) / 1e9:.2f}) dominant {rl.get('dominant')} collective "
+                  f"bytes {json.dumps(rl.get('coll_bytes'))} {r['note']} {r['error'].splitlines()[0] if r['error'] else ''}",
+                  flush=True)
+        _require(proc.returncode == 0 and all(r["ok"] for r in results), f"13c: a {label} dry-run pair failed")
+        out[label] = results
+    return out
+
+
+def _dist_phase(train: dict, hfl: dict, rate: float, smi: str) -> dict:
+    """Phase 13, with its seconds (13c's sweeps after 13a and 13b, so that
+    their host cores do not slow 13a's timed steps)."""
+    t_phase = time.perf_counter()
+    out = {"train": _sharded_train_full(smi, train), "hfl": _hfl_dist(smi, hfl, rate)}
+    out["dry"] = _dry_results(_dry_sweeps(), smi)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"dist: phase 13 {out['phase_s']:.1f}s [{smi}]", flush=True)
+    return out
+
+
+def _dist_only() -> int:
+    """``--dist``: phases 11c, 12c and 13 alone (the kernels built first)."""
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels.build import build
+
+    smi = _smi()
+    rate = _rates(torch.cuda.get_device_name(0))[0]
+    print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    build()
+    train = _train_full(rate, smi)
+    hfl = _hfl_phase(smi)
+    _dist_phase(train, hfl["smoke"], rate, smi)
+    return 0
+
+
 def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
         return 1
+    if argv == ["--dist"]:
+        return _dist_only()
     if argv:
         if len(argv) != 2 or argv[0] not in ("--wrappers", "--paths"):
-            print("usage: python3 chip_smoke.py [--wrappers ROOT | --paths ROOT]", file=sys.stderr)
+            print("usage: python3 chip_smoke.py [--wrappers ROOT | --paths ROOT | --dist]", file=sys.stderr)
             return 2
         only = _wrappers_only if argv[0] == "--wrappers" else _paths_only
         return only(Path(argv[1]).resolve())
@@ -3646,6 +3964,8 @@ def main(argv) -> int:
     lap("phase 11")
     mesh_run = _mesh_phase(sc, sca_lam, smi)
     lap("phase 12")
+    dist_run = _dist_phase(encdec["train"], mesh_run["hfl"]["smoke"], rates[0], smi)
+    lap("phase 13")
     rec_smoke = rec["smoke"][JAMBA_ARCH]
     flash = kern["flash"]
     record = []
@@ -3695,6 +4015,13 @@ def main(argv) -> int:
             }
             if fn_name == "hier_aggregate":
                 entry["mesh"]["launches_hfl_sync_smoke"] = mesh_run["hfl"]["smoke"]["launches"][fn_name]
+                hfl = dist_run["hfl"]  # phase 13b: the sync on DTensor replicas, one launch a leaf
+                entry["dist"] = {
+                    "launches_k1": hfl["launches_k1"], "launches_per_rank_k2": hfl["launches_per_rank_k2"],
+                    "shape": f"N 2 (1 rank) and 2 / {DIST_RANKS} ({DIST_RANKS} ranks) per leaf, D the leaf's "
+                             f"size ({hfl['leaves']} leaves of phi3-mini's smoke config); timed at the largest",
+                    "timed": {str(n): t for n, t in hfl["shapes"].items()},
+                }
         if fn_name == "hier_aggregate":  # phases 6b (host pipeline) and 6c (async), beside phase 5's count
             entry["launches_host_pipeline"] = host_launches
             entry["launches_async_2_rounds"] = async_run["launches_2_rounds"]

@@ -13,9 +13,12 @@ over the ranks: each rank holds, and is given batches for, its E/k edges,
 and the cloud average is its weighted partial sum plus one ``all_reduce``:
 the only cross-edge traffic, once per sync step (the metrics add one
 (2, E) ``all_reduce`` a step).  With no mesh everything is local.
-``hfl_param_specs`` and ``hfl_batch_spec`` (PartitionSpec builders for the
-reference's dry run) are queued with the rest of the distributed package
-(ROADMAP.md Queue 1 item 13).
+``hfl_param_specs`` and ``hfl_batch_spec`` give that layout as
+PartitionSpecs: the leading E axis over the edge axis, so on a 1-D edge
+mesh ``to_placements`` of a leaf's spec is ``Shard(0)``, each rank its
+contiguous E/k replicas.  The step also takes a state whose leaves are
+DTensors in that layout (``DTensor.from_local`` of the rank's replicas,
+no collective): it works on their local shards, in place.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.axes import EDGE_AXIS, mesh_rank, mesh_size
+from repro_torch.distributed.axes import EDGE_AXIS, is_dtensor, mesh_rank, mesh_size
+from repro_torch.distributed.sharding import P, map_specs
 from repro_torch.engine.flatten import flat_mean
 from repro_torch.models.config import ModelConfig
 from repro_torch.training.optimizers import Optimizer, clip_by_global_norm_
@@ -96,6 +100,10 @@ def make_hfl_train_step(
             x.copy_(avg.to(x.dtype).reshape(x.shape[1:]).expand_as(x))
 
     def step(state: TrainState, batch):
+        if is_dtensor(tree_leaves(state.params)[0]):  # the rank's replicas, in place
+            out, metrics = step(TrainState(_local(state.params), _local(state.opt_state), state.step),
+                                {key: v.to_local() if is_dtensor(v) else v for key, v in batch.items()})
+            return TrainState(state.params, state.opt_state, out.step), metrics
         e_local = tree_leaves(state.params)[0].shape[0]
         totals, gnorms = [], []
         for e in range(e_local):
@@ -132,3 +140,19 @@ def make_hfl_train_step(
         return TrainState(state.params, state.opt_state, state.step + 1), metrics
 
     return step
+
+
+def _local(tree):
+    return tree_map(lambda x: x.to_local(), tree)
+
+
+def hfl_param_specs(base_specs, edge_axes=("edge",)):
+    """Prepend the edge-replica axis to every parameter PartitionSpec."""
+    ax = edge_axes if len(edge_axes) > 1 else edge_axes[0]
+    return map_specs(lambda spec: P(ax, *spec), base_specs)
+
+
+def hfl_batch_spec(edge_axes=("edge",), batch_axes=("eu",)):
+    ea = edge_axes if len(edge_axes) > 1 else edge_axes[0]
+    ba = batch_axes if len(batch_axes) > 1 else batch_axes[0]
+    return P(ea, ba, None)

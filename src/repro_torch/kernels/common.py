@@ -12,6 +12,15 @@ UPDATE_DTYPES = (torch.float32, torch.bfloat16)
 PLAIN_DEVICES = ("cpu", "meta")
 
 
+def takes_plain(t: torch.Tensor) -> bool:
+    """Whether ``t`` goes to a kernel's plain version: a tensor on the CPU
+    or meta, or a fake tensor whatever device it claims (the dry run's,
+    which has no storage to launch on)."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return t.device.type in PLAIN_DEVICES or is_fake(t)
+
+
 def check_no_grad(name: str, *tensors) -> None:
     """Raise ``RuntimeError`` when autograd would differentiate through a
     kernel that defines no gradient (the reference's kernel has none): a

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.common import PLAIN_DEVICES, check_launch, check_no_grad, ptr, stream_of
+from repro_torch.kernels.common import check_launch, check_no_grad, ptr, stream_of, takes_plain
 
 NEG_INF = -1e30
 # head dims the fp32 SIMT kernel is instantiated for (csrc/flash_attention.cu):
@@ -177,7 +177,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     name = "flash_attention"
     _check(q, k, v, window, name)
     check_no_grad(name, q, k, v)
-    if q.device.type in PLAIN_DEVICES:
+    if takes_plain(q):
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"{name}: tensors must lie on the CPU, a CUDA device or meta, got {q.device}")

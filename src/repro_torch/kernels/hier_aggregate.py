@@ -26,12 +26,12 @@ import torch
 
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.common import (
-    PLAIN_DEVICES,
     check_launch,
     check_rows,
     check_updates,
     ptr,
     stream_of,
+    takes_plain,
 )
 
 
@@ -71,7 +71,7 @@ def hier_aggregate(updates, weights) -> torch.Tensor:
     check_updates(updates, name)
     n, d = updates.shape
     check_rows(weights, n, updates.device, "weights", name, integer=False)
-    if updates.device.type in PLAIN_DEVICES:
+    if takes_plain(updates):
         return hier_aggregate_ref(updates, weights)
     if n == 0 or d == 0:
         return torch.zeros((d,), dtype=updates.dtype, device=updates.device)

@@ -35,12 +35,12 @@ import torch
 
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.common import (
-    PLAIN_DEVICES,
     check_launch,
     check_rows,
     check_updates,
     ptr,
     stream_of,
+    takes_plain,
 )
 
 
@@ -105,7 +105,7 @@ def hier_segment_aggregate(updates, seg_ids, weights, n_segments: int) -> torch.
     if int(n_segments) != n_segments or n_segments < 0:
         raise ValueError(f"{name}: n_segments must be a non-negative int, got {n_segments!r}")
     n_segments = int(n_segments)
-    if updates.device.type in PLAIN_DEVICES:
+    if takes_plain(updates):
         return hier_segment_aggregate_ref(updates, seg_ids, weights, n_segments)
     if n == 0 or d == 0 or n_segments == 0:
         return torch.zeros((n_segments, d), dtype=updates.dtype, device=updates.device)

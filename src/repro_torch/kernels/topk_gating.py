@@ -35,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.common import PLAIN_DEVICES, check_launch, check_no_grad, ptr, stream_of
+from repro_torch.kernels.common import check_launch, check_no_grad, ptr, stream_of, takes_plain
 
 MAX_EXPERTS = 1024  # 32 lanes x 32 registers (csrc/topk_gating.cu)
 
@@ -94,7 +94,7 @@ def topk_gating(logits, k: int) -> torch.Tensor:
     name = "topk_gating"
     k = _check(logits, k, name)
     check_no_grad(name, logits)
-    if logits.device.type in PLAIN_DEVICES:
+    if takes_plain(logits):
         return topk_gating_ref(logits, k)
     if logits.device.type != "cuda":
         raise ValueError(f"{name}: logits must lie on the CPU, a CUDA device or meta, got {logits.device}")

@@ -17,6 +17,7 @@ from repro_torch.models.config import (
 from repro_torch.models.transformer import (
     block_spec,
     decode_step,
+    encode,
     forward,
     init_cache,
     init_params,
@@ -37,6 +38,7 @@ __all__ = [
     "cnn_apply_cohort",
     "cnn_init",
     "decode_step",
+    "encode",
     "forward",
     "init_cache",
     "init_params",

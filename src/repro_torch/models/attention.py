@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.axes import is_dtensor, kind_spec, on_shards, redistribute_to, shard_offset, spec_of
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import apply_norm, apply_rope, dense, dense_init, norm_init
@@ -49,12 +50,40 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, *, cross: bool = False):
     return p
 
 
-def _split_heads(x, n_heads: int, d_head: int):
-    return x.reshape(x.shape[:-1] + (n_heads, d_head))
+def _heads_spec(shape, n_kv_heads: int):
+    """Under sharding hints, the reference's ``"heads"`` layout of a
+    (B, S, H, D) activation, its heads over the model axis only where the
+    KV heads divide it (then every rank's query heads read its own KV
+    heads); None with no hints."""
+    spec = kind_spec(tuple(shape[:2]) + (n_kv_heads,) + tuple(shape[3:]), "heads")
+    return spec
+
+
+def _split_heads(x, n_heads: int, d_head: int, n_kv_heads: int = 0):
+    shape = tuple(x.shape[:-1]) + (n_heads, d_head)
+    if is_dtensor(x):  # lay the flat heads out as the split will have them
+        spec = _heads_spec(shape, n_kv_heads or n_heads)
+        if spec is not None:
+            x = redistribute_to(x, spec[:-1])
+    return x.reshape(shape)
+
+
+def _on_heads(fn, q, k, v):
+    """``fn(q, k, v)`` (B, S, H, D) each, on the local heads and batch
+    rows of DTensor inputs (:func:`on_shards`; plain tensors go straight
+    to ``fn``)."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    spec_kv = _heads_spec(k.shape, k.shape[2])
+    spec_q = _heads_spec(q.shape, k.shape[2])
+    return on_shards(fn, (q, k, v), (spec_q, spec_kv, spec_kv), (spec_q,))
 
 
 def _merge_heads(x):
-    return x.reshape(x.shape[:-2] + (x.shape[-2] * x.shape[-1],))
+    y = x.reshape(x.shape[:-2] + (x.shape[-2] * x.shape[-1],))
+    if is_dtensor(y):  # the cotangent in the heads' layout, so it splits back
+        y = redistribute_to(y, spec_of(y))
+    return y
 
 
 def _repeat_kv(k, q_per_kv: int):
@@ -72,7 +101,7 @@ def _einsum32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def qkv_project(p, cfg: ModelConfig, x, positions=None, *, rope: bool = True):
     """Project and prepare q, k, v (with qk-norm + RoPE where configured)."""
-    q = _split_heads(dense(p["wq"], x), cfg.n_heads, cfg.d_head)
+    q = _split_heads(dense(p["wq"], x), cfg.n_heads, cfg.d_head, cfg.n_kv_heads)
     k = _split_heads(dense(p["wk"], x), cfg.n_kv_heads, cfg.d_head)
     v = _split_heads(dense(p["wv"], x), cfg.n_kv_heads, cfg.d_head)
     if "q_norm" in p:
@@ -175,12 +204,14 @@ def full_attention(p, cfg: ModelConfig, x, positions, *, window=None, return_kv=
     elif cfg.use_flash:
         out = flash_attention(q, k, v, causal=True, window=window)
     else:
-        kr = _repeat_kv(k, cfg.q_per_kv)
-        vr = _repeat_kv(v, cfg.q_per_kv)
-        if s > 1024:  # O(block^2) memory
-            out = blockwise_attention(q, kr, vr, causal=True, window=window)
-        else:
-            out = sdpa(q, kr, vr, causal_mask(s, s, window, device=x.device))
+        def core(q, k, v):
+            kr = _repeat_kv(k, cfg.q_per_kv)
+            vr = _repeat_kv(v, cfg.q_per_kv)
+            if s > 1024:  # O(block^2) memory
+                return blockwise_attention(q, kr, vr, causal=True, window=window)
+            return sdpa(q, kr, vr, causal_mask(s, s, window, device=q.device))
+
+        out = _on_heads(core, q, k, v)
     out = dense(p["wo"], _merge_heads(out))
     if return_kv:
         return out, k, v
@@ -190,9 +221,10 @@ def full_attention(p, cfg: ModelConfig, x, positions, *, window=None, return_kv=
 def cross_attention(p, cfg: ModelConfig, x, enc_kv):
     """Decoder->encoder attention; enc_kv = (k, v) precomputed from the
     encoder output (:func:`encoder_kv`).  No RoPE, no mask."""
-    q = _split_heads(dense(p["wq"], x), cfg.n_heads, cfg.d_head)
+    q = _split_heads(dense(p["wq"], x), cfg.n_heads, cfg.d_head, cfg.n_kv_heads)
     k, v = enc_kv
-    out = sdpa(q, _repeat_kv(k, cfg.q_per_kv), _repeat_kv(v, cfg.q_per_kv), mask=None)
+    out = _on_heads(lambda q, k, v: sdpa(q, _repeat_kv(k, cfg.q_per_kv), _repeat_kv(v, cfg.q_per_kv), mask=None),
+                    q, k, v)
     return dense(p["wo"], _merge_heads(out))
 
 
@@ -247,3 +279,53 @@ def decode_attend(p, q, cache_k, cache_v, position, *, window=None, slot=None):
     probs = torch.softmax(logits, dim=-1)
     out = _einsum32("bhgqk,bkhd->bqhgd", probs.to(cache_v.dtype), cache_v).to(cache_v.dtype)
     return dense(p["wo"], out.reshape(b, 1, hq * d))
+
+
+def decode_write_attend_sharded(p, q, k_new, v_new, cache_k, cache_v, position, *, window=None, slot=None):
+    """:func:`decode_attend` over a DTensor cache (B, S, Hkv, D) laid out
+    as ``cache_specs`` lays it (the batch over the data axes, the sequence
+    over the model axis or more: context-parallel decode), after writing
+    this token's k and v into it.  Flash-decoding: each rank writes the
+    token where its slot lies in the rank's slice of the sequence and
+    attends over that slice (its max logit, softmax sum and unnormalized
+    output), and the slices are combined by their maxima."""
+    from repro_torch.distributed.sharding import P
+
+    if slot is None:
+        slot = position
+    b, _, hq, d = q.shape
+    hkv = cache_k.shape[2]
+    cspec = spec_of(cache_k)
+    rows, seq = cspec[0], cspec[1]
+    lo = shard_offset(cache_k, 1)
+    tok = P(rows, None, None, None)
+
+    def local(q, k_new, v_new, ck, cv, position, slot):
+        bl, sl = ck.shape[0], ck.shape[1]
+        at = slot - lo
+        inside = ((at >= 0) & (at < sl))[:, None, None]
+        idx = at.clamp(0, sl - 1)
+        bidx = torch.arange(bl, device=q.device)
+        ck[bidx, idx] = torch.where(inside, k_new[:, 0].to(ck.dtype), ck[bidx, idx])
+        cv[bidx, idx] = torch.where(inside, v_new[:, 0].to(cv.dtype), cv[bidx, idx])
+        kv_pos = lo + torch.arange(sl, device=q.device)[None, :]
+        valid = (kv_pos <= slot[:, None]) & (kv_pos >= (slot - position)[:, None])
+        if window is not None:
+            valid = valid & (kv_pos > slot[:, None] - window)
+        qg = q.reshape(bl, 1, hkv, hq // hkv, d)
+        logits = _einsum32("bqhgd,bkhd->bhgqk", qg, ck) * (1.0 / np.sqrt(d))
+        logits = logits.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+        m = logits.amax(dim=-1, keepdim=True)
+        e = torch.exp(logits - m)
+        o = _einsum32("bhgqk,bkhd->bqhgd", e.to(cv.dtype), cv)
+        return m[None], e.sum(dim=-1, keepdim=True)[None], o[None]
+
+    stats = P(seq, rows, None, None, None, None)
+    m, l, o = on_shards(local, (q, k_new, v_new, cache_k, cache_v, position, slot),
+                        (tok, tok, tok, cspec, cspec, P(rows), P(rows)), (stats, stats, stats))
+    top = m.amax(dim=0)
+    w = torch.exp(m - top)  # (n, B, H, g, 1, 1)
+    total = (l * w).sum(dim=0)  # (B, H, g, 1, 1)
+    out = (o * w[..., 0].permute(0, 1, 4, 2, 3)[..., None]).sum(dim=0)  # (B, 1, H, g, D)
+    out = out / total[..., 0].permute(0, 3, 1, 2)[..., None]
+    return dense(p["wo"], out.to(cache_v.dtype).reshape(b, 1, hq * d))

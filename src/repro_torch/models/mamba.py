@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.axes import is_dtensor, on_batch_shards
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import _normal, dense, dense_init
 
@@ -90,6 +91,10 @@ def mamba_mixer(p, cfg: ModelConfig, u: torch.Tensor, *, return_state: bool = Fa
     "conv"}`` for the prefill -> decode handoff, which the padding would
     corrupt: a sequence that needs it raises ``ValueError``, where the
     reference fails its ``assert``."""
+    if is_dtensor(u):  # the sharded step: data-parallel, the weights gathered
+        out = on_batch_shards(lambda p, u: _as_tuple(mamba_mixer(p, cfg, u, return_state=return_state, chunk=chunk)),
+                              p, u)
+        return (out[0], {"h": out[1], "conv": out[2]}) if return_state else out[0]
     bsz, seq, _ = u.shape
     chunk = min(chunk, seq)
     pad = (-seq) % chunk
@@ -129,16 +134,21 @@ def mamba_mixer(p, cfg: ModelConfig, u: torch.Tensor, *, return_state: bool = Fa
     return out, {"h": h, "conv": tail}
 
 
-def mamba_init_state(cfg: ModelConfig, batch: int, *, device="cuda"):
-    """Zeroed decode state: ``h`` (B, d_inner, d_state), ``conv`` (B,
-    d_conv - 1, d_inner), on ``device`` (default ``"cuda"``, which raises
-    without CUDA: ``repro_torch.device``)."""
+def _as_tuple(out):
+    """A mixer's output as a flat tuple: (y,) or (y, h, conv)."""
+    return (out[0], out[1]["h"], out[1]["conv"]) if isinstance(out, tuple) else (out,)
+
+
+def mamba_init_state(cfg: ModelConfig, batch: int, dtype=torch.float32, *, device="cuda"):
+    """Zeroed decode state in ``dtype`` (fp32 by default): ``h`` (B,
+    d_inner, d_state), ``conv`` (B, d_conv - 1, d_inner), on ``device``
+    (default ``"cuda"``, which raises without CUDA: ``repro_torch.device``)."""
     device = resolve_device(device, meta=True)
     s = cfg.ssm
     d_inner = s.expand * cfg.d_model
     return {
-        "h": torch.zeros((batch, d_inner, s.d_state), dtype=torch.float32, device=device),
-        "conv": torch.zeros((batch, s.d_conv - 1, d_inner), dtype=torch.float32, device=device),
+        "h": torch.zeros((batch, d_inner, s.d_state), dtype=dtype, device=device),
+        "conv": torch.zeros((batch, s.d_conv - 1, d_inner), dtype=dtype, device=device),
     }
 
 

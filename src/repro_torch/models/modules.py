@@ -3,7 +3,8 @@
 Parameters are plain nested dicts of tensors keyed as in the reference
 (``src/repro/models/modules.py``); every ``*_init`` returns a dict and the
 matching apply is a plain function.  Initial draws come from an explicit
-``torch.Generator``, on the generator's device; they are not the
+``torch.Generator``, on the generator's device (``SHAPES_ONLY`` in its
+place builds meta tensors and draws nothing); they are not the
 reference's ``jax.random`` draws, so parity tests carry the reference's
 parameters across (``repro_torch.convert``).
 
@@ -19,10 +20,29 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.distributed.axes import is_dtensor
+
+
+class ShapesOnly:
+    """Given in place of a ``torch.Generator``, the init functions draw
+    nothing and build meta tensors of the shapes and dtypes they would
+    draw (the dry run's parameter shapes: no allocation)."""
+
+    device = torch.device("meta")
+
+
+SHAPES_ONLY = ShapesOnly()
+
+
+def draw_from(gen):
+    """The generator a draw takes: None for :data:`SHAPES_ONLY` (a meta
+    draw needs none), else ``gen``."""
+    return None if isinstance(gen, ShapesOnly) else gen
+
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
     """fp32 standard normal draws times ``scale``, cast to ``dtype``."""
-    return (torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32) * scale).to(dtype)
+    return (torch.randn(shape, generator=draw_from(gen), device=gen.device, dtype=torch.float32) * scale).to(dtype)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, *, bias: bool = False, scale=None):
@@ -46,7 +66,34 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype):
 
 
 def embed(p, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of the (V, d) table; a DTensor table sharded over its
+    vocabulary is looked up vocab-parallel (:func:`_embed_sharded`)."""
+    if is_dtensor(p["emb"]):
+        return _embed_sharded(p["emb"], ids)
     return p["emb"][ids]
+
+
+def _embed_sharded(emb, ids):
+    """Megatron's vocab-parallel lookup of a DTensor table: each model
+    rank gathers its table shard over the batch axes, looks up the ids in
+    its vocabulary range and zeroes the rest, and the ranks' rows are
+    summed (a ``Partial`` the next layer reduces)."""
+    from repro_torch.distributed.axes import Summed, Whole, current_hints, kind_spec, on_shards
+    from repro_torch.distributed.sharding import P
+
+    h = current_hints()
+    vocab_sharded = h.model_axis is not None and emb.shape[0] % h.model_size == 0 and emb.shape[0] >= h.model_size
+    table = P(h.model_axis if vocab_sharded else None, None)
+    rows = kind_spec(tuple(ids.shape), "batch")
+    out = kind_spec(tuple(ids.shape) + (emb.shape[1],), "batch")
+    lo = emb.shape[0] // h.model_size * emb.device_mesh.get_local_rank(h.model_axis) if vocab_sharded else 0
+
+    def lookup(e, i):
+        local = i - lo
+        hit = (local >= 0) & (local < e.shape[0])
+        return torch.where(hit[..., None], e[local.clamp(0, e.shape[0] - 1)], 0)
+
+    return on_shards(lookup, (emb, ids), (Whole(table), rows), (Summed(out) if vocab_sharded else out,))
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
@@ -60,6 +107,8 @@ def unembed(p, x: torch.Tensor) -> torch.Tensor:
     that product, upcasts.
     """
     emb = p["emb"]
+    if is_dtensor(emb):
+        return _unembed_sharded(x, emb)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.dtype == emb.dtype == torch.float32:
@@ -69,6 +118,23 @@ def unembed(p, x: torch.Tensor) -> torch.Tensor:
     else:
         out = torch.mm(x2.float(), emb.float().t())
     return out.reshape(*lead, emb.shape[0])
+
+
+def _unembed_sharded(x, emb):
+    """:func:`unembed` of DTensors, vocab-parallel: each model rank's
+    logits from its table shard (gathered over the batch axes), so the
+    card's one fp32-output product runs on local shards (DTensor has no
+    rule for it)."""
+    from repro_torch.distributed.axes import Whole, current_hints, kind_spec, on_shards
+    from repro_torch.distributed.sharding import P
+
+    h = current_hints()
+    m = h.model_axis
+    vocab = m if (m and emb.shape[0] % h.model_size == 0 and emb.shape[0] >= h.model_size) else None
+    rows = kind_spec(tuple(x.shape), "batch")
+    out = P(*rows[:-1], vocab)
+    return on_shards(lambda a, e: unembed({"emb": e}, a), (x, emb),
+                     (Whole(rows, (m,) if vocab else ()), Whole(P(vocab, None))), (out,))
 
 
 def norm_init(d: int, dtype, kind: str = "rmsnorm", device=None):

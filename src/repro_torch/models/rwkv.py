@@ -31,8 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.axes import is_dtensor, on_batch_shards
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.modules import _normal, apply_norm, dense, dense_init, norm_init
+from repro_torch.models.modules import _normal, apply_norm, dense, dense_init, draw_from, norm_init
 
 # the rank of the data-dependent decay's path, whatever d_model is
 DECAY_RANK = 64
@@ -48,7 +49,7 @@ def rwkv_init(gen: torch.Generator, cfg: ModelConfig):
     dt, d, dev = cfg.param_dtype, cfg.d_model, gen.device
     return {
         # token-shift mixing coefficients per channel for r/k/v/w/g
-        "mix": torch.rand((5, d), generator=gen, device=dev, dtype=torch.float32).to(dt),
+        "mix": torch.rand((5, d), generator=draw_from(gen), device=dev, dtype=torch.float32).to(dt),
         "wr": dense_init(gen, d, d, dt),
         "wk": dense_init(gen, d, d, dt),
         "wv": dense_init(gen, d, d, dt),
@@ -123,6 +124,9 @@ def rwkv_mixer(p, cfg: ModelConfig, x: torch.Tensor, chunk: int = 64, *, return_
     drops to ``gcd(chunk, S)`` (the reference's rule: a 2047-token prompt
     runs 2047 one-token chunks) so that the returned state ``{"s",
     "x_prev"}`` is that of the last real token."""
+    if is_dtensor(x):  # the sharded step: data-parallel, the weights gathered
+        out = on_batch_shards(lambda p, x: _as_tuple(rwkv_mixer(p, cfg, x, chunk, return_state=return_state)), p, x)
+        return (out[0], {"s": out[1], "x_prev": out[2]}) if return_state else out[0]
     b, s, d = x.shape
     chunk = min(chunk, s)
     if return_state and s % chunk:
@@ -154,15 +158,20 @@ def rwkv_mixer(p, cfg: ModelConfig, x: torch.Tensor, chunk: int = 64, *, return_
     return out
 
 
-def rwkv_init_state(cfg: ModelConfig, batch: int, *, device="cuda"):
-    """Zeroed decode state: ``s`` (B, nh, hs, hs), ``x_prev`` (B, d_model),
-    on ``device`` (default ``"cuda"``, which raises without CUDA:
-    ``repro_torch.device``)."""
+def _as_tuple(out):
+    """A mixer's output as a flat tuple: (y,) or (y, s, x_prev)."""
+    return (out[0], out[1]["s"], out[1]["x_prev"]) if isinstance(out, tuple) else (out,)
+
+
+def rwkv_init_state(cfg: ModelConfig, batch: int, dtype=torch.float32, *, device="cuda"):
+    """Zeroed decode state in ``dtype`` (fp32 by default): ``s`` (B, nh,
+    hs, hs), ``x_prev`` (B, d_model), on ``device`` (default ``"cuda"``,
+    which raises without CUDA: ``repro_torch.device``)."""
     device = resolve_device(device, meta=True)
     nh, hs = _n_heads(cfg), cfg.rwkv.head_size
     return {
-        "s": torch.zeros((batch, nh, hs, hs), dtype=torch.float32, device=device),
-        "x_prev": torch.zeros((batch, cfg.d_model), dtype=torch.float32, device=device),
+        "s": torch.zeros((batch, nh, hs, hs), dtype=dtype, device=device),
+        "x_prev": torch.zeros((batch, cfg.d_model), dtype=dtype, device=device),
     }
 
 

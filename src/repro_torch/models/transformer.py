@@ -44,7 +44,11 @@ encoder output after its causal self-attention; ``cfg.use_flash`` sends
 the decoder's self-attention to the kernel, never the encoder's.
 ``forward`` writes into no tensor in place and reads no value back to the
 host, so it runs under ``torch.func.vmap`` with autograd (the federated LM,
-MoE, Mamba and RWKV cohorts).
+MoE, Mamba and RWKV cohorts).  Given DTensor parameters (the sharded train
+step, the dry run; under ``distributed.axes.sharding_hints``) every
+function keeps the residual stream in the ``"batch"`` layout
+(``constrain``) and runs the parts DTensor does not cover on local shards
+(``distributed.axes.on_shards``); plain tensors take the paths above.
 """
 from __future__ import annotations
 
@@ -55,6 +59,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.axes import constrain, is_dtensor, on_batch_shards, on_shards, redistribute_to, spec_of
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import mlp as mlpm
@@ -164,21 +169,22 @@ def layer_apply_full(p, cfg: ModelConfig, spec: LayerSpec, x, positions, *, enc_
             h = attn.full_attention(p["mixer"], cfg, h, positions, window=window)
         else:
             q, k, v = attn.qkv_project(p["mixer"], cfg, h, positions)
-            o = attn.sdpa(q, attn._repeat_kv(k, cfg.q_per_kv), attn._repeat_kv(v, cfg.q_per_kv), mask=None)
+            o = attn._on_heads(lambda q, k, v: attn.sdpa(q, attn._repeat_kv(k, cfg.q_per_kv),
+                                                         attn._repeat_kv(v, cfg.q_per_kv), mask=None), q, k, v)
             h = dense(p["mixer"]["wo"], attn._merge_heads(o))
     elif spec.kind == "mamba":
         h = mam.mamba_mixer(p["mixer"], cfg, h)
     else:
         h = rwk.rwkv_mixer(p["mixer"], cfg, h)
-    x = x + h
+    x = x + constrain(h, "batch")
     if "cross" in p and enc_kv is not None:
         h = apply_norm(p["norm_x"], x, cfg.norm_eps)
-        x = x + attn.cross_attention(p["cross"], cfg, h, enc_kv)
+        x = x + constrain(attn.cross_attention(p["cross"], cfg, h, enc_kv), "batch")
     h = apply_norm(p["norm2"], x, cfg.norm_eps)
     if not spec.is_moe:
-        return x + mlpm.mlp(p["ffn"], cfg, h), _zeros(x), _zeros(x)
-    h, aux, z = (moem.moe_mlp_grouped if _grouped(h) else moem.moe_mlp)(p["ffn"], cfg, h)
-    return x + h, aux, z
+        return x + constrain(mlpm.mlp(p["ffn"], cfg, h), "batch"), _zeros(x), _zeros(x)
+    h, aux, z = moem.moe_ffn(p["ffn"], cfg, h, grouped=_grouped(h))
+    return x + constrain(h, "batch"), aux, z
 
 
 def _ffn_serve(p, cfg: ModelConfig, spec: LayerSpec, h, *, capacity: bool):
@@ -190,8 +196,19 @@ def _ffn_serve(p, cfg: ModelConfig, spec: LayerSpec, h, *, capacity: bool):
     if not spec.is_moe:
         return mlpm.mlp(p["ffn"], cfg, h)
     if capacity and _grouped(h):
-        return moem.moe_mlp_grouped(p["ffn"], cfg, h)[0]
-    return moem.moe_mlp_serve(p["ffn"], cfg, h)
+        tg = moem.group_shape(h.shape[0], h.shape[1])[1]  # the whole batch's groups, on each rank's rows
+        fn = lambda q, c, x, **kw: moem.moe_mlp_grouped(q, c, x, group=tg, **kw)[0]  # noqa: E731
+    else:
+        fn = moem.moe_mlp_serve
+    if is_dtensor(h):  # each rank's tokens and experts
+        return moem.moe_sharded(fn, p["ffn"], cfg, h)
+    return fn(p["ffn"], cfg, h)
+
+
+def _flat_step(step, p, cfg, h, state, keys):
+    """A recurrent decode step's (out, *new state in ``keys`` order)."""
+    out, new = step(p, cfg, h, state)
+    return (out,) + tuple(new[k] for k in keys)
 
 
 def layer_apply_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, position, *, window=None, slot=None):
@@ -217,21 +234,32 @@ def layer_apply_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, position,
         # one projection for q, k and v (the reference projects twice, through
         # project_decode_kv and decode_attention, and XLA merges the two)
         q, k_new, v_new = attn.qkv_project(p["mixer"], cfg, h, positions=position[..., None])
-        bidx = torch.arange(x.shape[0], device=x.device)
-        cache["k"][bidx, slot] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][bidx, slot] = v_new[:, 0].to(cache["v"].dtype)
-        h = attn.decode_attend(p["mixer"], q, cache["k"], cache["v"], position, window=window, slot=slot)
+        if is_dtensor(cache["k"]):
+            h = attn.decode_write_attend_sharded(p["mixer"], q, k_new, v_new, cache["k"], cache["v"], position,
+                                                 window=window, slot=slot)
+        else:
+            bidx = torch.arange(x.shape[0], device=x.device)
+            cache["k"][bidx, slot] = k_new[:, 0].to(cache["k"].dtype)
+            cache["v"][bidx, slot] = v_new[:, 0].to(cache["v"].dtype)
+            h = attn.decode_attend(p["mixer"], q, cache["k"], cache["v"], position, window=window, slot=slot)
     else:
         step = mam.mamba_decode_step if spec.kind == "mamba" else rwk.rwkv_decode_step
-        h, new_state = step(p["mixer"], cfg, h, cache)
+        if is_dtensor(h):  # data-parallel, the weights gathered, the state back in the cache's layout
+            keys = sorted(cache)
+            out = on_batch_shards(lambda p, h, *st: _flat_step(step, p, cfg, h, dict(zip(keys, st)), keys),
+                                  p["mixer"], h, *(cache[k] for k in keys))
+            h, new_state = out[0], dict(zip(keys, out[1:]))
+            new_state = {k: redistribute_to(v, spec_of(cache[k])) for k, v in new_state.items()}
+        else:
+            h, new_state = step(p["mixer"], cfg, h, cache)
         for key, value in new_state.items():
             cache[key].copy_(value)
-    x = x + h
+    x = x + constrain(h, "batch")
     if "cross" in p and "cross_k" in cache:
         h = apply_norm(p["norm_x"], x, cfg.norm_eps)
-        x = x + attn.cross_attention(p["cross"], cfg, h, (cache["cross_k"], cache["cross_v"]))
+        x = x + constrain(attn.cross_attention(p["cross"], cfg, h, (cache["cross_k"], cache["cross_v"])), "batch")
     h = apply_norm(p["norm2"], x, cfg.norm_eps)
-    return x + _ffn_serve(p, cfg, spec, h, capacity=False), cache
+    return x + constrain(_ffn_serve(p, cfg, spec, h, capacity=False), "batch"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -313,11 +341,11 @@ def encode(params, cfg: ModelConfig, enc_embeds):
 def forward_hidden(params, cfg: ModelConfig, tokens, *, enc_embeds=None):
     """Like ``forward`` but stops at the final norm: returns (hidden, aux)."""
     specs, _ = block_spec(cfg)
-    x = embed(params["embed"], tokens)
+    x = constrain(embed(params["embed"], tokens), "batch")
     enc_out = None
     if cfg.family == "encdec":
         _require_enc(cfg, enc_embeds)
-        enc_out = encode(params, cfg, enc_embeds.to(x.dtype))
+        enc_out = encode(params, cfg, constrain(enc_embeds.to(x.dtype), "batch"))
     x, aux, z = _scan_blocks(params["blocks"], cfg, specs, x, _positions(tokens), enc_out=enc_out)
     x = apply_norm(params["final_norm"], x, cfg.norm_eps)
     return x, {"moe_aux": aux, "moe_z": z}
@@ -337,6 +365,24 @@ def forward(params, cfg: ModelConfig, tokens, *, enc_embeds=None):
 # ---------------------------------------------------------------------------
 # prefill: full-sequence forward that also fills the decode caches
 # ---------------------------------------------------------------------------
+def _pad_slots(t, pad: int, dtype):
+    """(B, S, H, D) k or v zero-padded to S + ``pad`` slots, in ``dtype``;
+    a DTensor on its shards (its sequence is whole on every rank)."""
+    fn = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)).to(dtype)  # noqa: E731
+    if is_dtensor(t):
+        return on_shards(fn, (t,), (spec_of(t),), (spec_of(t),))
+    return fn(t)
+
+
+def _stack_layers(values):
+    """A DTensor prefill's per-layer caches stacked on a leading layer axis,
+    on the shards."""
+    from repro_torch.distributed.sharding import P
+
+    spec = spec_of(values[0])
+    return on_shards(lambda *v: torch.stack(v), tuple(values), (spec,) * len(values), (P(None, *spec),))
+
+
 def layer_apply_prefill(p, cfg: ModelConfig, spec: LayerSpec, x, positions, max_seq, *, enc_kv=None,
                         pad_mask=None):
     """Full-sequence layer that returns (x, cache) for decode handoff: an
@@ -353,17 +399,14 @@ def layer_apply_prefill(p, cfg: ModelConfig, spec: LayerSpec, x, positions, max_
             p["mixer"], cfg, h, positions, window=cfg.sliding_window, return_kv=True, pad_mask=pad_mask
         )
         pad = max_seq - x.shape[1]
-        cache = {
-            "k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)).to(cfg.param_dtype),
-            "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)).to(cfg.param_dtype),
-        }
-    x = x + h
+        cache = {"k": _pad_slots(k, pad, cfg.param_dtype), "v": _pad_slots(v, pad, cfg.param_dtype)}
+    x = x + constrain(h, "batch")
     if "cross" in p and enc_kv is not None:
         hq = apply_norm(p["norm_x"], x, cfg.norm_eps)
-        x = x + attn.cross_attention(p["cross"], cfg, hq, enc_kv)
+        x = x + constrain(attn.cross_attention(p["cross"], cfg, hq, enc_kv), "batch")
         cache["cross_k"], cache["cross_v"] = enc_kv
     hh = apply_norm(p["norm2"], x, cfg.norm_eps)
-    return x + _ffn_serve(p, cfg, spec, hh, capacity=True), cache
+    return x + constrain(_ffn_serve(p, cfg, spec, hh, capacity=True), "batch"), cache
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None, enc_embeds=None, positions=None, pad_mask=None):
@@ -389,7 +432,7 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None, enc_embeds=None, 
             f"{cfg.name} has recurrent layers — use exact-length batches"
         )
     max_seq = max_seq or tokens.shape[1]
-    x = embed(params["embed"], tokens)
+    x = constrain(embed(params["embed"], tokens), "batch")
     if positions is None:
         positions = _positions(tokens)
     enc_out = None
@@ -397,14 +440,23 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_seq=None, enc_embeds=None, 
         _require_enc(cfg, enc_embeds)
         enc_out = encode(params, cfg, enc_embeds.to(x.dtype))
     frames = None if enc_out is None else enc_out.shape[1]
-    cache = _zeros_cache(cfg, tokens.shape[0], max_seq, tokens.device, frames=frames)
+    sharded = is_dtensor(x)
+    # a DTensor prefill stacks its layers' caches (DTensor cannot write a
+    # shard into a preallocated whole); otherwise they fill the zeroed cache
+    cache = [dict() for _ in specs] if sharded else _zeros_cache(cfg, tokens.shape[0], max_seq, tokens.device,
+                                                                 frames=frames)
     for l in range(n_blocks):
         for pos, spec in enumerate(specs):
             p = _layer(params["blocks"][pos], l)
             kv = attn.encoder_kv(p["cross"], cfg, enc_out) if enc_out is not None and "cross" in p else None
             x, c = layer_apply_prefill(p, cfg, spec, x, positions, max_seq, enc_kv=kv, pad_mask=pad_mask)
             for key, value in c.items():
-                cache[pos][key][l] = value
+                if sharded:
+                    cache[pos].setdefault(key, []).append(value)
+                else:
+                    cache[pos][key][l] = value
+    if sharded:
+        cache = tuple({k: _stack_layers(v) for k, v in c.items()} for c in cache)
     x = apply_norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     head = params.get("lm_head", params["embed"])
     return unembed(head, x), cache
@@ -442,8 +494,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, enc_embeds=None, p
 
     For encdec, each decoder layer's cross K and V are computed from the
     encoder output, which needs ``params`` and ``enc_embeds`` (on
-    ``device``)."""
-    dev = resolve_device(device)
+    ``device``; ``"meta"`` gives the dry run's shapes)."""
+    dev = resolve_device(device, meta=True)
     if cfg.family != "encdec":
         return _zeros_cache(cfg, batch, max_seq, dev)
     if params is None:
@@ -469,7 +521,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, position, *, slot=None):
     are) and returned.
     """
     specs, n_blocks = block_spec(cfg)
-    x = embed(params["embed"], token)
+    x = constrain(embed(params["embed"], token), "batch")
     for l in range(n_blocks):
         for pos, spec in enumerate(specs):
             x, _ = layer_apply_decode(

@@ -103,6 +103,8 @@ def _to_meta(a):
     same shape, strides and dtype (tuples, lists and dicts walked)."""
     import torch
 
+    if _is_dtensor(a):
+        return _dtensor_to_meta(a)
     if isinstance(a, torch.Tensor):
         return torch.empty_strided(a.size(), a.stride(), dtype=a.dtype, device="meta")
     if isinstance(a, tuple) and hasattr(a, "_fields"):  # a NamedTuple (the train step's state)
@@ -114,6 +116,25 @@ def _to_meta(a):
     return a
 
 
+def _is_dtensor(a) -> bool:
+    from repro_torch.distributed.axes import is_dtensor
+
+    return is_dtensor(a)
+
+
+def _dtensor_to_meta(a):
+    """A DTensor with fake shards (the dry run's) as it is; any other with
+    meta shards of the same shapes, placements and mesh."""
+    from torch._subclasses.fake_tensor import is_fake
+    from torch.distributed.tensor import DTensor
+
+    local = a.to_local()
+    if is_fake(local):
+        return a
+    meta = torch.empty_strided(local.size(), local.stride(), dtype=local.dtype, device="meta")
+    return DTensor.from_local(meta, a.device_mesh, a.placements, run_check=False, shape=a.shape, stride=a.stride())
+
+
 def _has_tensor(a) -> bool:
     import torch
 
@@ -123,6 +144,16 @@ def _has_tensor(a) -> bool:
         return any(_has_tensor(x) for x in a)
     if isinstance(a, dict):
         return any(_has_tensor(v) for v in a.values())
+    return False
+
+
+def _any_dtensor(a) -> bool:
+    if _is_dtensor(a):
+        return True
+    if isinstance(a, (tuple, list)):
+        return any(_any_dtensor(x) for x in a)
+    if isinstance(a, dict):
+        return any(_any_dtensor(v) for v in a.values())
     return False
 
 
@@ -158,10 +189,58 @@ def _byte_counter():
     return ByteCounter()
 
 
+def _local_counter():
+    """The two counters of :func:`_count` as one dispatch mode that lets
+    every DTensor operation through to DTensor's own dispatch first, so it
+    counts each rank's local operations (its shards' FLOPs and bytes, the
+    per-rank cost of a sharded program)."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+    from torch.utils.flop_counter import FlopCounterMode
+
+    import torch
+
+    flops = FlopCounterMode(display=False)
+    nbytes = _byte_counter()
+
+    class LocalCounter(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            if func not in flops.flop_registry and func is not torch.ops.prim.device.default:
+                with self:
+                    r = func.decompose(*args, **kwargs)
+                if r is not NotImplemented:
+                    return r
+            out = func(*args, **kwargs)
+            if func._overloadpacket in flops.flop_registry:
+                try:
+                    flops._count_flops(func._overloadpacket, out, args, kwargs)
+                except TypeError:  # a formula without an overload's extra arguments (bmm.dtype's out_dtype)
+                    tensors = tuple(a for a in args if isinstance(a, torch.Tensor))
+                    flops._count_flops(func._overloadpacket, out, tensors, {})
+            if not nbytes._is_view(func):
+                for t in tree_flatten(out)[0]:
+                    if hasattr(t, "element_size"):
+                        nbytes.total += t.numel() * t.element_size()
+            return out
+
+    return LocalCounter(), flops, nbytes
+
+
 def _count(fn, args, kwargs) -> dict:
     """FLOPs (``FlopCounterMode``: matrix products and convolutions, forward
-    and backward) and bytes written of one call on meta tensors."""
+    and backward) and bytes written of one call on meta tensors; on
+    DTensors, those of this rank's shards (:func:`_local_counter`)."""
     from torch.utils.flop_counter import FlopCounterMode
+
+    if _any_dtensor((args, kwargs)):
+        mode, flops, nbytes = _local_counter()
+        with mode:
+            fn(*args, **kwargs)
+        return {"flops": float(flops.get_total_flops()), "bytes_moved": float(nbytes.total)}
 
     nbytes = _byte_counter()
     flops = FlopCounterMode(display=False)

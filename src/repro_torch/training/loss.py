@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.axes import is_dtensor
+
 
 def _logsumexp(x):
     """``log(sum(exp(x - max))) + max`` with the max held constant, as JAX
@@ -22,7 +24,13 @@ def softmax_nll(logits, labels):
     """Per-example cross entropy. logits (..., V) -> (...) in fp32."""
     logits = logits.to(torch.float32)
     logz = _logsumexp(logits)
-    gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    if is_dtensor(logits):
+        # DTensor cannot gather along a sharded vocabulary: pick the gold
+        # logit by a one-hot sum, the same value (one nonzero term)
+        hit = labels.to(torch.int64)[..., None] == torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(hit, logits, 0.0).sum(dim=-1)
+    else:
+        gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
     return logz - gold
 
 
@@ -62,9 +70,27 @@ def chunked_lm_loss(hidden, emb, labels, *, chunk: int = 512):
     table = emb.float()
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, s, chunk):
-        logits = torch.einsum("bcd,vd->bcv", hidden[:, i:i + chunk].float(), table)
+        logits = _chunk_logits(hidden[:, i:i + chunk].float(), table)
         total = total + softmax_nll(logits, labels[:, i:i + chunk]).sum()
     return total / (b * s)
+
+
+def _chunk_logits(h, table):
+    """(B, c, d) x (V, d) -> (B, c, V) fp32 logits; for DTensors, each
+    model rank's vocabulary slice from its table shard (vocab-parallel;
+    the hidden states' gradient is then a sum over the model ranks)."""
+    if not is_dtensor(table):
+        return torch.einsum("bcd,vd->bcv", h, table)
+    from repro_torch.distributed.axes import Whole, current_hints, kind_spec, on_shards
+    from repro_torch.distributed.sharding import P
+
+    hints = current_hints()
+    m = hints.model_axis
+    vocab = m if (m and table.shape[0] % hints.model_size == 0 and table.shape[0] >= hints.model_size) else None
+    rows = kind_spec(tuple(h.shape), "batch")
+    out = P(rows[0], None, vocab)
+    return on_shards(lambda a, t: torch.einsum("bcd,vd->bcv", a, t), (h, table),
+                     (Whole(rows, (m,) if vocab else ()), Whole(P(vocab, None))), (out,))
 
 
 def accuracy(logits, labels):

@@ -101,6 +101,11 @@ def tree_scale(a, s):
     return tree_map(lambda x: x * s, a)
 
 
+def tree_zeros_like(a):
+    """A tree of zeros shaped, typed and placed like ``a``'s leaves."""
+    return tree_map(torch.zeros_like, a)
+
+
 def tree_weighted_mean(trees: Sequence, weights):
     """FedAvg of a list of trees (paper eq. 6 and 8): sum_i w_i tree_i / sum_i w_i.
 

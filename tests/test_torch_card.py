@@ -1225,3 +1225,101 @@ def test_mesh_one_rank_is_the_device_pipeline_on_card(cuda):
     for a, b in zip(tree_leaves(got.final_params), tree_leaves(want.final_params), strict=True):
         assert a.is_cuda and torch.equal(a, b)
     assert got.comm_report["cross_edge_total_bytes"] == 0.0
+
+
+def _one_rank_group(backend="nccl"):
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    assert dist.get_world_size() == 1
+
+
+@pytest.mark.parametrize("mode", ["tp", "fsdp"])
+def test_one_rank_sharded_step_is_the_unsharded_step_on_card(cuda, mode):
+    """``make_train_step(param_pspec=)`` on a (1, 1) ("data", "model") mesh
+    over a one-rank NCCL group, the state laid out as DTensors: 2 steps of
+    the qwen3 smoke config (grad_accum 2) bit for bit the unsharded
+    step's, and no kernel launch."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import param_specs
+    from repro_torch.models import init_params
+    from repro_torch.training import adam, gather_train_state, init_train_state, make_train_step, shard_train_state
+    from repro_torch.utils.tree import tree_leaves
+
+    _one_rank_group()
+    mesh = DeviceMesh("cuda", [[0]], mesh_dim_names=("data", "model"))
+    cfg = get_smoke_config("qwen3-14b")
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2):
+        t = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 17)), device=cuda)
+        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    runs = []
+    reset_launch_counts()
+    for sharded in (False, True):
+        params = init_params(torch.Generator("cuda").manual_seed(0), cfg)
+        opt = adam(1e-3)
+        state = init_train_state(params, opt)
+        spec = param_specs(cfg, params, mode, mesh) if sharded else None
+        if sharded:
+            state = shard_train_state(state, spec, mesh)
+        step = make_train_step(cfg, opt, grad_accum=2, param_pspec=spec)
+        metrics = []
+        for b in batches:
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+        if sharded:
+            state = gather_train_state(state)
+        runs.append((metrics, tree_leaves(state.params)))
+    assert runs[0][0] == runs[1][0]
+    assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1], strict=True))
+    assert not any(launch_counts().values())
+
+
+def test_hfl_param_specs_state_syncs_through_hier_aggregate_on_card(cuda):
+    """``make_hfl_train_step`` on an edge mesh of one rank with its state
+    built by ``DTensor.from_local`` on ``hfl_param_specs``' placements: the
+    sync launches ``hier_aggregate`` once a leaf, and each replica after it
+    is the kernel's plain version of the replicas the same local step
+    leaves (1e-5)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import edge_mesh, hfl_param_specs, init_hfl_state, make_hfl_train_step
+    from repro_torch.distributed.sharding import param_specs, to_placements
+    from repro_torch.models import init_params
+    from repro_torch.training import TrainState, adam
+    from repro_torch.training.train_step import _spec_leaves
+    from repro_torch.utils.tree import tree_leaves, tree_map, tree_paths, tree_unflatten
+
+    _one_rank_group()
+    mesh = edge_mesh(1)
+    cfg = get_smoke_config("phi3-mini-3.8b")
+    params = init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    specs = hfl_param_specs(param_specs(cfg, params, "tp", mesh))
+    opt = adam(1e-3)
+    t = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 3, 4, 17)), device=cuda)
+    batch = {"tokens": t[0, ..., :-1], "labels": t[0, ..., 1:]}
+    plain = init_hfl_state(params, opt, 3, mesh=mesh)
+    clone = TrainState(tree_map(torch.clone, plain.params), tree_map(torch.clone, plain.opt_state), 0)
+
+    def wrap(tree):
+        paths = tree_paths(tree)
+        return tree_unflatten(paths, [DTensor.from_local(x, mesh, to_placements(sp, mesh), run_check=False)
+                                      for x, sp in zip(tree_leaves(tree), _spec_leaves(specs, paths))])
+
+    state = TrainState(wrap(plain.params), tuple(wrap(o) for o in plain.opt_state), 0)
+    reset_launch_counts()
+    state, _ = make_hfl_train_step(cfg, opt, sync=True, mesh=mesh)(state, batch)
+    torch.cuda.synchronize()
+    assert launch_counts()["hier_aggregate"] == len(tree_leaves(state.params))
+    local, _ = make_hfl_train_step(cfg, opt, sync=False, mesh=mesh)(clone, batch)  # the same local update
+    w = torch.full((3,), 1.0 / 3, device=cuda)
+    for got, rep in zip(tree_leaves(state.params), tree_leaves(local.params), strict=True):
+        assert isinstance(got, DTensor)
+        want = hier_aggregate_ref(rep.reshape(3, -1), w).reshape(rep.shape[1:])
+        for r in range(3):
+            torch.testing.assert_close(got.to_local()[r], want, atol=1e-5, rtol=1e-5)

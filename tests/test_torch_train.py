@@ -172,12 +172,16 @@ def test_train_step_matches_reference(arch):
 
 
 def test_train_step_refuses_a_mesh_and_serve_step_decodes():
+    """Given a spec tree (the sharded step), the step refuses a state whose
+    parameters are not DTensors laid out on a mesh, rather than train them
+    unsharded (``tests/test_torch_sharded_train.py`` runs it on a mesh)."""
     cfg = get_smoke_config("qwen3-14b")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        training.make_train_step(cfg, training.adam(), param_pspec={})
     params = training.init_train_state(
         __import__("repro_torch.models", fromlist=["init_params"]).init_params(torch.Generator().manual_seed(0), cfg),
         training.sgd(0.1)).params
+    step = training.make_train_step(cfg, training.adam(), param_pspec={})
+    with pytest.raises(ValueError, match="DTensor"):
+        step(training.init_train_state(params, training.adam()), _torch_batch(_batches(cfg)[0]))
     from repro_torch.models.transformer import decode_step, prefill
 
     toks = torch.arange(6)[None] % cfg.vocab_size
