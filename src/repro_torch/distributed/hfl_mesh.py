@@ -30,6 +30,7 @@ from repro_torch.distributed.axes import EDGE_AXIS, is_dtensor, mesh_rank, mesh_
 from repro_torch.distributed.sharding import P, map_specs
 from repro_torch.engine.flatten import flat_mean
 from repro_torch.models.config import ModelConfig
+from repro_torch.telemetry import NULL_TELEMETRY, coerce_telemetry
 from repro_torch.training.optimizers import Optimizer, clip_by_global_norm_
 from repro_torch.training.train_step import TrainState, _value_and_grad, make_loss_fn
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -63,6 +64,7 @@ def make_hfl_train_step(
     grad_clip: float = 1.0,
     sync_opt_state: bool = False,
     mesh=None,
+    telemetry=None,
 ):
     """(state, batch) -> (state, metrics) with per-edge replicas.
 
@@ -76,12 +78,21 @@ def make_hfl_train_step(
     moments under ``sync_opt_state``: per leaf one ``flat_mean`` (the
     ``hier_aggregate`` kernel on the card) over the rank's replicas.  Metrics, over all E edges: ``total_loss`` (the
     mean), ``grad_norm`` (the largest edge norm), ``edge_loss_spread``.
+
+    ``telemetry`` (True, a directory or a ``Telemetry``, as the engines
+    take it) records the span ``hfl_step`` (attrs ``sync``, ``edges``), in
+    it per edge ``loss_grad``, ``clip`` and ``adam`` (attr ``edge``), and
+    ``cloud_avg`` (attrs ``leaves``, ``sync_opt_state``), and the counters
+    ``tokens_trained`` (the rank's E x B x S a step) and ``sync_steps``;
+    under a recording ``torch.profiler`` each span is a ``tel:`` range, so
+    a step's device time splits by them.  Off, the step is unchanged.
     """
     loss_fn = make_loss_fn(cfg)
     k = 1 if mesh is None else mesh_size(mesh)
     rank = 0 if mesh is None else mesh_rank(mesh)
     group = None if mesh is None else mesh.get_group(EDGE_AXIS)
     weights = None if edge_weights is None else np.asarray(torch.as_tensor(edge_weights).cpu(), np.float64)
+    tel = coerce_telemetry(telemetry) or NULL_TELEMETRY
 
     def cloud_avg_(leaves, e_local: int) -> None:
         n_edges = e_local * k
@@ -105,39 +116,47 @@ def make_hfl_train_step(
                                 {key: v.to_local() if is_dtensor(v) else v for key, v in batch.items()})
             return TrainState(state.params, state.opt_state, out.step), metrics
         e_local = tree_leaves(state.params)[0].shape[0]
-        totals, gnorms = [], []
-        for e in range(e_local):
-            params_e = tree_map(lambda x: x[e], state.params)
-            opt_e = tree_map(lambda x: x[e], state.opt_state)
-            (total, _), grads = _value_and_grad(loss_fn, params_e, {key: v[e] for key, v in batch.items()})
-            gnorms.append(clip_by_global_norm_(grads, grad_clip))
-            totals.append(total)
-            if optimizer.update_ is not None:
-                optimizer.update_(params_e, grads, opt_e, state.step)
-            else:
-                with torch.no_grad():
-                    new_p, new_o = optimizer.update(params_e, grads, opt_e, state.step)
-                    for dst, src in zip(tree_leaves((params_e, opt_e)), tree_leaves((new_p, new_o))):
-                        dst.copy_(src)
-        with torch.no_grad():
-            if sync:
-                leaves = tree_leaves(state.params)
-                if sync_opt_state:  # server-side moment averaging (3x the sync payload)
-                    leaves = leaves + tree_leaves(state.opt_state)
-                cloud_avg_(leaves, e_local)
-            per_edge = torch.stack([torch.stack(totals), torch.stack(gnorms)])
-            if k > 1:  # every edge's loss and norm, for the metrics
-                full = torch.zeros((2, e_local * k), dtype=per_edge.dtype, device=per_edge.device)
-                full[:, rank * e_local : (rank + 1) * e_local] = per_edge
-                dist.all_reduce(full, group=group)
-                per_edge = full
-        totals_all, gnorms_all = per_edge
-        metrics = {
-            "total_loss": totals_all.mean(),
-            "grad_norm": gnorms_all.max(),
-            "edge_loss_spread": totals_all.max() - totals_all.min(),
-        }
-        return TrainState(state.params, state.opt_state, state.step + 1), metrics
+        with tel.span("hfl_step", sync=sync, edges=e_local):
+            totals, gnorms = [], []
+            for e in range(e_local):
+                params_e = tree_map(lambda x: x[e], state.params)
+                opt_e = tree_map(lambda x: x[e], state.opt_state)
+                with tel.span("loss_grad", edge=e):
+                    (total, _), grads = _value_and_grad(loss_fn, params_e, {key: v[e] for key, v in batch.items()})
+                with tel.span("clip", edge=e):
+                    gnorms.append(clip_by_global_norm_(grads, grad_clip))
+                totals.append(total)
+                with tel.span("adam", edge=e):
+                    if optimizer.update_ is not None:
+                        optimizer.update_(params_e, grads, opt_e, state.step)
+                    else:
+                        with torch.no_grad():
+                            new_p, new_o = optimizer.update(params_e, grads, opt_e, state.step)
+                            for dst, src in zip(tree_leaves((params_e, opt_e)), tree_leaves((new_p, new_o))):
+                                dst.copy_(src)
+            with torch.no_grad():
+                if sync:
+                    leaves = tree_leaves(state.params)
+                    if sync_opt_state:  # server-side moment averaging (3x the sync payload)
+                        leaves = leaves + tree_leaves(state.opt_state)
+                    with tel.span("cloud_avg", leaves=len(leaves), sync_opt_state=sync_opt_state):
+                        cloud_avg_(leaves, e_local)
+                per_edge = torch.stack([torch.stack(totals), torch.stack(gnorms)])
+                if k > 1:  # every edge's loss and norm, for the metrics
+                    full = torch.zeros((2, e_local * k), dtype=per_edge.dtype, device=per_edge.device)
+                    full[:, rank * e_local : (rank + 1) * e_local] = per_edge
+                    dist.all_reduce(full, group=group)
+                    per_edge = full
+            if tel.enabled:
+                tel.metrics.inc("tokens_trained", batch["tokens"].numel())
+                tel.metrics.inc("sync_steps", int(sync))
+            totals_all, gnorms_all = per_edge
+            metrics = {
+                "total_loss": totals_all.mean(),
+                "grad_norm": gnorms_all.max(),
+                "edge_loss_spread": totals_all.max() - totals_all.min(),
+            }
+            return TrainState(state.params, state.opt_state, state.step + 1), metrics
 
     return step
 

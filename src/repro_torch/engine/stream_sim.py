@@ -41,11 +41,15 @@ members, so the two engines train on the same batches.
 ``telemetry`` records the reference's spans (``cloud_round``,
 ``assignment``, ``cohort_epoch`` per step-bucket group, ``edge_aggregate``,
 ``cloud_reduce``, ``eval``), the ``participating`` gauge and the paged
-store's ``page_hits``, ``page_misses`` and ``page_evictions``.  The span
-sequence is the reference's; the round's paging (one batched write of the
-misses, before the first group) falls inside ``cloud_round`` but in none
-of its child spans, where the reference pages each group inside its
-``cohort_epoch``.
+store's ``page_hits``, ``page_misses`` and ``page_evictions``, in the
+reference's order.  Three spans are the port's own: ``cohort_draw``
+(``CohortSpec.draw``) and ``batch_plan`` (``StreamCohortPlan.draw``)
+inside ``assignment``, and ``page_in`` inside ``cloud_round``: the round's
+paging, one batched write of the misses and the slots' upload before the
+first group, where the reference pages each group inside its
+``cohort_epoch``.  Under a recording ``torch.profiler`` each span is a
+``tel:`` range too, which puts the card's idle time of a round down to
+them.
 """
 from __future__ import annotations
 
@@ -159,13 +163,16 @@ class StreamSyncEngine:
         edge matrix and the members' (C,) losses, still on the device."""
         dev, n, tel = self.device, self.n_edges, self.tel
         with tel.span("assignment", round=b, engine="sync-stream"):
-            members = self.cohort.draw(b, er, eligible=self.eligible, edge_of=self.edge_of, m=self.m)
-            groups, passthrough = self.plan.draw(self.rng, members, self.schedule.local_steps)
+            with tel.span("cohort_draw", round=b):
+                members = self.cohort.draw(b, er, eligible=self.eligible, edge_of=self.edge_of, m=self.m)
+            with tel.span("batch_plan", round=b, clients=len(members)):
+                groups, passthrough = self.plan.draw(self.rng, members, self.schedule.local_steps)
             if tel.enabled:
                 tel.metrics.set_gauge("participating", len(members))
         trained = np.concatenate([g.members for g in groups]) if groups else np.zeros(0, np.int64)
         # the round's misses are paged in by one batched write
-        slots = upload(self.store.ensure(trained), dev)
+        with tel.span("page_in", round=b, clients=len(trained)):
+            slots = upload(self.store.ensure(trained), dev)
         starts = edge_mat[upload(self.edge_of[trained].astype(np.int64), dev)]
         rows: List[torch.Tensor] = []
         losses: List[torch.Tensor] = []

@@ -3,7 +3,9 @@
 The port's copy of the reference's facade (``src/repro/telemetry``):
 
 * ``tel.span("prefill", batch=b, ...)`` — wall-clock spans (nested,
-  thread-safe) around the hot paths.
+  thread-safe) around the hot paths; while a ``torch.profiler`` records,
+  each is also a ``tel:<name>`` range in its trace, so the device time
+  under a span is read there (see ``telemetry/trace.py``).
 * ``tel.sim_span(...)`` — spans on a *simulated-time* track.
 * ``tel.metrics`` — counters/gauges/histograms.
 * ``tel.jit_cost(key, fn, *args)`` — analytic FLOPs and bytes of one
@@ -13,10 +15,12 @@ The port's copy of the reference's facade (``src/repro/telemetry``):
   kernel launch, no generator draw) under ``torch.utils.flop_counter``,
   with a byte counter beside it (see :meth:`Telemetry.jit_cost`).
 * ``tel.on_round(...)`` — one record per round, exported as JSONL plus an
-  end-of-run summary table.  Beside the reference's fields each record
-  carries ``kernel_launches``: the launches of each CUDA kernel of the port
-  since the previous record (also the gauges ``kernel_launches/<kernel>``),
-  the port's reading of what a round put on the card.
+  end-of-run summary table.  The reference's fields, less its
+  ``jit_cache_sizes`` (the port compiles no program per shape); beside
+  them each record carries ``kernel_launches``: the launches of each CUDA
+  kernel of the port since the previous record (also the gauges
+  ``kernel_launches/<kernel>``), the port's reading of what a round put on
+  the card.
 
 Disabled telemetry is the :data:`NULL_TELEMETRY` singleton — every call
 resolves to a shared no-op object, so instrumented code pays one attribute
@@ -34,15 +38,9 @@ import json
 from pathlib import Path
 from typing import Dict, List, Optional
 
-from repro_torch.telemetry.metrics import (  # noqa: F401  (re-exports)
-    MetricsRegistry,
-    NULL_METRICS,
-    jit_cache_sizes,
-    register_jit,
-    registered_jits,
-)
+from repro_torch.telemetry.metrics import MetricsRegistry, NULL_METRICS  # noqa: F401  (re-exports)
 from repro_torch.telemetry.report import CommDelta, summary_table, write_rounds_jsonl
-from repro_torch.telemetry.trace import NULL_SPAN, NULL_TRACER, Tracer
+from repro_torch.telemetry.trace import NULL_SPAN, NULL_TRACER, RANGE_PREFIX, Tracer
 
 
 def _arg_key(a):
@@ -302,9 +300,6 @@ class Telemetry:
     def span(self, name: str, **attrs):
         return self.tracer.span(name, **attrs)
 
-    def instant(self, name: str, **attrs) -> None:
-        self.tracer.instant(name, **attrs)
-
     def sim_span(self, name: str, t0: float, t1: float, **attrs) -> None:
         self.tracer.sim_span(name, t0, t1, **attrs)
 
@@ -388,7 +383,6 @@ class Telemetry:
         self._later = []
         rec = dict(fields)
         rec["spans"] = self._span_aggregate()
-        rec["jit_cache_sizes"] = jit_cache_sizes()
         rec["kernel_launches"] = self._launches()
         for k, v in rec["kernel_launches"].items():
             self.metrics.set_gauge(f"kernel_launches/{k}", v)
@@ -433,9 +427,6 @@ class _NullTelemetry:
 
     def span(self, name: str, **attrs):
         return NULL_SPAN
-
-    def instant(self, name: str, **attrs) -> None:
-        pass
 
     def sim_span(self, name: str, t0: float, t1: float, **attrs) -> None:
         pass
@@ -486,9 +477,7 @@ __all__ = [
     "Tracer",
     "MetricsRegistry",
     "CommDelta",
-    "register_jit",
-    "jit_cache_sizes",
-    "registered_jits",
+    "RANGE_PREFIX",
     "step_loop",
     "client_map",
     "summary_table",

@@ -1,4 +1,4 @@
-"""Metrics registry: counters, gauges, histograms, and jit-compile counts.
+"""Metrics registry: counters, gauges, histograms.
 
 The registry is deliberately tiny — a dict of floats per kind — because the
 hot paths touch it per cohort / per upload, and anything heavier would show
@@ -6,24 +6,15 @@ up in the very benchmarks it instruments.  Histograms keep running moments
 (count/sum/sum-of-squares/min/max) plus a bounded sample reservoir for
 percentiles.
 
-Jit-compile accounting: engine modules call :func:`register_jit` at import
-time for each module-level ``jax.jit`` function.  :func:`jit_cache_sizes`
-reads each function's compiled-program cache size (``_cache_size()``), so a
-before/after delta counts *actual XLA compilations* — the compile-count
-regression guard in ``tests/test_telemetry.py`` pins these deltas to lock
-in the tiny-N ``flat_mean`` recompile fix.
-
-(A stdlib-only copy of the reference's ``telemetry/metrics.py``.  The port
-runs eagerly and compiles nothing per shape, so no module registers a
-function and :func:`jit_cache_sizes` is empty; every round record still
-carries it, as the reference's consumers expect.  The port's reading of
-the same question, what a round put on the device, is the per-round
-``kernel_launches`` of ``Telemetry.on_round``.)
+(A stdlib-only copy of the reference's ``telemetry/metrics.py``, less its
+jit-compile accounting: the port runs eagerly and compiles nothing per
+shape.  The port's reading of what a round put on the device is the
+per-round ``kernel_launches`` of ``Telemetry.on_round``.)
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List
+from typing import Dict, List
 
 _MAX_SAMPLES = 65536
 
@@ -119,37 +110,3 @@ class NullMetrics:
 
 
 NULL_METRICS = NullMetrics()
-
-# ---------------------------------------------------------------------------
-# jit compile accounting
-# ---------------------------------------------------------------------------
-
-_JITS: Dict[str, Callable] = {}
-
-
-def register_jit(name: str, fn: Callable) -> Callable:
-    """Register a module-level jitted function for compile counting.
-
-    Idempotent per name; returns ``fn`` so it can wrap a definition.
-    """
-    _JITS[name] = fn
-    return fn
-
-
-def jit_cache_sizes() -> Dict[str, int]:
-    """Compiled-program cache size per registered jit function.
-
-    A function absent from the result does not expose ``_cache_size`` under
-    the running jax version (the accounting degrades gracefully).
-    """
-    out: Dict[str, int] = {}
-    for name, fn in _JITS.items():
-        try:
-            out[name] = int(fn._cache_size())
-        except Exception:  # pragma: no cover - jax-version dependent
-            continue
-    return out
-
-
-def registered_jits() -> Dict[str, Callable]:
-    return dict(_JITS)

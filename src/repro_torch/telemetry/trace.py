@@ -5,7 +5,9 @@ key/value attributes — on two tracks:
 
 * ``wall``  : real host time (``time.perf_counter`` relative to the tracer
   epoch).  Opened with ``with tracer.span("cohort_epoch", round=r): ...``;
-  nesting is tracked per thread so parent/child links survive concurrency.
+  nesting is tracked per thread so parent/child links survive concurrency;
+  under a recording ``torch.profiler`` each is also a profiler range
+  (see the timing caveat below).
 * ``sim``   : simulated seconds (the async engine's ``EventQueue.now`` /
   the sync engine's :class:`~repro_torch.core.hfl.WallClock`).  Recorded after
   the fact via :meth:`Tracer.sim_span` since simulated intervals are known
@@ -21,8 +23,16 @@ Exports:
 
 Timing caveat: wall spans measure *host-side* time around device dispatch;
 they do not force a synchronise (that would perturb the very pipeline
-being observed).  Spans that contain an eval or a numpy conversion are
-implicitly synchronised; pure-dispatch spans can under-report device time.
+being observed), so a span that only dispatches says nothing of the
+device time it caused.  That is read from a profiler trace instead: while
+a ``torch.profiler`` records, every wall span is also a
+``record_function`` range named ``tel:<span name>`` (:data:`RANGE_PREFIX`),
+opened and closed with the span, on the profiler's own clock beside the
+device operations.  A device operation belongs to the span that was
+innermost-open when the host launched it (its runtime launch event in the
+trace); the device's idle time to the span open while it idled.  With no
+profiler recording a span costs one flag check more; the null tracer opens
+no range.
 """
 from __future__ import annotations
 
@@ -33,6 +43,18 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
+
+RANGE_PREFIX = "tel:"  # a wall span's profiler range is this plus the span's name
+
+
+def _autograd_profiler():
+    """``torch.autograd.profiler`` (its ``_is_profiler_enabled`` flag is
+    true while any ``torch.profiler`` records), or None without torch."""
+    try:
+        import torch.autograd.profiler as prof
+    except ImportError:
+        return None
+    return prof
 
 
 def _jsonable(v):
@@ -85,7 +107,7 @@ class Span:
 class _SpanCtx:
     """Context manager for one in-flight wall span (one per ``span()`` call)."""
 
-    __slots__ = ("_tracer", "name", "attrs", "sid", "parent", "_t0")
+    __slots__ = ("_tracer", "name", "attrs", "sid", "parent", "_t0", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
@@ -94,6 +116,7 @@ class _SpanCtx:
         self.sid = -1
         self.parent: Optional[int] = None
         self._t0 = 0.0
+        self._range = None
 
     def set(self, **attrs) -> "_SpanCtx":
         """Attach attributes to the span while it is open."""
@@ -102,6 +125,10 @@ class _SpanCtx:
 
     def __enter__(self) -> "_SpanCtx":
         tr = self._tracer
+        prof = tr._profiler
+        if prof is not None and prof._is_profiler_enabled:
+            self._range = prof.record_function(RANGE_PREFIX + self.name)
+            self._range.__enter__()
         stack = tr._stack()
         self.sid = next(tr._ids)
         self.parent = stack[-1].sid if stack else None
@@ -119,6 +146,9 @@ class _SpanCtx:
             Span(self.name, self._t0, t1, self.sid, self.parent,
                  threading.get_ident() & 0xFFFF, "wall", self.attrs)
         )
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
         return False
 
 
@@ -131,6 +161,7 @@ class Tracer:
         self._local = threading.local()
         self._ids = itertools.count()
         self._epoch = time.perf_counter()
+        self._profiler = _autograd_profiler()
         self.spans: List[Span] = []
 
     # -- recording -----------------------------------------------------
@@ -152,12 +183,6 @@ class Tracer:
     def span(self, name: str, **attrs) -> _SpanCtx:
         """Open a wall-clock span: ``with tracer.span("eval", round=r):``."""
         return _SpanCtx(self, name, attrs)
-
-    def instant(self, name: str, **attrs) -> None:
-        """Record a zero-duration wall event."""
-        t = self.now()
-        self._append(Span(name, t, t, next(self._ids), None,
-                          threading.get_ident() & 0xFFFF, "wall", attrs))
 
     def sim_span(self, name: str, t0: float, t1: float, *, tid: int = 0,
                  **attrs) -> None:
@@ -241,9 +266,6 @@ class NullTracer:
 
     def span(self, name: str, **attrs) -> _NullSpan:
         return NULL_SPAN
-
-    def instant(self, name: str, **attrs) -> None:
-        pass
 
     def sim_span(self, name: str, t0: float, t1: float, **attrs) -> None:
         pass

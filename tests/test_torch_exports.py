@@ -23,9 +23,13 @@ NO_MODULE = {
     "kernels/ref.py": "each kernel's wrapper module holds its plain-torch version",
 }
 # (module, public name) with no port counterpart, and why
+JIT = "the port compiles no program per shape: no jit to register or count (its round records carry " \
+      "kernel_launches instead)"
 NO_NAME = {
     ("distributed.analysis", "roofline_from_compiled"): "torch has no compiled artifact: the dry run builds "
                                                         "Roofline from its own counts",
+    **{(m, n): JIT for m in ("telemetry", "telemetry.metrics")
+       for n in ("register_jit", "jit_cache_sizes", "registered_jits")},
 }
 # reference parameters the port does not take, and why
 KEY = "key= (a jax.random key) became a torch.Generator"
