@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --wrappers ROOT   # the small kernels and their whole wrapper calls only
+    python3 chip_smoke.py --adam            # the build and phase 3's adam_update line only
 
 Phases, each of which raises (and the script exits non-zero) on failure:
 
@@ -45,7 +46,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    shapes) timed at the granite-moe router width (E 40, k 8) for phase
    9a's decode (T 4), phase 9b's prefill (T 2048) and 8192 tokens, and at E
    128 and 1000, beside softmax -> topk -> scatter -> divide as a
-   yardstick;
+   yardstick; ``adam_update`` at phi3-mini's edge replica as the LM
+   benchmark cell holds it (8 layers, 12 leaves, bf16 p and g, fp32
+   moments): two steps of ``adam(1e-3).update_`` (one launch a leaf a
+   step) against the plain version, 0 differing elements, then the (8,
+   8192, 3072) MLP stack and the whole replica timed beside the bound (22
+   bytes an element), the plain sliced version and ``torch._fused_adam_``;
 4. card against CPU: the heartbeat sync engine (scale 0.02, two cloud
    rounds), the streaming engine (a lazy population of 120 over 4 edges, a
    cohort of 24, two rounds), and the qwen3-14b smoke config served with
@@ -299,6 +305,13 @@ FLASH_SIMT_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:131"
 TOPK_SOURCE = "src/repro_torch/kernels/csrc/topk_gating.cu"
 TOPK_REPLACES = "src/repro/kernels/topk_gating.py:53"
+ADAM_SOURCE = "src/repro_torch/kernels/csrc/adam.cu"
+ADAM_REPLACES = "none: the reference's Adam is jnp (src/repro/training/optimizers.py), fused by XLA"
+# the in-place Adam at the benchmark's phi3 shapes: phi3-mini-3.8b cut to 8
+# layers, one edge replica (12 leaves), bf16 parameters and gradients, fp32
+# moments; its MLP stack (8, 8192, 3072) is the largest leaf
+ADAM_LAYERS, ADAM_LEAVES, ADAM_PARAMS = 8, 12, 1_103_023_104
+ADAM_STACK = (8, 8192, 3072)
 
 # by card name (NVIDIA data sheets, dense rates): memory bytes/s, bf16
 # tensor-core FLOP/s, fp32 (non-tensor) FLOP/s
@@ -629,6 +642,143 @@ def _kernel_phase(rate: float, d_model: int, host_n: int, mix_ids) -> dict:
                 line += " " + _fmt(t)
             print(line, flush=True)
     return result
+
+
+def _adam_scales(step: int, b1: float = 0.9, b2: float = 0.999):
+    """(mh_scale, vh_scale) of ``adam``'s step ``step``, in float32 as
+    ``training/optimizers.py`` computes them."""
+    import numpy as np
+
+    t = np.float32(step) + np.float32(1.0)
+    return (float(np.float32(1.0) / (np.float32(1.0) - np.float32(b1) ** t)),
+            float(np.float32(1.0) / (np.float32(1.0) - np.float32(b2) ** t)))
+
+
+def _bits_differ(a, b) -> int:
+    """Elements of ``a`` and ``b`` whose bits differ."""
+    import torch
+
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return int((a.view(ints[a.dtype]) != b.view(ints[b.dtype])).sum())
+
+
+def _adam_phase(rate: float, smi: str) -> dict:
+    """Phase 3, ``adam_update``: phi3-mini-3.8b's edge replica as the
+    benchmark's LM cell holds it (``ADAM_LAYERS`` layers, 12 leaves, bf16
+    parameters and gradients, fp32 moments).  ``adam(1e-3).update_`` takes
+    two steps of the whole replica from moments that are not zero (one
+    launch a leaf a step) and the plain version the same two steps on
+    copies: the count of elements of p, m and v whose bits differ must be
+    0.  Then, behind the spin kernel, the MLP stack ``ADAM_STACK`` alone
+    and the whole replica: the kernel (its module's ``_launch``), the
+    plain sliced version and ``torch._fused_adam_`` as the library's
+    yardstick (timed only; its moments follow its parameters' dtype, so it
+    runs on fp32 p, g, m and v of the same lengths, 28 bytes an element)
+    beside the bound, 22 bytes an element at the card's memory rate."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adam_update_, adam_update_ref_, launch_counts, reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.training import adam
+
+    adam_mod = importlib.import_module("repro_torch.kernels.adam")
+    card = f"[{smi}]"
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=ADAM_LAYERS)
+    tree = init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    params = _leaves(tree)
+    n_params = sum(p.numel() for p in params)
+    _require(len(params) == ADAM_LEAVES and n_params == ADAM_PARAMS,
+             f"adam: {len(params)} leaves, {n_params} parameters, not {ADAM_LEAVES} and {ADAM_PARAMS}")
+    gen = torch.Generator("cuda").manual_seed(1)
+
+    def draw(p, scale, dtype):
+        return torch.randn(p.shape, generator=gen, device="cuda").mul_(scale).to(dtype)
+
+    grads = [[draw(p, 1e-3, p.dtype) for p in params] for _ in range(2)]
+    m = [draw(p, 1e-4, torch.float32) for p in params]
+    v = [draw(p, 1e-3, torch.float32).square_() for p in params]
+    copies = [[t.clone() for t in ts] for ts in (params, m, v)]
+    unflat = lambda leaves: _tree_from_leaves(tree, iter(leaves))  # noqa: E731
+    opt = adam(1e-3)
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8, lr_t=1e-3, weight_decay=0.0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for step in range(2):
+        opt.update_(unflat(params), unflat(grads[step]), (unflat(m), unflat(v)), step)
+        mh, vh = _adam_scales(step)
+        for p, g, mm, vv in zip(*copies[:1], grads[step], *copies[1:], strict=True):
+            adam_update_ref_(p, g, mm, vv, mh_scale=mh, vh_scale=vh, **hp)
+    torch.cuda.synchronize()
+    launches = launch_counts()["adam_update"]
+    differ = sum(_bits_differ(a, b) for ts, cs in zip((params, m, v), copies) for a, b in zip(ts, cs, strict=True))
+    print(f"kernel adam_update [phi3 replica, {ADAM_LAYERS} layers] {ADAM_LEAVES} leaves {n_params} parameters "
+          f"bf16 p/g fp32 m/v, 2 steps: {launches} launches, differing elements {differ} {card}", flush=True)
+    _require(launches == 2 * ADAM_LEAVES, f"adam: {launches} launches in 2 steps, not {2 * ADAM_LEAVES}")
+    _require(differ == 0, f"adam: {differ} elements differ between the kernel and its plain version")
+    mh, vh = _adam_scales(1)
+    kw = dict(mh_scale=mh, vh_scale=vh, **hp)
+    g = grads[1]
+    del grads[0], copies
+    torch.cuda.empty_cache()
+    out = {"max_abs_err": 0.0, "differing_elements": differ, "launches_per_replica_step": launches // 2,
+           "sync_free": _sync_free(lambda: adam_update_(params[0], g[0], m[0], v[0], **kw))}
+    stack = next(i for i, p in enumerate(params) if tuple(p.shape) == ADAM_STACK)
+    for label, idx in (("MLP stack", [stack]), ("phi3 replica", range(len(params)))):
+        quads = [(params[i], g[i], m[i], v[i]) for i in idx]
+        numel = sum(q[0].numel() for q in quads)
+        f32 = [[torch.zeros(q[0].shape, device="cuda") for q in quads] for _ in range(4)]
+        steps = [torch.ones((), device="cuda") for _ in quads]
+        iters = 20 if label == "MLP stack" else 5
+        t = {
+            "elements": numel,
+            "ms": _device_ms(lambda: [adam_mod._launch(*q, **kw) for q in quads], iters=iters, warmup=2)[0],
+            "plain_ms": _device_ms(lambda: [adam_update_ref_(*q, **kw) for q in quads], iters=3, warmup=1)[0],
+            "library_ms": _device_ms(lambda: torch._fused_adam_(
+                *f32, [], steps, lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+                maximize=False), iters=iters, warmup=2)[0],
+            "library_bytes": 28 * numel,
+            "bound_ms": 22 * numel / rate * 1e3,
+            "bound_by": "bytes",
+        }
+        t["roofline_pct"] = 100 * t["bound_ms"] / t["ms"]
+        del f32
+        torch.cuda.empty_cache()
+        print(f"kernel adam_update [{label}] {_fmt(t)} {card}", flush=True)
+        out["stack" if label == "MLP stack" else "replica"] = t
+    out.update({k: out["stack"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    return out
+
+
+def _adam_only() -> int:
+    """``--adam``: the kernels' build, ``adam_update``'s registers and
+    spills, then phase 3's ``adam_update`` line (``_adam_phase``) alone;
+    prints one JSON line."""
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels.build import build
+
+    smi = _smi()
+    print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    so, log = build()
+    print(f"build: {so.name} in {time.perf_counter() - t0:.3f}s", flush=True)
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "adam_update_kernel" in line:
+            print(f"build: {line.strip()}", flush=True)
+            for follow in lines[i + 1:i + 4]:
+                if "registers" in follow or "spill" in follow:
+                    print(f"build:   {follow.strip()}", flush=True)
+                    if "spill" in follow:
+                        _require(" 0 bytes spill stores, 0 bytes spill loads" in follow, "adam_update spills")
+    out = _adam_phase(_rates(torch.cuda.get_device_name(0))[0], smi)
+    print(json.dumps({"adam_update": out, "card": smi}), flush=True)
+    return 0
 
 
 def _card_vs_cpu() -> None:
@@ -3050,9 +3200,9 @@ def _train_full(rate: float, smi: str) -> dict:
     tokens for 3 steps: each step's seconds, loss and gradient norm (the
     first loss within 0.5 of ln(vocab) + d_model * 0.02^2 / 2, the
     cross entropy of the random init, every loss finite),
-    peak memory, no kernel launch (launch counts zeroed just before and
-    read just after); then one more step under ``torch.profiler`` (busy
-    share, top kernels)."""
+    peak memory, one ``adam_update`` launch a leaf a step and no other
+    kernel launch (launch counts zeroed just before and read just after);
+    then one more step under ``torch.profiler`` (busy share, top kernels)."""
     import gc
     import math
 
@@ -3082,12 +3232,13 @@ def _train_full(rate: float, smi: str) -> dict:
           f"{cfg.d_ff} vocab {cfg.vocab_size} {cfg.dtype}: {n_params} parameters, {n_bytes} bytes, drawn in "
           f"{time.perf_counter() - t0:.3f}s (memory allocated before: {base} bytes) {card}", flush=True)
     _require(n_params == TRAIN_PARAMS, f"{cfg.name}: {n_params} parameters, not {TRAIN_PARAMS}")
+    n_leaves = len(leaves)
     opt = adam(1e-3)
     state = init_train_state(params, opt)
     del params, leaves
     step = make_train_step(cfg, opt)
     stream = TokenStream(cfg.vocab_size, seed=0)
-    out = {"n_params": n_params, "n_bytes": n_bytes, "step_s": [], "loss": [], "grad_norm": []}
+    out = {"n_params": n_params, "n_bytes": n_bytes, "leaves": n_leaves, "step_s": [], "loss": [], "grad_norm": []}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -3125,7 +3276,9 @@ def _train_full(rate: float, smi: str) -> dict:
     _require(all(math.isfinite(x) for x in out["loss"] + out["grad_norm"]), "train: a non-finite loss or norm")
     _require(abs(out["loss"][0] - init_loss) < 0.5,
              f"train: first loss {out['loss'][0]} not within 0.5 of {init_loss:.4f}, the random-init expectation")
-    _require(not any(counts.values()), f"train: kernel launches {counts} (the training path launches none)")
+    _require(counts["adam_update"] == TRAIN_STEPS * n_leaves
+             and not any(v for k, v in counts.items() if k != "adam_update"),
+             f"train: kernel launches {counts} (the training path launches adam_update once a leaf a step)")
     _require(out["peak_bytes"] < 80e9, "train: peak memory over 80 GB")
     del state, step, batch, m
     gc.collect()
@@ -3280,7 +3433,7 @@ def _build_report(log: str, so, agg_n: int, agg_d: int) -> dict:
     arg_names = {"13__nv_bfloat16": "bf16", "f": "f32", "i": "int32", "l": "int64"}
     name, checked = None, set()
     for line in log.splitlines():
-        m = re.search(r"(segment_aggregate_kernel|aggregate_kernel|flash_attention_kernel|"
+        m = re.search(r"(segment_aggregate_kernel|aggregate_kernel|adam_update_kernel|flash_attention_kernel|"
                       r"flash_attention_wgmma_kernel|topk_gating_group_kernel|topk_gating_kernel)I(.+?)E+v", line)
         if m:
             args = re.findall(r"13__nv_bfloat16|Li\d+|[fil]", m.group(2))
@@ -3630,8 +3783,8 @@ def _sharded_train_full(smi: str, want: dict) -> dict:
     "fsdp", mesh)`` on a (1, 1) ("data", "model") mesh over a one-rank NCCL
     group, the state laid out as DTensors (``shard_train_state``), the same
     seed-0 weights and ``TokenStream`` batches: losses, gradient norms and
-    the parameters' bits (``_bits_checksum``) equal to 11c's, no kernel
-    launch; seconds a step and peak memory beside 11c's."""
+    the parameters' bits (``_bits_checksum``) equal to 11c's, 11c's
+    launches; seconds a step and peak memory beside 11c's."""
     import gc
 
     import numpy as np
@@ -3685,7 +3838,7 @@ def _sharded_train_full(smi: str, want: dict) -> dict:
     _require(out["loss"] == want["loss"] and out["grad_norm"] == want["grad_norm"],
              "13a: the one-rank sharded step's losses or norms differ from 11c's")
     _require(same, "13a: the one-rank sharded step's parameters differ from 11c's")
-    _require(not any(counts.values()), f"13a: kernel launches {counts}")
+    _require(counts == want["launches"], f"13a: kernel launches {counts}, 11c's {want['launches']}")
     out["launches"] = counts
     del state, step, batch, m
     gc.collect()
@@ -3899,9 +4052,11 @@ def main(argv) -> int:
         return 1
     if argv == ["--dist"]:
         return _dist_only()
+    if argv == ["--adam"]:
+        return _adam_only()
     if argv:
         if len(argv) != 2 or argv[0] not in ("--wrappers", "--paths"):
-            print("usage: python3 chip_smoke.py [--wrappers ROOT | --paths ROOT | --dist]", file=sys.stderr)
+            print("usage: python3 chip_smoke.py [--wrappers ROOT | --paths ROOT | --dist | --adam]", file=sys.stderr)
             return 2
         only = _wrappers_only if argv[0] == "--wrappers" else _paths_only
         return only(Path(argv[1]).resolve())
@@ -3935,6 +4090,7 @@ def main(argv) -> int:
     kern["agg"]["layout"] = layout
     kern["flash"] = _flash_phase(rates)
     kern["topk"] = _topk_phase(rates[0], kern["floor"])
+    kern["adam"] = _adam_phase(rates[0], smi)
     lap("phases 1-3")
     _card_vs_cpu()
     _stream_card_vs_cpu()
@@ -4055,6 +4211,12 @@ def main(argv) -> int:
                    ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", *_EXTRA_KEYS) if key in flash["simt"]},
             }
         record.append(entry)
+    adam_k = kern["adam"]
+    record.append({"name": "adam_update", "route": "cuda", "source": ADAM_SOURCE, "replaces": ADAM_REPLACES,
+                   "launches": encdec["train"]["launches"]["adam_update"],
+                   "shape": f"{ADAM_STACK} bf16 p/g, fp32 m/v; replica {ADAM_PARAMS} in {ADAM_LEAVES} leaves",
+                   **{k: adam_k[k] for k in ("max_abs_err", "differing_elements", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms", "replica")}})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all", flush=True)
     print(json.dumps({"kernels": record}), flush=True)
     print(_smi(), flush=True)

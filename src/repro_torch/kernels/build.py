@@ -105,7 +105,10 @@ def sass_instruction_counts(so: Path, kernel: str, opcodes: Tuple[str, ...]) -> 
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
+    "repro_adam_update": [_P, _P, _P, _P, _I64, _I, _I, _I, *[_F] * 9, _I, _P],
     "repro_segment_aggregate_f32": [_P, _P, ctypes.c_int, _P, _P, _I64, _I64, _I64, _P],
     "repro_segment_aggregate_bf16": [_P, _P, ctypes.c_int, _P, _P, _I64, _I64, _I64, _P],
     "repro_aggregate_f32": [_P, _P, _P, _I64, _I64, _P],

@@ -8,11 +8,13 @@ tensors, or one bare tensor such as the cohort's flat (C, D) matrix):
 
 ``adam`` (and ``adamw``) also carry ``update_(params, grads, state,
 step)``: the same arithmetic, operation for operation, written into the
-parameters' and moments' own storage, a slice of each leaf at a time, so
-an update holds one slice's temporaries beside the model (the functional
-form holds a second parameter tree and a second pair of moments, which
-at phi3-mini-3.8b's widths does not fit one 80 GB card beside the
-gradients).  It is bit-identical to ``update``.
+parameters' and moments' own storage by ``kernels.adam_update_``, one call
+a leaf (the functional form holds a second parameter tree and a second
+pair of moments, which at phi3-mini-3.8b's widths does not fit one 80 GB
+card beside the gradients).  On CUDA that is one fused launch a leaf,
+reading p, g, m and v once and writing p, m and v once; on the CPU (and
+meta and fake tensors) its plain version, a 16M-element slice of the leaf
+at a time.  It is bit-identical to ``update``.
 
 ``torch.optim.Adam`` is not used: its operation order differs from the
 reference's, and the engines are held to the reference's trajectory.
@@ -27,10 +29,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.adam import adam_update_
 from repro_torch.utils.tree import tree_leaves, tree_map
-
-# elements of one leaf an in-place update handles at a time
-_SLICE = 1 << 24
 
 
 class Optimizer(NamedTuple):
@@ -106,16 +106,13 @@ def adam(
 
     @torch.no_grad()
     def update_(params, grads, state, step):
-        sc = scales(step)
+        mh_scale, vh_scale, lr_t = scales(step)
         m, v = state
         for p, g, mm, vv in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(m), tree_leaves(v),
                                 strict=True):
-            p1, g1, m1, v1 = p.view(-1), g.reshape(-1), mm.view(-1), vv.view(-1)
-            for i in range(0, p1.numel(), _SLICE):
-                s = slice(i, i + _SLICE)
-                m1[s] = new_m(m1[s], g1[s])
-                v1[s] = new_v(v1[s], g1[s])
-                p1[s] = new_p(p1[s], m1[s], v1[s], *sc)
+            # a gradient may come strided (the leaves are contiguous); the kernel reads it flat
+            adam_update_(p, g.contiguous(), mm, vv, b1=b1, b2=b2, eps=eps, lr_t=lr_t, mh_scale=mh_scale,
+                         vh_scale=vh_scale, weight_decay=weight_decay)
 
     wd = f",wd={weight_decay}" if weight_decay else ""
     return Optimizer(init, update, f"adam(lr={lr}{wd})", update_)

@@ -1122,7 +1122,8 @@ def test_train_step_on_card_matches_cpu(cuda, arch):
     """``make_train_step`` (in-place Adam, ``grad_accum=2``, ``remat=True``)
     for 3 steps on the same parameters and batches: parameters within 5e-4
     of the CPU's (Adam turns 1e-7 gradient differences on near-zero
-    gradients into ~1e-4), losses 1e-5; no kernel launch."""
+    gradients into ~1e-4), losses 1e-5; on the card one ``adam_update``
+    launch a leaf a step, and no other kernel launch."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import init_params
     from repro_torch.training import adam, init_train_state, make_train_step
@@ -1149,7 +1150,8 @@ def test_train_step_on_card_matches_cpu(cuda, arch):
             state, m = step(state, {k: v.to(d) for k, v in b.items()})
             losses[d].append(float(m["total_loss"]))
         final[d] = state.params
-    assert not any(launch_counts().values())
+    counts = launch_counts()
+    assert counts.pop("adam_update") == len(batches) * len(_leaves(params)) and not any(counts.values())
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-5, rtol=0)
     for a, b in zip(_leaves(final["cuda"]), _leaves(final["cpu"]), strict=True):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=5e-4, rtol=0)
@@ -1240,7 +1242,8 @@ def test_one_rank_sharded_step_is_the_unsharded_step_on_card(cuda, mode):
     """``make_train_step(param_pspec=)`` on a (1, 1) ("data", "model") mesh
     over a one-rank NCCL group, the state laid out as DTensors: 2 steps of
     the qwen3 smoke config (grad_accum 2) bit for bit the unsharded
-    step's, and no kernel launch."""
+    step's; one ``adam_update`` launch a local shard a step, and no other
+    kernel launch."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.configs import get_smoke_config
@@ -1276,7 +1279,8 @@ def test_one_rank_sharded_step_is_the_unsharded_step_on_card(cuda, mode):
         runs.append((metrics, tree_leaves(state.params)))
     assert runs[0][0] == runs[1][0]
     assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1], strict=True))
-    assert not any(launch_counts().values())
+    counts = launch_counts()
+    assert counts.pop("adam_update") == 2 * len(batches) * len(runs[0][1]) and not any(counts.values())
 
 
 def test_hfl_param_specs_state_syncs_through_hier_aggregate_on_card(cuda):

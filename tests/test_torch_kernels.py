@@ -14,6 +14,7 @@ torch.set_num_threads(1)
 from repro.kernels.hier_aggregate import hier_aggregate as ref_agg  # noqa: E402
 from repro.kernels.segment_aggregate import hier_segment_aggregate as ref_seg  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
+    adam_update_,
     flash_attention,
     hier_aggregate,
     hier_aggregate_ref,
@@ -218,8 +219,11 @@ def test_cpu_wrappers_launch_nothing():
     qkv = torch.tensor(x[:, :32]).reshape(1, 9, 2, 16)
     flash_attention(qkv, qkv, qkv)
     topk_gating(torch.tensor(x), 2)
+    p, g = torch.tensor(x[0]), torch.tensor(x[1])
+    adam_update_(p, g, torch.zeros_like(p), torch.zeros_like(p), b1=0.9, b2=0.999, eps=1e-8, lr_t=1e-3,
+                 mh_scale=10.0, vh_scale=1000.0)
     assert launch_counts() == {
-        "hier_segment_aggregate": 0, "hier_aggregate": 0, "flash_attention": 0, "topk_gating": 0,
+        "hier_segment_aggregate": 0, "hier_aggregate": 0, "flash_attention": 0, "topk_gating": 0, "adam_update": 0,
     }
 
 

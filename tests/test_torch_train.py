@@ -24,6 +24,7 @@ from repro_torch import training  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.core import optimal_ilp  # noqa: E402
+from repro_torch.kernels import adam as adam_kernel  # noqa: E402
 from repro_torch.kernels import flash_attention, launch_counts, topk_gating  # noqa: E402
 from repro_torch.training import optimizers  # noqa: E402
 
@@ -93,7 +94,7 @@ def test_inplace_update_equals_functional(kw, param_dtype, monkeypatch):
     """``update_`` writes exactly what ``update`` returns, bit for bit,
     into the parameters' and moments' storage, also when a leaf spans
     several slices."""
-    monkeypatch.setattr(optimizers, "_SLICE", 4)
+    monkeypatch.setattr(adam_kernel, "_SLICE", 4)
     kw = dict(kw, schedule=training.cosine_schedule(6, warmup=1)) if kw else kw
     opt = training.adam(3e-2, **kw)
     params = jax.tree.map(lambda t: t.to(param_dtype), _carry(_tree(4)))
